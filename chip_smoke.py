@@ -6,12 +6,15 @@
 Phases, each of which raises on failure:
 
 1. environment: torch and CUDA versions, the card's name and power limit;
-2. build: the three flash-attention kernels from ``ops/cuda/csrc``;
+2. build: the three flash-attention kernels from ``ops/cuda/csrc``, with
+   each kernel's registers, spills and dynamic shared memory;
 3. kernels: each kernel against its plain PyTorch version on the card,
    at the Llama-1.1B train step's attention shape and at one small
    non-causal shape, element by element; planted faults that the same
-   rule must reject; times beside the kernel's bound and PyTorch's own
-   ``scaled_dot_product_attention`` as a yardstick;
+   rule must reject; the forward and dK/dV kernels launched twice at the
+   step's shape, which must give the same bits; times beside the
+   kernel's bound and PyTorch's own ``scaled_dot_product_attention`` as
+   a yardstick;
 4. slice: the Llama-1.1B (TinyLlama shape, 22 layers) train step,
    batch 3 x 2048, through ``make_trainer_for_llama`` on the card --
    launch counts, step time, tokens/s, MFU, peak memory -- and the
@@ -27,6 +30,7 @@ when the package is not beside this file.
 """
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -80,11 +84,13 @@ def nvidia_smi_line() -> str:
 def time_ms(fn, reps: int = 10, warmup_s: float = 0.2) -> float:
     """Device time of one call of ``fn``, in ms: the median over ``reps``
     CUDA-event timings of a batch of back-to-back calls, divided by the
-    batch. The batch (about 10 ms of work) keeps the host's per-call
-    cost -- checks, allocation, the launch itself -- out of the timing,
-    as it is out of a train step, where the host runs ahead. ``fn`` runs
-    for ``warmup_s`` seconds first: the card raises its clocks under
-    load."""
+    batch. Before each batch the card spins for longer than the host
+    takes to queue the batch, so the calls run back to back on the
+    device whatever the host's per-call cost -- checks, allocation, the
+    launch itself -- as in a train step, where the host runs ahead.
+    Without the spin, a function's first timing in a process read up to
+    20% above its later ones (PERF.md). ``fn`` runs for ``warmup_s``
+    seconds first: the card raises its clocks under load."""
     import torch
 
     t0 = time.perf_counter()
@@ -95,10 +101,14 @@ def time_ms(fn, reps: int = 10, warmup_s: float = 0.2) -> float:
         torch.cuda.synchronize()  # keep the host clock on the device's
     per_call_ms = (time.perf_counter() - t0) * 1e3 / n  # an upper bound
     batch = max(1, min(100, int(10.0 / per_call_ms)))
+    # cycles for the host to queue the batch: its per-call time at most,
+    # at the H100's top clock of 1.98 GHz, twice over
+    spin = int(2 * per_call_ms * batch * 1.98e6)
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
         start.record()
         for _ in range(batch):
             fn()
@@ -117,17 +127,40 @@ def phase_env() -> None:
           "nvidia_smi": nvidia_smi_line()})
 
 
+def ptxas_summary(log: str, lib) -> list:
+    """One entry per kernel in nvcc's ``-Xptxas -v`` output: its name
+    (template argument = head_dim), registers, spills, and the dynamic
+    shared memory the library launches it with, where the library
+    reports it (the redesigned kernels; the summing pass takes none)."""
+    smem = {"fwd_kernel": lib.flash_fwd_smem,
+            "dkv_kernel": lib.flash_dkv_smem,
+            "dkv_sum_parts": lambda d: 0}
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '_ZN5flash\d+(\w+?)"
+                      r"(?:ILi(\d+)E)?E", line)
+        if m:
+            name, d = m.group(1), m.group(2)
+            cur = {"kernel": f"{name}<{d}>" if d else name,
+                   "dynamic_smem": (smem[name](int(d or 0)) if name in smem
+                                    else None)}
+            out.append(cur)
+        elif cur is not None and "spill" in line:
+            cur["spill"] = line.strip()
+        elif cur is not None and "registers" in line:
+            cur["ptxas"] = line.split(":", 1)[1].strip()
+    return out
+
+
 def phase_build() -> None:
     from dlrover_tpu_torch.ops.cuda import build
 
     t0 = time.perf_counter()
-    build.load_library()
+    lib = build.load_library()
     seconds = time.perf_counter() - t0
-    ptxas = [line.strip() for line in build.build_log().splitlines()
-             if "registers" in line or "spill" in line]
     emit({"phase": "build", "seconds": round(seconds, 3),
           "nvcc_seconds": round(build.last_build_seconds, 3),
-          "ptxas": ptxas})
+          "kernels": ptxas_summary(build.build_log(), lib)})
 
 
 def _inputs(b, s, h, kvh, d, seed=0):
@@ -260,7 +293,18 @@ def check_kernels(shape, timed: bool):
                    if not e["ok"]]
         out[name] = {"name": name, "errors": errs, "max_abs_err": max(
             e["max_abs_err"] for e in errs.values())}
-    if timed:  # the rule must reject each planted fault
+    if timed:
+        # the redesigned kernels give the same bits on a second launch
+        o2, lse2 = fa.fwd(q, k, v, causal, scale)
+        dk2, dv2 = fa.dkv(*args)
+        torch.cuda.synchronize()
+        bitwise = {"fwd": torch.equal(o, o2) and torch.equal(lse, lse2),
+                   "dkv": torch.equal(dk, dk2) and torch.equal(dv, dv2)}
+        for name, same in bitwise.items():
+            out[name]["bitwise_repeat"] = same
+            if not same:
+                failed.append(f"{name}: two launches differ")
+        # the rule must reject each planted fault
         for name, faults in planted_faults(*args).items():
             readings = []
             for fault, label, bad in faults:
@@ -298,25 +342,35 @@ def check_kernels(shape, timed: bool):
             a, b_, c, is_causal=causal, enable_gqa=True)
 
     lib_out = sdpa(qr, kr, vr)
-    lib_fwd = time_ms(lambda: sdpa(qt, kt, vt))
-    lib_bwd = time_ms(lambda: torch.autograd.grad(
-        lib_out, (qr, kr, vr), dot, retain_graph=True))
-    timings = {
-        "fwd": (lambda: fa.fwd(q, k, v, causal, scale),
-                lambda: fa.fwd_plain(q, k, v, causal, scale), lib_fwd),
-        "dq": (lambda: fa.dq(*args), lambda: fa.dq_plain(*args), lib_bwd),
-        "dkv": (lambda: fa.dkv(*args), lambda: fa.dkv_plain(*args),
-                lib_bwd),
+    calls = {
+        "fwd": lambda: fa.fwd(q, k, v, causal, scale),
+        "dq": lambda: fa.dq(*args),
+        "dkv": lambda: fa.dkv(*args),
+        "sdpa_fwd": lambda: sdpa(qt, kt, vt),
+        "sdpa_bwd": lambda: torch.autograd.grad(
+            lib_out, (qr, kr, vr), dot, retain_graph=True),
     }
-    for name, (kernel, plain, lib_ms) in timings.items():
+    # kernels and yardsticks timed in turns, in order and then back: a
+    # function's first timing in a process can read a few percent high
+    # (PERF.md), so each keeps the lower of its two
+    readings = {name: [] for name in calls}
+    for name in list(calls) + list(calls)[::-1]:
+        readings[name].append(time_ms(calls[name]))
+    library = {"fwd": "sdpa_fwd", "dq": "sdpa_bwd", "dkv": "sdpa_bwd"}
+    plains = {"fwd": lambda: fa.fwd_plain(q, k, v, causal, scale),
+              "dq": lambda: fa.dq_plain(*args),
+              "dkv": lambda: fa.dkv_plain(*args)}
+    for name, plain in plains.items():
         flops, nbytes = work[name]
         t_ops, t_bytes = flops / peak, nbytes / rate
         out[name].update(
-            kernel_ms=time_ms(kernel),
+            kernel_ms=min(readings[name]),
             plain_ms=time_ms(plain, reps=3),
             bound_ms=max(t_ops, t_bytes) * 1e3,
             bound_by="operations" if t_ops >= t_bytes else "bytes",
-            library_ms=lib_ms, flop=flops, bytes=nbytes,
+            library_ms=min(readings[library[name]]), flop=flops,
+            bytes=nbytes, readings_ms=readings[name],
+            library_readings_ms=readings[library[name]],
         )
     return out
 
@@ -331,9 +385,10 @@ def phase_kernels():
     results = check_kernels(SLICE, timed=True)
     for r in results.values():
         emit({"phase": "kernels", "shape": SLICE, "timing": {
-            key: r[key] for key in ("kernel_ms", "plain_ms", "bound_ms",
-                                    "bound_by", "library_ms", "flop",
-                                    "bytes")}})
+            key: r[key] for key in (
+                "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "flop", "bytes", "readings_ms",
+                "library_readings_ms")}})
     return results
 
 
@@ -437,7 +492,8 @@ def phase_slice():
 
 
 def _kernel_group(name: str) -> str:
-    if "fwd_kernel" in name or "dq_kernel" in name or "dkv_kernel" in name:
+    if any(k in name for k in ("fwd_kernel", "dq_kernel", "dkv_kernel",
+                                "dkv_sum_parts")):
         return "flash attention (this port's kernels)"
     low = name.lower()
     if any(t in low for t in ("gemm", "cutlass", "xmma", "nvjet", "cublas")):
@@ -477,6 +533,9 @@ def phase_profile(trainer, mb, step_ms: float, steps: int = 2) -> None:
         key = _kernel_group(name)
         groups[key] = groups.get(key, 0.0) + t
     top = sorted(kernels, key=lambda k: -k[1])[:12]
+    # this port's kernels, each by its own: device ms per launch
+    flash = {re.sub(r"^(void )?flash::|\(.*$", "", n): t / c / 1e3
+             for n, t, c in kernels if _kernel_group(n).startswith("flash")}
     emit({
         "phase": "profile", "steps": steps,
         "profiled_wall_ms_per_step": wall_us / steps / 1e3,
@@ -486,6 +545,7 @@ def phase_profile(trainer, mb, step_ms: float, steps: int = 2) -> None:
                                sorted(groups.items(), key=lambda x: -x[1])},
         "top_kernels": [{"name": n[:90], "ms_per_step": t / steps / 1e3,
                          "calls_per_step": c / steps} for n, t, c in top],
+        "flash_ms_per_launch": flash,
     })
 
 
@@ -515,9 +575,10 @@ def main() -> int:
         })
     emit({"kernels": line})
     print(nvidia_smi_line(), flush=True)
+    # count: the cards this run used -- every phase runs on cuda:0
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}})
+        "count": 1}})
     return 0
 
 

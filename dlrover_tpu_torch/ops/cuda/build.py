@@ -23,13 +23,19 @@ from dlrover_tpu_torch.common.log import default_logger as logger
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("flash_fwd.cu", "flash_dq.cu", "flash_dkv.cu")
-HEADERS = ("flash_common.cuh",)
+HEADERS = ("flash_common.cuh", "flash_sm90.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 LIB_NAME = "libdlrover_flash.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+#: kernels whose warpgroups trade registers with setmaxnreg
+#: (csrc/flash_sm90.cuh), and the registers a thread their launch must
+#: reserve: 65,536 / 384 threads, in ptxas's steps of 8. With fewer,
+#: setmaxnreg.inc waits for registers that never come and the launch hangs.
+WARP_SPECIALIZED = ("fwd_kernel", "dkv_kernel")
+WARP_SPECIALIZED_REGS = 168
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,9 +43,11 @@ _F = ctypes.c_float
 #: C signatures of the library's entry points; every pointer and the
 #: stream are c_void_p so that ctypes passes all 64 bits
 SIGNATURES = {
-    "flash_fwd": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
+    "flash_fwd": [_P] * 5 + [_I] * 5 + [_F, _I, _P, _I, _P],
     "flash_dq": [_P] * 7 + [_I] * 5 + [_F, _I, _P],
-    "flash_dkv": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
+    "flash_dkv": [_P] * 8 + [_I] * 5 + [_F, _I, _P, _I, _I, _P, _P],
+    "flash_fwd_smem": [_I],
+    "flash_dkv_smem": [_I],
 }
 
 _lock = threading.Lock()
@@ -90,6 +98,7 @@ def _compile(nvcc: str, out_dir: Path) -> Path:
         raise RuntimeError(
             f"nvcc failed on {failed}:\n" + "\n".join(logs)
         )
+    check_registers("\n".join(logs))
     lib = out_dir / LIB_NAME
     link = subprocess.run(
         [nvcc, "-shared", *[str(o) for _, o, _ in procs], "-o", str(lib)],
@@ -98,6 +107,28 @@ def _compile(nvcc: str, out_dir: Path) -> Path:
     if link.returncode != 0:
         raise RuntimeError(f"linking {LIB_NAME} failed:\n{link.stdout}")
     return lib
+
+
+def check_registers(log: str) -> None:
+    """Raise unless ptxas (``-Xptxas -v`` output ``log``) gave every
+    instance of the warp-specialized kernels WARP_SPECIALIZED_REGS
+    registers, so that a build that would hang the card is never
+    loaded."""
+    entry, found, wrong = None, set(), []
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = next((k for k in WARP_SPECIALIZED if k in line), None)
+        elif entry and "registers" in line:
+            found.add(entry)
+            if f"Used {WARP_SPECIALIZED_REGS} registers" not in line:
+                wrong.append(f"{entry}: {line.strip()}")
+            entry = None
+    missing = set(WARP_SPECIALIZED) - found
+    if wrong or missing:
+        raise RuntimeError(
+            f"ptxas must give the warp-specialized kernels "
+            f"{WARP_SPECIALIZED_REGS} registers a thread; got {wrong}, no "
+            f"register count for {sorted(missing)}")
 
 
 def build() -> Path:

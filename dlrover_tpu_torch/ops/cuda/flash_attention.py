@@ -24,6 +24,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from dlrover_tpu_torch.ops.cuda import schedule
 from dlrover_tpu_torch.ops.cuda.build import load_library
 
 NEG_INF = -1e30
@@ -32,8 +33,10 @@ LAUNCHES: Dict[str, int] = {"fwd": 0, "dq": 0, "dkv": 0}
 #: head dims the kernels are built for (template instances in csrc/)
 KERNEL_HEAD_DIMS = (64, 128)
 #: the sequence must be a multiple of this, as in the JAX package's
-#: ``_use_pallas`` gate (the kernels' own tile is 64 rows)
+#: ``_use_pallas`` gate (and the kernels' 128-row tiles)
 KERNEL_SEQ_MULTIPLE = 128
+#: work lists on the device, by (kernel, shape, causal, SMs, device)
+_SCHEDULES: Dict[tuple, Tuple[torch.Tensor, int]] = {}
 
 
 def reset_launches() -> None:
@@ -193,6 +196,21 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _schedule(kind: str, costs, key: tuple, device: torch.device
+              ) -> Tuple[torch.Tensor, int]:
+    """(int32 work list on ``device``, CTAs) for ``costs``, built once
+    per shape: ``schedule.lpt`` over one CTA per SM."""
+    workers = torch.cuda.get_device_properties(device).multi_processor_count
+    cache_key = (kind, key, workers, device)
+    if cache_key not in _SCHEDULES:
+        costs = costs()
+        sched = schedule.lpt(costs, workers)
+        _SCHEDULES[cache_key] = (
+            torch.tensor(sched, dtype=torch.int32, device=device),
+            len(sched) - len(costs) - 1)
+    return _SCHEDULES[cache_key]
+
+
 def fwd(q, k, v, causal: bool, scale: float
         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o, lse): the forward kernel on CUDA tensors, ``fwd_plain`` on the
@@ -200,14 +218,19 @@ def fwd(q, k, v, causal: bool, scale: float
     if not q.is_cuda:
         return fwd_plain(q, k, v, causal, scale)
     _check(q, k, v)
+    if not scale > 0:  # the kernel takes the row max on unscaled scores
+        raise ValueError(f"scale {scale}: the forward kernel takes scale > 0")
     b, s, h, kvh, d = _dims(q, k)
     o = torch.empty_like(q)
     lse = torch.empty(b, h, s, device=q.device, dtype=torch.float32)
+    sched, n_ctas = _schedule(
+        "fwd", lambda: schedule.fwd_costs(b, s, h, causal),
+        (b, s, h, causal), q.device)
     with torch.cuda.device(q.device):
         err = load_library().flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), b, s, h, kvh, d, float(scale), int(causal),
-            _stream(q),
+            sched.data_ptr(), n_ctas, _stream(q),
         )
     _raise_on(err, "fwd")
     LAUNCHES["fwd"] += 1
@@ -243,11 +266,20 @@ def dkv(q, k, v, do, lse, delta, causal: bool, scale: float
     b, s, h, kvh, d = _dims(q, k)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    parts = schedule.dkv_parts(h, kvh)
+    sched, n_ctas = _schedule(
+        "dkv", lambda: schedule.dkv_costs(b, s, h, kvh, causal, parts),
+        (b, s, h, kvh, causal, parts), q.device)
+    # fp32 partials of the group's parts, summed by the kernel's second pass
+    partial = (torch.empty((2, parts) + tuple(k.shape), device=q.device,
+                           dtype=torch.float32) if parts > 1 else None)
     with torch.cuda.device(q.device):
         err = load_library().flash_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, s, h, kvh, d, float(scale), int(causal), _stream(q),
+            b, s, h, kvh, d, float(scale), int(causal), sched.data_ptr(),
+            n_ctas, parts, 0 if partial is None else partial.data_ptr(),
+            _stream(q),
         )
     _raise_on(err, "dkv")
     LAUNCHES["dkv"] += 1

@@ -42,11 +42,26 @@ def _assert_close(label, got, want):
     assert reading["ok"], f"{label}: {reading}"
 
 
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("group", [1, 8])
+#: (b, s, h, kvh, d): what 128-row tiles, the persistent schedule and
+#: the split GQA group can get wrong
+SHAPES = {
+    "s256-g1-d64": (2, 256, 2, 2, 64),
+    "s256-g8-d64": (2, 256, 16, 2, 64),
+    "s256-g1-d128": (2, 256, 2, 2, 128),
+    "s256-g8-d128": (2, 256, 16, 2, 128),
+    "s128-one-tile": (1, 128, 4, 2, 64),
+    "s384-odd-tiles": (2, 384, 8, 2, 64),
+    "s384-odd-tiles-d128": (1, 384, 8, 2, 128),
+    "b3-kvh4-g8-s1024": (3, 1024, 32, 4, 64),
+    "b3-kvh4-g8-s1024-d128": (3, 1024, 32, 4, 128),
+}
+
+
+@pytest.mark.parametrize("shape", SHAPES.values(), ids=SHAPES.keys())
 @pytest.mark.parametrize("causal", [True, False])
-def test_kernels_match_plain(cuda, causal, group, d):
-    q, k, v, do = _inputs(cuda, 2, 256, 2 * group, 2, d)
+def test_kernels_match_plain(cuda, causal, shape):
+    b, s, h, kvh, d = shape
+    q, k, v, do = _inputs(cuda, b, s, h, kvh, d)
     scale = d ** -0.5
     o, lse = fa.fwd(q, k, v, causal, scale)
     o_ref, lse_ref = fa.fwd_plain(q, k, v, causal, scale)
@@ -58,6 +73,21 @@ def test_kernels_match_plain(cuda, causal, group, d):
     for label, got, want in zip(("dk", "dv"), fa.dkv(*args),
                                 fa.dkv_plain(*args)):
         _assert_close(label, got, want)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_two_launches_are_bitwise_equal(cuda, causal):
+    """The forward and dK/dV kernels (the latter's group parts summed in
+    a fixed order) give the same bits on every launch."""
+    q, k, v, do = _inputs(cuda, 3, 1024, 32, 4, 64)
+    scale = 0.125
+    o, lse = fa.fwd(q, k, v, causal, scale)
+    o2, lse2 = fa.fwd(q, k, v, causal, scale)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    args = (q, k, v, do, lse, fa.attention_delta(o, do), causal, scale)
+    dk, dv = fa.dkv(*args)
+    dk2, dv2 = fa.dkv(*args)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
 
 
 def test_autograd_counts_one_launch_per_kernel(cuda):
@@ -79,3 +109,5 @@ def test_cuda_inputs_the_kernels_do_not_take_raise(cuda):
     short_q, short_k, short_v, _ = _inputs(cuda, 1, 200, 4, 2, 64)
     with pytest.raises(ValueError):
         attention.flash_attention(short_q, short_k, short_v)
+    with pytest.raises(ValueError, match="scale"):
+        fa.fwd(q, k, v, True, -0.125)
