@@ -11,8 +11,8 @@ Phases, each of which raises on failure:
 3. kernels: each kernel against its plain PyTorch version on the card,
    at the Llama-1.1B train step's attention shape and at one small
    non-causal shape, element by element; planted faults that the same
-   rule must reject; the forward and dK/dV kernels launched twice at the
-   step's shape, which must give the same bits; times beside the
+   rule must reject; each kernel launched twice at the step's shape,
+   which must give the same bits; times beside the
    kernel's bound and PyTorch's own ``scaled_dot_product_attention`` as
    a yardstick;
 4. slice: the Llama-1.1B (TinyLlama shape, 22 layers) train step,
@@ -131,8 +131,9 @@ def ptxas_summary(log: str, lib) -> list:
     """One entry per kernel in nvcc's ``-Xptxas -v`` output: its name
     (template argument = head_dim), registers, spills, and the dynamic
     shared memory the library launches it with, where the library
-    reports it (the redesigned kernels; the summing pass takes none)."""
+    reports it (the summing pass takes none)."""
     smem = {"fwd_kernel": lib.flash_fwd_smem,
+            "dq_kernel": lib.flash_dq_smem,
             "dkv_kernel": lib.flash_dkv_smem,
             "dkv_sum_parts": lambda d: 0}
     out, cur = [], None
@@ -198,25 +199,54 @@ def closeness(label, got, want) -> dict:
     return out
 
 
+def _short_k_loop(s, tile, causal, device):
+    """[s, s] keep-mask of a k loop that stops one ``tile``-key tile
+    short: before the diagonal tile (causal) or the last tile."""
+    import torch
+
+    idx = torch.arange(s, device=device) // tile
+    last = idx if causal else torch.full_like(idx, idx[-1])
+    return idx[None, :] < last[:, None]
+
+
+def _dq_masked(q, k, v, do, lse, delta, keep, scale):
+    """dQ by the equations of ``dq_plain`` with query i seeing key j where
+    ``keep[i, j]``."""
+    import torch
+
+    from dlrover_tpu_torch.ops.cuda import flash_attention as fa
+
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    rows = (b, kvh, h // kvh, s, 1)
+    grouped = (b, s, kvh, h // kvh, d)
+    sc = torch.einsum("bqhgd,bkhd->bhgqk", q.float().reshape(grouped),
+                      k.float()) * scale
+    p = torch.exp(sc.masked_fill(~keep, fa.NEG_INF) - lse.reshape(rows))
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", do.float().reshape(grouped),
+                      v.float())
+    ds = (p * (dp - delta.reshape(rows))).to(k.dtype).float()
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()) * scale
+    return dq.reshape(q.shape).to(q.dtype)
+
+
 def planted_faults(q, k, v, do, lse, delta, causal, scale):
-    """What a kernel with one of four bugs would return, written with the
+    """What a kernel with one of five bugs would return, written with the
     plain versions: {kernel: [(fault, output label, tensor)]}. Each must
     fail ``closeness`` against the sound plain output. Needs a GQA group
     of at least 2 and 2 kv heads."""
-    import torch
-
     from dlrover_tpu_torch.ops.attention import mha_reference
     from dlrover_tpu_torch.ops.cuda import flash_attention as fa
 
     b, s, h, d = q.shape
     kvh = k.shape[2]
-    # the k loop stops one 64-row tile short: the diagonal tile (causal)
-    # or the last tile
-    tile = torch.arange(s, device=q.device) // 64
-    last = tile if causal else torch.full_like(tile, tile[-1])
-    keep = tile[None, :] < last[:, None]
+    # the forward's k loop stops one 64-row tile short
+    keep = _short_k_loop(s, 64, causal, q.device)
     o_short, lse_short = mha_reference(q, k, v, causal=False, scale=scale,
                                        mask=keep, return_lse=True)
+    # dQ's k loop stops one 128-key tile short
+    dq_short = _dq_masked(q, k, v, do, lse, delta,
+                          _short_k_loop(s, 128, causal, q.device), scale)
     # query head i reads kv head i // G - 1 (mod kv heads)
     k_rolled, v_rolled = k.roll(1, dims=2), v.roll(1, dims=2)
     o_head, lse_head = fa.fwd_plain(q, k_rolled, v_rolled, causal, scale)
@@ -238,7 +268,8 @@ def planted_faults(q, k, v, do, lse, delta, causal, scale):
                 ("k loop one tile short", "lse", lse_short),
                 ("wrong kv head", "o", o_head),
                 ("wrong kv head", "lse", lse_head)],
-        "dq": [("wrong kv head", "dq", dq_head)],
+        "dq": [("k loop one tile short", "dq", dq_short),
+               ("wrong kv head", "dq", dq_head)],
         "dkv": [("group sum of one head", "dk", dk_first),
                 ("group sum of one head", "dv", dv_first)],
     }
@@ -294,11 +325,13 @@ def check_kernels(shape, timed: bool):
         out[name] = {"name": name, "errors": errs, "max_abs_err": max(
             e["max_abs_err"] for e in errs.values())}
     if timed:
-        # the redesigned kernels give the same bits on a second launch
+        # every kernel gives the same bits on a second launch
         o2, lse2 = fa.fwd(q, k, v, causal, scale)
+        dq2 = fa.dq(*args)
         dk2, dv2 = fa.dkv(*args)
         torch.cuda.synchronize()
         bitwise = {"fwd": torch.equal(o, o2) and torch.equal(lse, lse2),
+                   "dq": torch.equal(dq, dq2),
                    "dkv": torch.equal(dk, dk2) and torch.equal(dv, dv2)}
         for name, same in bitwise.items():
             out[name]["bitwise_repeat"] = same

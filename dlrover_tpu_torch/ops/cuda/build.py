@@ -34,7 +34,7 @@ NVCC_FLAGS = (
 #: (csrc/flash_sm90.cuh), and the registers a thread their launch must
 #: reserve: 65,536 / 384 threads, in ptxas's steps of 8. With fewer,
 #: setmaxnreg.inc waits for registers that never come and the launch hangs.
-WARP_SPECIALIZED = ("fwd_kernel", "dkv_kernel")
+WARP_SPECIALIZED = ("fwd_kernel", "dq_kernel", "dkv_kernel")
 WARP_SPECIALIZED_REGS = 168
 
 _P = ctypes.c_void_p
@@ -44,9 +44,10 @@ _F = ctypes.c_float
 #: stream are c_void_p so that ctypes passes all 64 bits
 SIGNATURES = {
     "flash_fwd": [_P] * 5 + [_I] * 5 + [_F, _I, _P, _I, _P],
-    "flash_dq": [_P] * 7 + [_I] * 5 + [_F, _I, _P],
+    "flash_dq": [_P] * 7 + [_I] * 5 + [_F, _I, _P, _I, _P],
     "flash_dkv": [_P] * 8 + [_I] * 5 + [_F, _I, _P, _I, _I, _P, _P],
     "flash_fwd_smem": [_I],
+    "flash_dq_smem": [_I],
     "flash_dkv_smem": [_I],
 }
 

@@ -1,6 +1,6 @@
 // Hopper building blocks of the redesigned flash kernels (sm_90a): TMA
 // loads and tensor maps, mbarriers, warpgroup register hand-off, wgmma,
-// and the two tile products both kernels are built from.
+// and the two tile products the kernels are built from.
 //
 // Tiles land in shared memory by TMA with 128-byte swizzle. A tile of R
 // rows x D bf16 columns is D / 64 column blocks, one after another, each

@@ -148,8 +148,6 @@ def shape_error(q_shape, k_shape) -> Optional[str]:
         return (f"head_dim {d} (want one of {KERNEL_HEAD_DIMS}) or seq {s} "
                 f"(want a multiple of {KERNEL_SEQ_MULTIPLE}) not supported "
                 f"by the kernels")
-    if b * h > 65535:
-        return f"batch*heads {b * h} exceeds the launch grid"
     return None
 
 
@@ -245,11 +243,15 @@ def dq(q, k, v, do, lse, delta, causal: bool, scale: float
     _check(q, k, v, do=do, lse=lse, delta=delta)
     b, s, h, kvh, d = _dims(q, k)
     out = torch.empty_like(q)
+    sched, n_ctas = _schedule(
+        "dq", lambda: schedule.dq_costs(b, s, h, causal),
+        (b, s, h, causal), q.device)
     with torch.cuda.device(q.device):
         err = load_library().flash_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), out.data_ptr(),
-            b, s, h, kvh, d, float(scale), int(causal), _stream(q),
+            b, s, h, kvh, d, float(scale), int(causal), sched.data_ptr(),
+            n_ctas, _stream(q),
         )
     _raise_on(err, "dq")
     LAUNCHES["dq"] += 1

@@ -1,30 +1,34 @@
 """Longest-first work lists for the persistent flash kernels.
 
-The forward and dK/dV kernels run one CTA per SM, and each CTA walks its
-own share of a list of work items. Under causal masking the items differ
-in length by up to 16x (a q tile at the end of the sequence sees every k
-tile, the first sees one), so the list is dealt out longest first, each
-item to the CTA with the least work so far (LPT scheduling): every CTA
-ends within about one short item of the others.
+The forward, dQ and dK/dV kernels run one CTA per SM, and each CTA walks
+its own share of a list of work items. Under causal masking the items
+differ in length by up to 16x (a q tile at the end of the sequence sees
+every k tile, the first sees one), so the list is dealt out longest
+first, each item to the CTA with the least work so far (LPT scheduling):
+every CTA ends within about one short item of the others.
 
 A schedule is one int32 array: ``n_ctas + 1`` offsets, then the items in
 CTA order; CTA ``c`` runs ``items[offsets[c]:offsets[c + 1]]`` in that
 order (heaviest first). The item numbering is the kernels' own:
 
-- forward, ``(b * heads + h) * (seq // 128) + q_tile``;
+- forward and dQ, ``(b * heads + h) * (seq // 128) + q_tile``;
 - dK/dV, ``((b * kv_heads + kvh) * parts + part) * (seq // 128) +
   k_tile``, where ``part`` is one of ``parts`` equal slices of the GQA
   group's query heads.
 
 Cost is counted in tile steps of the item's inner loop, plus a constant
-for its prologue and epilogue.
+for its prologue and epilogue: for the forward and dQ, the 128-key k
+tiles the item's 128-row q tile reads (the dQ kernel walks them as 64-key
+tiles at head_dim 128, which doubles every item's steps alike).
 """
 
 import heapq
 from typing import List, Sequence
 
-#: q and k/v tile rows of the forward; k/v tile rows of dK/dV
+#: q and k/v tile rows of the forward; q tile rows of dQ; k/v tile rows
+#: of dK/dV
 FWD_TILE = 128
+DQ_TILE = 128
 DKV_K_TILE = 128
 #: q tile rows of the dK/dV kernel's inner loop
 DKV_Q_TILE = 64
@@ -52,11 +56,23 @@ def lpt(costs: Sequence[int], n_workers: int) -> List[int]:
     return offsets + flat
 
 
-def fwd_costs(b: int, s: int, h: int, causal: bool) -> List[int]:
-    """Cost of each forward item: the k tiles its q tile reads."""
-    nq = s // FWD_TILE
+def _q_tile_costs(b: int, s: int, h: int, causal: bool,
+                  tile: int) -> List[int]:
+    """Cost of each (b, h, q tile) item: the k tiles of ``tile`` keys its
+    q tile of ``tile`` rows reads."""
+    nq = s // tile
     return [(qt + 1 if causal else nq) + ITEM_OVERHEAD
             for _ in range(b * h) for qt in range(nq)]
+
+
+def fwd_costs(b: int, s: int, h: int, causal: bool) -> List[int]:
+    """Cost of each forward item: the k tiles its q tile reads."""
+    return _q_tile_costs(b, s, h, causal, FWD_TILE)
+
+
+def dq_costs(b: int, s: int, h: int, causal: bool) -> List[int]:
+    """Cost of each dQ item: the 128-key k tiles its q tile reads."""
+    return _q_tile_costs(b, s, h, causal, DQ_TILE)
 
 
 def dkv_parts(h: int, kvh: int) -> int:

@@ -1,5 +1,5 @@
-"""Check and time the forward and dK/dV kernels under other work
-schedules than the one they ship with.
+"""Check and time the three flash kernels under other work schedules
+than the one they ship with.
 
     python -m dlrover_tpu_torch.ops.cuda.variants [--rounds N]
 
@@ -8,13 +8,13 @@ other round), it runs the shipped schedule -- one CTA per SM walking a
 longest-first list, the dK/dV kernel's GQA group cut in two parts -- and
 its alternatives: the group in one part or in four, and one CTA per work
 item in the list's order, which leaves the order to the hardware. For
-each it holds forward and dK/dV against their plain versions at six
+each it holds forward, dQ and dK/dV against their plain versions at six
 shapes (``chip_smoke.closeness``), checks that a second launch gives the
-same bits, and times forward, dK/dV, dQ (whose kernel has no schedule:
-the spread between turns) and SDPA's forward at the Llama-1.1B step's
-shape (``chip_smoke.time_ms``). Prints one JSON line per turn, then the
-card's name and power limit; exits 1 if any turn was wrong. PERF.md's
-schedule comparison comes from it.
+same bits, and times forward, dQ, dK/dV and SDPA's forward at the
+Llama-1.1B step's shape (``chip_smoke.time_ms``); the parts of the group
+touch dK/dV only, so dQ's turns under them measure the spread. Prints
+one JSON line per turn, then the card's name and power limit; exits 1 if
+any turn was wrong. PERF.md's schedule comparison comes from it.
 """
 
 import argparse
@@ -73,20 +73,24 @@ def run(name: str) -> dict:
             o_ref, lse_ref = fa.fwd_plain(q, k, v, causal, scale)
             args = (q, k, v, do, lse_ref, fa.attention_delta(o_ref, do),
                     causal, scale)
+            dq = fa.dq(*args)
             dk, dv = fa.dkv(*args)
             dk_ref, dv_ref = fa.dkv_plain(*args)
             readings = [chip_smoke.closeness(label, got, want)
                         for label, got, want in (
                             ("o", o, o_ref), ("lse", lse, lse_ref),
+                            ("dq", dq, fa.dq_plain(*args)),
                             ("dk", dk, dk_ref), ("dv", dv, dv_ref))]
             o2, lse2 = fa.fwd(q, k, v, causal, scale)
+            dq2 = fa.dq(*args)
             dk2, dv2 = fa.dkv(*args)
             r = {"shape": [b, s, h, kvh, d, causal],
                  "ok": all(x["ok"] for x in readings),
                  "worst_atol_needed": max(x.get("atol_needed", 0.0)
                                           for x in readings),
                  "bitwise": all(torch.equal(x, y) for x, y in (
-                     (o, o2), (lse, lse2), (dk, dk2), (dv, dv2)))}
+                     (o, o2), (lse, lse2), (dq, dq2), (dk, dk2),
+                     (dv, dv2)))}
             if (b, s) == (3, 2048):
                 qt, kt, vt = (x.transpose(1, 2).contiguous()
                               for x in (q, k, v))

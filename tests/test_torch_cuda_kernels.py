@@ -77,14 +77,15 @@ def test_kernels_match_plain(cuda, causal, shape):
 
 @pytest.mark.parametrize("causal", [True, False])
 def test_two_launches_are_bitwise_equal(cuda, causal):
-    """The forward and dK/dV kernels (the latter's group parts summed in
-    a fixed order) give the same bits on every launch."""
+    """The forward, dQ and dK/dV kernels (the latter's group parts summed
+    in a fixed order) give the same bits on every launch."""
     q, k, v, do = _inputs(cuda, 3, 1024, 32, 4, 64)
     scale = 0.125
     o, lse = fa.fwd(q, k, v, causal, scale)
     o2, lse2 = fa.fwd(q, k, v, causal, scale)
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
     args = (q, k, v, do, lse, fa.attention_delta(o, do), causal, scale)
+    assert torch.equal(fa.dq(*args), fa.dq(*args))
     dk, dv = fa.dkv(*args)
     dk2, dv2 = fa.dkv(*args)
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)

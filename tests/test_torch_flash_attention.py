@@ -138,6 +138,8 @@ def test_mha_reference_fully_masked_row():
     ((1, 256, 4, 64), (1, 128, 2, 64), False),  # kv_len != q_len
     ((1, 256, 4, 192), (1, 256, 2, 192), False),  # no 192 kernel instance
     ((1, 192, 4, 128), (1, 192, 2, 128), False),  # seq % 128, not % 64
+    # batch * heads past 65535: every kernel runs a persistent grid
+    ((4097, 128, 16, 64), (4097, 128, 2, 64), True),
 ])
 def test_kernel_gate(q_shape, k_shape, ok):
     """One gate: the wrappers raise with its message, and the CPU
@@ -210,7 +212,7 @@ def test_kernel_rule_rejects_planted_faults(causal):
         assert reading["ok"], (label, reading)
 
     faults = planted_faults(*args)
-    assert sum(len(f) for f in faults.values()) == 7
+    assert sum(len(f) for f in faults.values()) == 8
     for name, items in faults.items():
         for fault, label, bad in items:
             reading = closeness(label, bad, plain[label])

@@ -18,6 +18,8 @@ def _cases():
             parts = schedule.dkv_parts(h, kvh)
             yield (f"fwd-{b}x{s}x{h}-{'causal' if causal else 'full'}",
                    schedule.fwd_costs(b, s, h, causal))
+            yield (f"dq-{b}x{s}x{h}-{'causal' if causal else 'full'}",
+                   schedule.dq_costs(b, s, h, causal))
             yield (f"dkv-{b}x{s}x{h}x{kvh}-{'causal' if causal else 'full'}",
                    schedule.dkv_costs(b, s, h, kvh, causal, parts))
 
@@ -70,6 +72,26 @@ def test_fwd_costs_follow_the_kernel_numbering(causal):
         qt = item % nq  # the kernel's decode: (b * h + h_i) * nq + qt
         tiles = qt + 1 if causal else nq
         assert cost == tiles + schedule.ITEM_OVERHEAD
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_dq_costs_follow_the_kernel_numbering(causal):
+    b, s, h = 2, 512, 3
+    nq = s // schedule.DQ_TILE
+    costs = schedule.dq_costs(b, s, h, causal)
+    assert len(costs) == b * h * nq
+    for item, cost in enumerate(costs):
+        qt = item % nq  # the kernel's decode: (b * h + h_i) * nq + qt
+        tiles = qt + 1 if causal else nq
+        assert cost == tiles + schedule.ITEM_OVERHEAD
+
+
+def test_dq_schedule_at_the_step_shape():
+    """1,536 items and 13,056 128-key steps at the Llama-1.1B step: about
+    99 steps for each of an H100's 132 SMs."""
+    costs = schedule.dq_costs(3, 2048, 32, True)
+    steps = sum(c - schedule.ITEM_OVERHEAD for c in costs)
+    assert (len(costs), steps) == (1536, 13056)
 
 
 @pytest.mark.parametrize("causal", [True, False])
