@@ -22,18 +22,29 @@ Phases, each of which raises on failure:
    ``mha_reference``, with a wrong attention that must fail the gate;
 5. profile: torch.profiler over two more train steps -- device time by
    kernel group, the top kernels and the device's idle share;
-6. the kernels line (one JSON object), then the card's name and power
+6. elastic: the elastic loop at the same width -- the master's data
+   shards through a ShardingClient, ElasticTrainer steps, flash
+   checkpoints at steps 4 and 8 -- then a crash, a fresh trainer
+   restored from step 4 on the RAM tier (model, optimizer and data
+   position), steps 5-8 again, and a restore from the persist tier:
+   state checksums, shards and losses against the uninterrupted run,
+   stall, staging, serialize, persist and restore times;
+7. the kernels line (one JSON object), then the card's name and power
    limit, then the device line, last.
 
 Exits non-zero, and prints no result, when there is no CUDA device or
 when the package is not beside this file.
 """
 
+import gc
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -582,6 +593,280 @@ def phase_profile(trainer, mb, step_ms: float, steps: int = 2) -> None:
     })
 
 
+#: the elastic loop: steps per run, the save cadence, the dataset rows
+#: (one minibatch of SLICE["b"] rows per shard, in order)
+ELASTIC_STEPS, SAVE_INTERVAL, ELASTIC_ROWS = 8, 4, 48
+#: steps after the first one past the restore: their losses within this
+#: relative distance of the uninterrupted run's (a backward op that
+#: sums with atomics may move the last bits)
+RESUME_LOSS_RTOL = 1e-3
+
+
+def state_checksums(tree) -> dict:
+    """Key path -> a position-weighted integer checksum of each tensor's
+    bits, computed on the card (other leaves as they are): equal
+    checksums mean equal bits, wherever the tensor was restored from."""
+    import torch
+
+    from dlrover_tpu_torch.trainer import ckpt_store
+
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = {}
+    for path, leaf in ckpt_store.flatten_with_path(tree):
+        key = "/".join(str(c.get("k", c.get("i"))) for c in path)
+        if not isinstance(leaf, torch.Tensor):
+            out[key] = leaf
+            continue
+        bits = leaf.detach().reshape(-1).view(
+            ints[leaf.element_size()]).long()
+        weight = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        out[key] = int((bits * weight).sum())
+    return out
+
+
+def _elastic_dirs(state_bytes: int):
+    """(ram_dir, persist_dir, how the RAM tier was placed): the RAM tier
+    on /dev/shm when it has twice the state free, else in the temporary
+    directory, which also holds the persist tier."""
+    tmp = tempfile.mkdtemp(prefix="dlrover_elastic_")
+    shm_free = (shutil.disk_usage("/dev/shm").free
+                if os.path.isdir("/dev/shm") else 0)
+    if shm_free >= 2 * state_bytes:
+        ram = tempfile.mkdtemp(prefix="dlrover_elastic_", dir="/dev/shm")
+    else:
+        ram = os.path.join(tmp, "ram")
+    need = (2 if ram.startswith(tmp) else 0) * state_bytes + 2 * state_bytes
+    tmp_free = shutil.disk_usage(tmp).free
+    if tmp_free < need * 1.1:
+        raise RuntimeError(
+            f"{tmp} has {tmp_free} bytes free, the checkpoints need {need}")
+    return ram, os.path.join(tmp, "persist"), {
+        "ram_dir": ram, "dev_shm_free_bytes": shm_free,
+        "tmp_dir": tmp, "tmp_free_bytes": tmp_free}
+
+
+def _elastic_run(cfg, seed: int, ram_dir: str, persist_dir: str,
+                 restore_step=None, save: bool = True):
+    """One incarnation of the elastic loop on the card: a fresh master,
+    trainer (initialized from ``seed``), sharding client and
+    checkpointer; restore ``restore_step`` first when given. Runs to
+    ELASTIC_STEPS and returns what it saw."""
+    import torch
+
+    from dlrover_tpu_torch.agent.master_client import build_master_client
+    from dlrover_tpu_torch.agent.sharding.client import ShardingClient
+    from dlrover_tpu_torch.examples.llama_train import (
+        checkpoint_state,
+        synth_batch,
+    )
+    from dlrover_tpu_torch.ops.cuda import flash_attention as fa
+    from dlrover_tpu_torch.trainer import ckpt_store
+    from dlrover_tpu_torch.trainer.checkpoint import FlashCheckpointer
+    from dlrover_tpu_torch.trainer.elastic import ElasticTrainer
+    from dlrover_tpu_torch.trainer.sharded import (
+        adamw,
+        make_trainer_for_llama,
+    )
+
+    client = build_master_client()
+    trainer = make_trainer_for_llama(
+        cfg, strategy="ddp", optimizer=adamw(1e-4, b1=0.9, b2=0.95))
+    trainer.init(seed=seed)
+    elastic = ElasticTrainer(trainer, max_nodes=1, cur_nodes=1,
+                             master_client=client)
+    sharding = ShardingClient(
+        "elastic", SLICE["b"], num_epochs=1, dataset_size=ELASTIC_ROWS,
+        shuffle=False, num_minibatches_per_shard=1, master_client=client)
+    ckpt = FlashCheckpointer(persist_dir, ram_dir=ram_dir,
+                             persist_interval=SAVE_INTERVAL,
+                             max_ram_keep=2, max_persist_keep=2)
+    out = {"start_step": 0, "shards": {}, "losses": {}, "step_ms": {},
+           "stall_ms": {}}
+    if restore_step is not None:
+        restored, step = ckpt.restore(
+            target={**trainer.train_state(), "step": 0, "data": ""},
+            step=restore_step)
+        if step != restore_step:
+            raise AssertionError(f"restored step {step}, want {restore_step}")
+        trainer.load_train_state(restored)
+        if not sharding.restore_shard_from_checkpoint(restored["data"]):
+            raise AssertionError("the master refused the shard checkpoint")
+        out["start_step"] = int(restored["step"])
+        out["restore"] = dict(ckpt.last_restore_stats)
+        out["restored_checksums"] = state_checksums(
+            {**trainer.train_state(), "step": restored["step"],
+             "data": restored["data"]})
+        del restored
+    if save:
+        elastic.attach_checkpointer(ckpt, save_interval=SAVE_INTERVAL)
+        # page-lock the staging block while the first steps run
+        ckpt.prepare(checkpoint_state(trainer, 0, sharding))
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    step = out["start_step"]
+    while step < ELASTIC_STEPS:
+        shard = sharding.fetch_shard()
+        if shard is None:
+            raise AssertionError(f"the dataset ran out at step {step}")
+        batch = trainer.shard_batch(elastic.microbatch(synth_batch(
+            shard.start, shard.end, SLICE["s"], cfg.vocab_size)))
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = elastic.train_step(batch)
+        stop.record()
+        step += 1
+        out["losses"][step] = elastic.report_step(step, loss=loss)
+        sharding.report_batch_done()
+        out["shards"][step] = (shard.start, shard.end)
+        if save and elastic.checkpoint_due(step):
+            out.setdefault("checksums", {})[step] = state_checksums(
+                checkpoint_state(trainer, step, sharding))
+        stall = elastic.maybe_checkpoint(
+            lambda: checkpoint_state(trainer, step, sharding))
+        if stall is not None:
+            out["stall_ms"][step] = stall
+        stop.synchronize()
+        out["step_ms"][step] = start.elapsed_time(stop)
+    out["launches"] = dict(fa.LAUNCHES)
+    ckpt.close()
+    out["saves"] = {s: {k: v for k, v in st.items() if k != "t0"}
+                    for s, st in ckpt.save_stats.items()}
+    out["state_bytes"] = sum(
+        t.numel() * t.element_size()
+        for _, t in ckpt_store.flatten_with_path(trainer.train_state())
+        if isinstance(t, torch.Tensor))
+    sharding.stop()
+    return out
+
+
+def phase_elastic() -> dict:
+    """The elastic loop at full width: run A saves at steps 4 and 8;
+    after a crash run B restores step 4 from the RAM tier into a trainer
+    initialized from another seed and trains steps 5-8 again; then step
+    4 is restored from the persist tier with the RAM tier deleted."""
+    import torch
+
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.trainer import ckpt_store
+    from dlrover_tpu_torch.trainer.checkpoint import FlashCheckpointer
+    from dlrover_tpu_torch.trainer.sharded import make_trainer_for_llama
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = llama.llama_1b(remat="dots_attn_out")
+    # bf16 parameters but the fp32 norm weights, and AdamW's two moments
+    # in the parameters' dtypes
+    norms = (2 * cfg.num_layers + 1) * cfg.hidden_size
+    state_bytes = 3 * (2 * (llama.param_count(cfg) - norms) + 4 * norms)
+    ram_dir, persist_dir, placed = _elastic_dirs(state_bytes)
+    try:
+        run_a = _elastic_run(cfg, 0, ram_dir, persist_dir)
+        # the crash: every object of run A is gone, the card emptied
+        gc.collect()
+        torch.cuda.empty_cache()
+        run_b = _elastic_run(cfg, 1, ram_dir, persist_dir,
+                             restore_step=SAVE_INTERVAL, save=False)
+        gc.collect()
+        torch.cuda.empty_cache()
+        target_trainer = make_trainer_for_llama(cfg, strategy="ddp")
+        target_trainer.init(seed=2)
+        target = {**target_trainer.train_state(), "step": 0, "data": ""}
+        # what the digests cost: both archives read without them
+        unverified = {}
+        for tier, path in (
+                ("ram", os.path.join(
+                    ram_dir, f"step-{SAVE_INTERVAL}-proc-0")),
+                ("persist", os.path.join(
+                    persist_dir, ckpt_store.step_key(SAVE_INTERVAL, 0)))):
+            t0 = time.perf_counter()
+            with open(path, "rb") as f:
+                tree, _ = ckpt_store.snapshot_from_file(
+                    f, target, verify=False)
+            torch.cuda.synchronize()
+            unverified[tier] = time.perf_counter() - t0
+            del tree
+        # the persist tier alone: the RAM tier is deleted first
+        shutil.rmtree(ram_dir)
+        ckpt = FlashCheckpointer(persist_dir, ram_dir=ram_dir)
+        restored, step = ckpt.restore(target=target, step=SAVE_INTERVAL)
+        persist = dict(ckpt.last_restore_stats or {})
+        persist_checksums = state_checksums(restored)
+        del restored, target, target_trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(placed["tmp_dir"], ignore_errors=True)
+        shutil.rmtree(ram_dir, ignore_errors=True)
+
+    failed = []
+    want = run_a["checksums"][SAVE_INTERVAL]
+    if run_b["restored_checksums"] != want:
+        failed.append("RAM-tier restore: state checksums differ from step "
+                      f"{SAVE_INTERVAL}'s")
+    if step != SAVE_INTERVAL or persist.get("tier") != "persistent":
+        failed.append(f"persist tier restored step {step} from {persist}")
+    if persist_checksums != want:
+        failed.append("persist-tier restore: state checksums differ")
+    if run_a["state_bytes"] != state_bytes:
+        failed.append(f"state of {run_a['state_bytes']} bytes, "
+                      f"{state_bytes} expected")
+    if run_b["restore"].get("tier") != "ram":
+        failed.append(f"run B restored from {run_b['restore']}")
+    resumed = range(SAVE_INTERVAL + 1, ELASTIC_STEPS + 1)
+    if [run_b["shards"].get(s) for s in resumed] != [
+            run_a["shards"][s] for s in resumed]:
+        failed.append(f"shards after restore {run_b['shards']} != run A's "
+                      f"{run_a['shards']}")
+    first = SAVE_INTERVAL + 1
+    bitwise = {s: run_b["losses"].get(s) == run_a["losses"][s]
+               for s in resumed}
+    rel = {s: abs(run_b["losses"][s] - run_a["losses"][s])
+           / abs(run_a["losses"][s]) for s in resumed}
+    if not bitwise[first]:
+        failed.append(f"step {first} loss {run_b['losses'][first]!r} != "
+                      f"run A's {run_a['losses'][first]!r}")
+    failed += [f"step {s} loss off by {r:.2e} relative" for s, r in
+               rel.items() if r > RESUME_LOSS_RTOL]
+    for name, run in (("A", run_a), ("B", run_b)):
+        steps = len(run["losses"])
+        for kernel, n in run["launches"].items():
+            if n != cfg.num_layers * steps:
+                failed.append(f"run {name}: {kernel} launched {n} times in "
+                              f"{steps} steps")
+    overlap = run_a["step_ms"][SAVE_INTERVAL + 1]
+    plain = statistics.median(run_a["step_ms"][s] for s in (2, 3, 6, 7))
+    emit({
+        "phase": "elastic", "model": "llama_1b", "remat": cfg.remat,
+        "batch": SLICE["b"], "seq": SLICE["s"], "steps": ELASTIC_STEPS,
+        "save_interval": SAVE_INTERVAL, "dataset_rows": ELASTIC_ROWS,
+        "state_bytes": state_bytes, **placed,
+        "shards_a": run_a["shards"], "shards_b": run_b["shards"],
+        "losses_a": run_a["losses"], "losses_b": run_b["losses"],
+        "loss_bitwise": bitwise, "loss_rel_err": rel,
+        "stall_ms": run_a["stall_ms"], "saves": run_a["saves"],
+        "step_ms_a": run_a["step_ms"], "step_ms_b": run_b["step_ms"],
+        "step_ms_overlapping_copy": overlap, "step_ms_plain": plain,
+        "restore_ram": run_b["restore"], "restore_persist": persist,
+        "restore_s_without_digest": unverified,
+        "copy_gb_per_s": {
+            s: state_bytes / st["copy_s"] / 1e9
+            for s, st in run_a["saves"].items() if st.get("copy_s")},
+        "checksums_equal": {
+            "ram": run_b["restored_checksums"] == want,
+            "persist": persist_checksums == want},
+        "launches_per_step": {
+            "a": {k: n / len(run_a["losses"])
+                  for k, n in run_a["launches"].items()},
+            "b": {k: n / len(run_b["losses"])
+                  for k, n in run_b["launches"].items()}},
+        "nvidia_smi": nvidia_smi_line(),
+    })
+    if failed:
+        raise AssertionError("elastic: " + "; ".join(failed))
+    return run_a
+
+
 def main() -> int:
     if not (ROOT / "dlrover_tpu_torch" / "__init__.py").exists():
         print("chip_smoke: dlrover_tpu_torch is not beside this script",
@@ -597,6 +882,7 @@ def main() -> int:
     phase_build()
     kernels = phase_kernels()
     launches = phase_slice()
+    phase_elastic()
     line = []
     for name, r in kernels.items():
         line.append({

@@ -1,0 +1,158 @@
+"""Elastic training workload: Llama fed by the master's data shards.
+
+    python -m dlrover_tpu_torch.examples.llama_train --steps 50 \
+        --ckpt-dir /tmp/llama_ckpt              # on the GPU
+    python -m dlrover_tpu_torch.examples.llama_train --steps 50 \
+        --ckpt-dir /tmp/llama_ckpt --device cpu
+
+Counterpart of ``examples/llama_train.py``: master dataset sharding ->
+ShardingClient -> ElasticTrainer driving the ShardedTrainer step ->
+FlashCheckpointer, and on a restart the restore of model, optimizer and
+data position. The one difference: batches come from a ShardingClient
+in this process, since the shm data plane (``ElasticShmDataLoader``) is
+not ported yet (ROADMAP.md, queue A). Each shard's tokens are made from
+its sample index, as the JAX example's ``synth_batch`` makes them, so
+every shard is reproducible. Prints ``RESTORED from step k`` after a
+restore and ``FINAL step=N loss=...`` at the end, as the JAX example
+does; ``--out`` gets ``step,loss,start_step``.
+
+The checkpointed state is ``{"model": {name: parameter}, "optimizer":
+{"mu": ..., "nu": ..., "count": ...}, "step": N, "data": <the shard
+checkpoint JSON>}``.
+"""
+
+import argparse
+import os
+import sys
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from dlrover_tpu_torch.agent.master_client import build_master_client
+from dlrover_tpu_torch.agent.sharding.client import ShardingClient
+from dlrover_tpu_torch.models import llama
+from dlrover_tpu_torch.trainer.checkpoint import FlashCheckpointer
+from dlrover_tpu_torch.trainer.distributed import init_from_env
+from dlrover_tpu_torch.trainer.elastic import ElasticTrainer
+from dlrover_tpu_torch.trainer.sharded import adamw, make_trainer_for_llama
+
+DATASET = "llama-train"
+
+
+def synth_batch(start: int, end: int, seq_len: int = 128,
+                vocab: int = 256):
+    """One shard's batch. A real job reads and tokenizes a corpus slice
+    here; the synthetic stream is seeded by the sample index so every
+    shard is reproducible (the JAX example's ``synth_batch``)."""
+    rng = np.random.default_rng(start)
+    tokens = rng.integers(
+        0, vocab, (end - start, seq_len), dtype=np.int32
+    ).astype(np.int64)
+    return tokens, tokens
+
+
+def checkpoint_state(trainer, step: int, sharding: ShardingClient) -> Dict:
+    return {**trainer.train_state(), "step": step,
+            "data": sharding.get_shard_checkpoint()}
+
+
+def run(steps: int, ckpt_dir: str, batch_size: int = 8, seq_len: int = 128,
+        device: Optional[str] = None, save_interval: int = 10,
+        seed: int = 0, cfg: Optional[llama.LlamaConfig] = None,
+        lr: float = 1e-3) -> Dict:
+    """Train to ``steps``, resuming from ``ckpt_dir`` when it holds a
+    checkpoint. Returns what happened: the start step, each step's
+    (start, end) shard and loss, and the final step. The default model
+    is llama_tiny at the flash kernels' head_dim of 64, so that it runs
+    on the card too (``seq_len`` a multiple of 128 there)."""
+    cfg = cfg or llama.llama_tiny(hidden_size=128, num_heads=2,
+                                  num_kv_heads=1)
+    client = build_master_client()
+    trainer = make_trainer_for_llama(cfg, device=device,
+                                     optimizer=adamw(lr))
+    trainer.init(seed=seed)
+    elastic = ElasticTrainer(trainer, max_nodes=1, cur_nodes=1,
+                             master_client=client, report_interval=5)
+    sharding = ShardingClient(
+        DATASET, batch_size, num_epochs=10**6,  # stream until --steps
+        dataset_size=steps * batch_size, shuffle=False,
+        num_minibatches_per_shard=1, master_client=client,
+    )
+    ckpt = FlashCheckpointer(
+        persist_dir=os.path.join(ckpt_dir, "persist"),
+        ram_dir=os.path.join(ckpt_dir, "ram"), persist_interval=0,
+    )
+    restored, _ = ckpt.restore(
+        target={**trainer.train_state(), "step": 0, "data": ""})
+    start_step = 0
+    if restored is not None:
+        trainer.load_train_state(restored)
+        start_step = int(restored["step"])
+        if restored["data"] and not sharding.restore_shard_from_checkpoint(
+                restored["data"]):
+            raise RuntimeError("the master refused the shard checkpoint")
+        print(f"RESTORED from step {start_step}", flush=True)
+    elastic.attach_checkpointer(ckpt, save_interval=save_interval)
+    # page-lock the staging block while the first steps run
+    ckpt.prepare(checkpoint_state(trainer, start_step, sharding))
+
+    step, loss = start_step, float("nan")
+    shards: List = []
+    losses: List[float] = []
+    try:
+        while step < steps:
+            shard = sharding.fetch_shard()
+            if shard is None:
+                break
+            batch = trainer.shard_batch(elastic.microbatch(
+                synth_batch(shard.start, shard.end, seq_len,
+                            cfg.vocab_size)))
+            step += 1
+            loss = elastic.report_step(step, loss=elastic.train_step(batch))
+            sharding.report_batch_done()
+            shards.append((shard.start, shard.end))
+            losses.append(loss)
+            # durable: a crash drill hard-kills shortly after a cadence
+            # step -- the archive must already be on the RAM tier
+            elastic.maybe_checkpoint(
+                lambda: checkpoint_state(trainer, step, sharding),
+                durable=True)
+    finally:
+        sharding.stop()
+        # flush the async save pipeline before exit
+        ckpt.close()
+    return {"start_step": start_step, "step": step, "loss": loss,
+            "shards": shards, "losses": losses}
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--steps", type=int, default=50)
+    parser.add_argument("--batch-size", type=int, default=8)
+    parser.add_argument("--seq-len", type=int, default=128)
+    parser.add_argument("--save-interval", type=int, default=10)
+    parser.add_argument("--ckpt-dir", type=str, default="/tmp/llama_ckpt")
+    parser.add_argument("--device", type=str, default=None,
+                        help="default: the GPU")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--out", type=str, default="")
+    args = parser.parse_args(argv)
+
+    t0 = time.time()
+    init_from_env(device=args.device)
+    result = run(args.steps, args.ckpt_dir, batch_size=args.batch_size,
+                 seq_len=args.seq_len, device=args.device,
+                 save_interval=args.save_interval, seed=args.seed)
+    print(f"FINAL step={result['step']} loss={result['loss']:.6f}",
+          flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(f"{result['step']},{result['loss']:.6f},"
+                    f"{result['start_step']}")
+    print(f"elapsed {time.time() - t0:.1f} s", file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -367,6 +367,8 @@ _NORMS = ("attn_norm", "mlp_norm")
 
 
 def _tensor(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):  # e.g. read from a JAX checkpoint
+        return a.detach().clone()
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         # ml_dtypes' bfloat16, which torch.from_numpy rejects; float32

@@ -11,7 +11,7 @@ AdamW, as the JAX step hands it to optax.
 """
 
 from dataclasses import dataclass
-from typing import Callable, Iterable, List, Optional
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -90,6 +90,23 @@ class Fp32GradAdamW:
             p.copy_(p.float() + u)
 
 
+def _init_adamw_state(opt: torch.optim.AdamW) -> None:
+    """Create AdamW's per-parameter state now, as its first step would
+    (zero moments in the parameter's dtype, a step count of 0), so the
+    state exists -- and a checkpoint of it has one layout -- from the
+    start."""
+    for group in opt.param_groups:
+        for p in group["params"]:
+            if p.requires_grad and not opt.state[p]:
+                opt.state[p] = {
+                    "step": torch.zeros((), dtype=torch.float32),
+                    "exp_avg": torch.zeros_like(
+                        p, memory_format=torch.preserve_format),
+                    "exp_avg_sq": torch.zeros_like(
+                        p, memory_format=torch.preserve_format),
+                }
+
+
 class ShardedTrainer:
     """Owns the model and its optimizer; ``train_step`` runs one update.
 
@@ -132,6 +149,10 @@ class ShardedTrainer:
         self._make_optimizer = optimizer
         self.model: Optional[nn.Module] = None
         self.optimizer = None
+        #: called right before the optimizer's in-place writes of each
+        #: step (the elastic loop orders them after a checkpoint's
+        #: device-to-host copies here)
+        self.before_update: Optional[Callable[[], None]] = None
 
     def init(self, seed: int = 0, model: Optional[nn.Module] = None):
         """Initialize (model, optimizer): ``init_fn(seed)``, or the given
@@ -141,6 +162,8 @@ class ShardedTrainer:
         self.model = model.to(self.device)
         if self.accum_steps == 1:
             self.optimizer = self._make_optimizer(self.model.parameters())
+            if isinstance(self.optimizer, torch.optim.AdamW):
+                _init_adamw_state(self.optimizer)
         else:
             self.optimizer = Fp32GradAdamW(self._trained(),
                                            self._make_optimizer)
@@ -149,14 +172,98 @@ class ShardedTrainer:
     def _trained(self) -> List[nn.Parameter]:
         return [p for p in self.model.parameters() if p.requires_grad]
 
+    def _named_trained(self) -> List[Tuple[str, nn.Parameter]]:
+        return [(n, p) for n, p in self.model.named_parameters()
+                if p.requires_grad]
+
+    def _moments(self):
+        """(mu, nu, count): the optimizer's moments as lists in parameter
+        order, and its update count -- optax's ``ScaleByAdamState``."""
+        opt = self.optimizer
+        if isinstance(opt, Fp32GradAdamW):
+            return opt.mu, opt.nu, opt.count
+        if not isinstance(opt, torch.optim.AdamW):
+            raise TypeError(
+                f"train state of a {type(opt).__name__}: only AdamW "
+                "(torch.optim.AdamW or Fp32GradAdamW) is carried")
+        states = [opt.state[p] for p in self._trained()]
+        count = int(states[0]["step"]) if states else 0
+        return ([s["exp_avg"] for s in states],
+                [s["exp_avg_sq"] for s in states], count)
+
+    def train_state(self) -> Dict[str, Any]:
+        """The live training state, without copies: ``{"model": {name:
+        parameter}, "optimizer": {"mu": {name: moment}, "nu": {name:
+        moment}, "count": updates}}``, the layout a checkpoint saves."""
+        names = [n for n, _ in self._named_trained()]
+        mu, nu, count = self._moments()
+        return {
+            "model": {n: p.detach() for n, p in self._named_trained()},
+            "optimizer": {"mu": dict(zip(names, mu)),
+                          "nu": dict(zip(names, nu)), "count": count},
+        }
+
+    @torch.no_grad()
+    def load_train_state(self, state: Dict[str, Any]) -> None:
+        """Copy a :meth:`train_state` tree (from a checkpoint) into the
+        live parameters and optimizer, in place. The moments' dtype picks
+        the optimizer as optax's state would: moments in the parameters'
+        dtype keep ``torch.optim.AdamW`` at one microbatch, fp32 moments
+        of lower-precision parameters mean :class:`Fp32GradAdamW`."""
+        named = self._named_trained()
+        if set(state["model"]) != {n for n, _ in named}:
+            raise ValueError("checkpoint parameters differ from the model's")
+        for n, p in named:
+            p.copy_(state["model"][n])
+        opt = state["optimizer"]
+        mu = [opt["mu"][n] for n, _ in named]
+        nu = [opt["nu"][n] for n, _ in named]
+        self._set_optimizer(mu, nu, int(opt["count"]))
+
+    def set_accum_steps(self, accum_steps: int) -> None:
+        """Change the microbatches per update, carrying the moments and
+        the update count across. Going above one microbatch moves the
+        moments to fp32 (optax's bf16 moments become fp32 at the first
+        fp32 gradient); they stay fp32 from then on, as optax's do."""
+        if accum_steps == self.accum_steps:
+            return
+        if accum_steps > 1 and not isinstance(self._make_optimizer, AdamW):
+            raise ValueError(
+                "accum_steps > 1 takes an adamw(...) optimizer: the fp32 "
+                "mean of the microbatch gradients goes to Fp32GradAdamW")
+        self.accum_steps = accum_steps
+        if self.model is not None:
+            self._set_optimizer(*self._moments())
+
+    def _set_optimizer(self, mu, nu, count: int) -> None:
+        params = self._trained()
+        fp32 = self.accum_steps > 1 or any(
+            m.dtype != p.dtype for m, p in zip(mu, params))
+        if fp32:
+            opt = Fp32GradAdamW(params, self._make_optimizer)
+            for dst, src in zip(opt.mu + opt.nu, list(mu) + list(nu)):
+                dst.copy_(src)
+            opt.count = count
+        else:
+            opt = self._make_optimizer(self.model.parameters())
+            _init_adamw_state(opt)
+            for p, m, v in zip(params, mu, nu):
+                st = opt.state[p]
+                st["exp_avg"].copy_(m)
+                st["exp_avg_sq"].copy_(v)
+                st["step"].fill_(count)
+        self.optimizer = opt
+
     def train_step(self, batch) -> torch.Tensor:
         """One update on ``batch``, whose leaves have a leading microbatch
         axis of length ``accum_steps`` (see :meth:`microbatch`). Returns
         the mean loss, detached, without waiting for the device."""
         accum = self.accum_steps
-        if accum == 1:
+        if not isinstance(self.optimizer, Fp32GradAdamW):
             loss = self._loss_fn(self.model, tuple(x[0] for x in batch))
             loss.backward()
+            if self.before_update is not None:
+                self.before_update()
             self.optimizer.step()
             self.optimizer.zero_grad(set_to_none=True)
             return loss.detach()
@@ -171,6 +278,8 @@ class ShardedTrainer:
                     acc.add_(p.grad.float())
                     p.grad = None
             loss += micro.detach()
+        if self.before_update is not None:
+            self.before_update()
         self.optimizer.step([acc.div_(accum) for acc in sums])
         return loss / accum
 
