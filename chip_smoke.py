@@ -29,7 +29,16 @@ Phases, each of which raises on failure:
    position), steps 5-8 again, and a restore from the persist tier:
    state checksums, shards and losses against the uninterrupted run,
    stall, staging, serialize, persist and restore times;
-7. the kernels line (one JSON object), then the card's name and power
+7. launch: the same llama_1b loop as a user runs it, under the elastic
+   launcher (``python -m dlrover_tpu_torch.trainer.elastic_run
+   --standalone``: the local master, the agent and the worker in
+   processes of their own) with ``DLROVER_FAULT_INJECT=crash@10``: the
+   worker dies after step 10, the agent restarts it, it restores the
+   newest checkpoint committed before the crash and trains to step 12;
+   the launcher's exit, the restore, the worker's card and the losses of
+   the steps both incarnations ran (bitwise) are checked, and the
+   journal's timestamps give the recovery and its parts;
+8. the kernels line (one JSON object), then the card's name and power
    limit, then the device line, last.
 
 Exits non-zero, and prints no result, when there is no CUDA device or
@@ -41,6 +50,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -624,6 +634,15 @@ def state_checksums(tree) -> dict:
     return out
 
 
+def _state_bytes(cfg) -> int:
+    """The checkpointed state: bf16 parameters but the fp32 norm weights,
+    and AdamW's two moments in the parameters' dtypes."""
+    from dlrover_tpu_torch.models import llama
+
+    norms = (2 * cfg.num_layers + 1) * cfg.hidden_size
+    return 3 * (2 * (llama.param_count(cfg) - norms) + 4 * norms)
+
+
 def _elastic_dirs(state_bytes: int):
     """(ram_dir, persist_dir, how the RAM tier was placed): the RAM tier
     on /dev/shm when it has twice the state free, else in the temporary
@@ -755,10 +774,7 @@ def phase_elastic() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     cfg = llama.llama_1b(remat="dots_attn_out")
-    # bf16 parameters but the fp32 norm weights, and AdamW's two moments
-    # in the parameters' dtypes
-    norms = (2 * cfg.num_layers + 1) * cfg.hidden_size
-    state_bytes = 3 * (2 * (llama.param_count(cfg) - norms) + 4 * norms)
+    state_bytes = _state_bytes(cfg)
     ram_dir, persist_dir, placed = _elastic_dirs(state_bytes)
     try:
         run_a = _elastic_run(cfg, 0, ram_dir, persist_dir)
@@ -867,6 +883,193 @@ def phase_elastic() -> dict:
     return run_a
 
 
+#: the launch phase: the example's steps, save cadence and injected crash
+LAUNCH_STEPS, LAUNCH_SAVE, LAUNCH_CRASH = 12, 4, 10
+#: the launch took 57-84 s on the H100, the phases before it about
+#: 170 s: a hung launch is stopped, and its output read, well inside
+#: a 600 s limit on the whole script
+LAUNCH_TIMEOUT_S = 240
+
+
+def _incarnations(stdout: str):
+    """The example's ``step k loss x`` lines, one dict per incarnation
+    (a new one starts where the step number does not grow)."""
+    runs, last = [], None
+    for k, x in re.findall(r"^step (\d+) loss (\S+)$", stdout, re.M):
+        k = int(k)
+        if last is None or k <= last:
+            runs.append({})
+        runs[-1][k] = float(x)
+        last = k
+    return runs
+
+
+def _stop_launch(journal: str) -> None:
+    """Kill whatever of the launch is still alive: every process whose
+    environment names this launch's journal -- the launcher, the master,
+    the agent and the workers, which run in sessions of their own."""
+    tag = f"DLROVER_TPU_JOURNAL={journal}".encode()
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit() or int(entry) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{entry}/environ", "rb") as f:
+                if tag in f.read().split(b"\0"):
+                    os.kill(int(entry), signal.SIGKILL)
+        except (OSError, ProcessLookupError):
+            pass
+
+
+def phase_launch() -> dict:
+    """The elastic loop under the launcher, across a real process death:
+    master, agent and worker are processes of their own, the worker is
+    killed by the injected crash after step LAUNCH_CRASH, and the agent's
+    new worker restores the newest checkpoint the journal saw committed
+    before the crash."""
+    import torch
+
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.telemetry import read_journal
+
+    # the worker needs the card's memory the earlier phases cached here
+    gc.collect()
+    torch.cuda.empty_cache()
+    state_bytes = _state_bytes(llama.llama_1b(remat="dots_attn_out"))
+    ram_dir, _, placed = _elastic_dirs(state_bytes)
+    ckpt_dir = placed["tmp_dir"]
+    if ram_dir != os.path.join(ckpt_dir, "ram"):
+        # the example keeps its RAM tier in <ckpt-dir>/ram
+        os.symlink(ram_dir, os.path.join(ckpt_dir, "ram"))
+    journal = os.path.join(ckpt_dir, "journal.jsonl")
+    out_file = os.path.join(ckpt_dir, "out.txt")
+    cmd = [
+        sys.executable, "-m", "dlrover_tpu_torch.trainer.elastic_run",
+        "--standalone", "--nnodes", "1:1", "--monitor_interval", "0.3",
+        "--max_restarts", "2", "dlrover_tpu_torch/examples/llama_train.py",
+        "--", "--model", "llama_1b", "--batch-size", str(SLICE["b"]),
+        "--seq-len", str(SLICE["s"]), "--steps", str(LAUNCH_STEPS),
+        "--save-interval", str(LAUNCH_SAVE), "--ckpt-dir", ckpt_dir,
+        "--out", out_file,
+    ]
+    env = dict(os.environ, DLROVER_FAULT_INJECT=f"crash@{LAUNCH_CRASH}",
+               DLROVER_TPU_JOURNAL=journal)
+    try:
+        t_launch = time.time()
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True,
+                                start_new_session=True)
+        try:
+            stdout, stderr = proc.communicate(timeout=LAUNCH_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            # a worker holds the pipes too: stop everything, then read
+            _stop_launch(journal)
+            stdout, stderr = proc.communicate(timeout=30)
+        launch_s = time.time() - t_launch
+        events = read_journal(journal) if os.path.exists(journal) else []
+        out = (open(out_file).read().split(",")
+               if os.path.exists(out_file) else [])
+    finally:
+        # none of the launch's processes outlives the phase
+        _stop_launch(journal)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        shutil.rmtree(ram_dir, ignore_errors=True)
+
+    def first(kind, after=-1, **data):
+        for i, e in enumerate(events):
+            if (i > after and e["kind"] == kind
+                    and all(e["data"].get(k) == v
+                            for k, v in data.items())):
+                return i, e
+        return None, None
+
+    failed = []
+    if proc.returncode != 0:
+        failed.append(f"launcher exit {proc.returncode}")
+    if f"INJECTED CRASH rc=17 at step {LAUNCH_CRASH}" not in stdout:
+        failed.append("no injected crash")
+    i_crash, crash = first("fault.injected", fault="crash")
+    # the newest step whose RAM-tier archive was committed before the
+    # crash: what the restart must restore (never step 0)
+    committed = sorted({
+        e["data"]["step"] for e in events[:i_crash or 0]
+        if e["kind"] == "checkpoint.save" and e["data"].get("ok")})
+    want = committed[-1] if committed else None
+    if not want:
+        failed.append(f"no checkpoint committed before the crash "
+                      f"({committed})")
+    restarts = [e for e in events if e["kind"] == "scale.restart"]
+    if len(restarts) != 1:
+        failed.append(f"{len(restarts)} restarts, one expected")
+    if f"RESTORED from step {want}" not in stdout:
+        failed.append(f"no 'RESTORED from step {want}'")
+    if f"FINAL step={LAUNCH_STEPS}" not in stdout:
+        failed.append(f"no 'FINAL step={LAUNCH_STEPS}'")
+    if out[:1] != [str(LAUNCH_STEPS)] or out[2:] != [str(want)]:
+        failed.append(f"out file {out}, want step {LAUNCH_STEPS} and "
+                      f"start_step={want}")
+    devices = [e["data"]["device"] for e in events
+               if e["kind"] == "train.model_ready"]
+    if devices != ["cuda:0", "cuda:0"]:
+        failed.append(f"workers ran on {devices}")
+    # each worker's flash kernels: 22 launches of each per step it ran
+    steps_by_pid = {}
+    for e in events:
+        if e["kind"] == "train.step":
+            steps_by_pid.setdefault(e["pid"], []).append(e["data"])
+    launches = [{k: n / len(steps) for k, n in steps[-1]["launches"].items()}
+                for steps in steps_by_pid.values()]
+    layers = llama.llama_1b().num_layers
+    if len(launches) != 2 or any(
+            set(per_step.values()) != {layers} for per_step in launches):
+        failed.append(f"kernel launches per step {launches}, "
+                      f"{layers} of each expected")
+    runs = _incarnations(stdout)
+    both = sorted(set(runs[0]) & set(runs[1])) if len(runs) == 2 else []
+    bitwise = {k: runs[1][k] == runs[0][k] for k in both}
+    if len(runs) != 2 or not both or not all(bitwise.values()):
+        failed.append(f"losses of the steps both incarnations ran: "
+                      f"{bitwise} ({len(runs)} incarnations)")
+    i_joined, joined = first("rendezvous.joined", after=i_crash or 0)
+    i_ready, ready = first("train.model_ready", after=i_crash or 0)
+    i_restore, restore = first("checkpoint.restore", after=i_crash or 0)
+    _, after = first("train.step", after=i_restore or 0,
+                     step=(want or 0) + 1)
+    _, step1 = first("train.step", step=1)
+    marks = (crash, joined, ready, restore, after, step1)
+    timeline = {}
+    if restarts and all(marks):
+        t_crash, t_restart = crash["ts"], restarts[0]["ts"]
+        timeline = {
+            "launch_to_first_step_s": step1["ts"] - t_launch,
+            "crash_to_agent_restart_s": t_restart - t_crash,
+            "agent_restart_to_process_start_s": joined["ts"] - t_restart,
+            "process_start_to_model_on_card_s": ready["ts"] - joined["ts"],
+            "model_on_card_to_restored_s": restore["ts"] - ready["ts"],
+            "restore_s": restore["data"].get("duration_s"),
+            "first_step_after_restore_s": after["ts"] - restore["ts"],
+            "recovery_s": after["ts"] - t_crash,
+        }
+    else:
+        failed.append("the journal lacks a mark of the recovery")
+    emit({
+        "phase": "launch", "model": "llama_1b", "batch": SLICE["b"],
+        "seq": SLICE["s"], "steps": LAUNCH_STEPS,
+        "save_interval": LAUNCH_SAVE, "crash_step": LAUNCH_CRASH,
+        "launcher_rc": proc.returncode, "launch_s": launch_s,
+        "committed_before_crash": committed, "restored_step": want,
+        "restarts": len(restarts), "devices": devices,
+        "launches_per_step": launches,
+        "steps_redone": both, "loss_bitwise": bitwise,
+        "losses": runs, "state_bytes": state_bytes, **placed,
+        **timeline, "nvidia_smi": nvidia_smi_line(),
+    })
+    if failed:
+        print(stdout[-4000:], stderr[-8000:], sep="\n", file=sys.stderr)
+        raise AssertionError("launch: " + "; ".join(failed))
+    return timeline
+
+
 def main() -> int:
     if not (ROOT / "dlrover_tpu_torch" / "__init__.py").exists():
         print("chip_smoke: dlrover_tpu_torch is not beside this script",
@@ -883,6 +1086,7 @@ def main() -> int:
     kernels = phase_kernels()
     launches = phase_slice()
     phase_elastic()
+    phase_launch()
     line = []
     for name, r in kernels.items():
         line.append({

@@ -4,6 +4,10 @@
         --ckpt-dir /tmp/llama_ckpt              # on the GPU
     python -m dlrover_tpu_torch.examples.llama_train --steps 50 \
         --ckpt-dir /tmp/llama_ckpt --device cpu
+    python -m dlrover_tpu_torch.trainer.elastic_run --standalone \
+        --nnodes 1:1 dlrover_tpu_torch/examples/llama_train.py -- \
+        --model llama_1b --batch-size 3 --seq-len 2048 --steps 12 \
+        --save-interval 4 --ckpt-dir /tmp/llama_ckpt
 
 Counterpart of ``examples/llama_train.py``: master dataset sharding ->
 ShardingClient -> ElasticTrainer driving the ShardedTrainer step ->
@@ -12,9 +16,17 @@ data position. The one difference: batches come from a ShardingClient
 in this process, since the shm data plane (``ElasticShmDataLoader``) is
 not ported yet (ROADMAP.md, queue A). Each shard's tokens are made from
 its sample index, as the JAX example's ``synth_batch`` makes them, so
-every shard is reproducible. Prints ``RESTORED from step k`` after a
-restore and ``FINAL step=N loss=...`` at the end, as the JAX example
-does; ``--out`` gets ``step,loss,start_step``.
+every shard is reproducible. Under the launcher the master client is
+the RPC one (``build_master_client`` reads the master address the agent
+exports), and the ElasticTrainer arms the hang detector and the fault
+injector of the drills. ``--model`` picks llama_tiny (the default) or
+llama_1b at full width with ``bench.py``'s optimizer. Prints ``step k
+loss x`` per step (the loss's full repr), ``RESTORED from step k`` after
+a restore and ``FINAL step=N loss=...`` at the end, as the JAX example
+does; ``--out`` gets ``step,loss,start_step``. The journal gets
+``train.model_ready`` (the model on its device) and ``train.step`` per
+step (with the flash kernels' launches so far), the marks a recovery's
+timeline is read from.
 
 The checkpointed state is ``{"model": {name: parameter}, "optimizer":
 {"mu": ..., "nu": ..., "count": ...}, "step": N, "data": <the shard
@@ -28,16 +40,33 @@ import time
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from dlrover_tpu_torch.agent.master_client import build_master_client
 from dlrover_tpu_torch.agent.sharding.client import ShardingClient
 from dlrover_tpu_torch.models import llama
+from dlrover_tpu_torch.ops.cuda import flash_attention
+from dlrover_tpu_torch.telemetry import record
 from dlrover_tpu_torch.trainer.checkpoint import FlashCheckpointer
 from dlrover_tpu_torch.trainer.distributed import init_from_env
 from dlrover_tpu_torch.trainer.elastic import ElasticTrainer
 from dlrover_tpu_torch.trainer.sharded import adamw, make_trainer_for_llama
 
 DATASET = "llama-train"
+
+
+def model_config(name: str):
+    """``--model``: the config and the AdamW learning rate. llama_tiny is
+    cut to the flash kernels' head_dim of 64, so that it runs on the card
+    too (``seq_len`` a multiple of 128 there); llama_1b is ``bench.py``'s
+    default model with its AdamW(1e-4, 0.9, 0.95)."""
+    if name == "tiny":
+        return llama.llama_tiny(hidden_size=128, num_heads=2,
+                                num_kv_heads=1), adamw(1e-3)
+    if name == "llama_1b":
+        return (llama.llama_1b(remat="dots_attn_out"),
+                adamw(1e-4, b1=0.9, b2=0.95))
+    raise ValueError(f"unknown model {name!r}")
 
 
 def synth_batch(start: int, end: int, seq_len: int = 128,
@@ -59,19 +88,21 @@ def checkpoint_state(trainer, step: int, sharding: ShardingClient) -> Dict:
 
 def run(steps: int, ckpt_dir: str, batch_size: int = 8, seq_len: int = 128,
         device: Optional[str] = None, save_interval: int = 10,
-        seed: int = 0, cfg: Optional[llama.LlamaConfig] = None,
-        lr: float = 1e-3) -> Dict:
+        seed: int = 0, model: str = "tiny") -> Dict:
     """Train to ``steps``, resuming from ``ckpt_dir`` when it holds a
     checkpoint. Returns what happened: the start step, each step's
-    (start, end) shard and loss, and the final step. The default model
-    is llama_tiny at the flash kernels' head_dim of 64, so that it runs
-    on the card too (``seq_len`` a multiple of 128 there)."""
-    cfg = cfg or llama.llama_tiny(hidden_size=128, num_heads=2,
-                                  num_kv_heads=1)
+    (start, end) shard and loss, and the final step."""
+    cfg, optimizer = model_config(model)
     client = build_master_client()
     trainer = make_trainer_for_llama(cfg, device=device,
-                                     optimizer=adamw(lr))
+                                     optimizer=optimizer)
     trainer.init(seed=seed)
+    # the parameters' device carries its index (cuda:0)
+    on = next(trainer.model.parameters()).device
+    if on.type == "cuda":
+        torch.cuda.synchronize(on)
+    record("train.model_ready", model=model, device=str(on))
+    print(f"DEVICE {on}", flush=True)
     elastic = ElasticTrainer(trainer, max_nodes=1, cur_nodes=1,
                              master_client=client, report_interval=5)
     sharding = ShardingClient(
@@ -97,6 +128,8 @@ def run(steps: int, ckpt_dir: str, batch_size: int = 8, seq_len: int = 128,
     # page-lock the staging block while the first steps run
     ckpt.prepare(checkpoint_state(trainer, start_step, sharding))
 
+    # the flash kernels launched from here on (none on the CPU)
+    launched_before = dict(flash_attention.LAUNCHES)
     step, loss = start_step, float("nan")
     shards: List = []
     losses: List[float] = []
@@ -113,6 +146,10 @@ def run(steps: int, ckpt_dir: str, batch_size: int = 8, seq_len: int = 128,
             sharding.report_batch_done()
             shards.append((shard.start, shard.end))
             losses.append(loss)
+            record("train.step", step=step, loss=loss, launches={
+                k: n - launched_before[k]
+                for k, n in flash_attention.LAUNCHES.items()})
+            print(f"step {step} loss {loss!r}", flush=True)
             # durable: a crash drill hard-kills shortly after a cadence
             # step -- the archive must already be on the RAM tier
             elastic.maybe_checkpoint(
@@ -128,6 +165,8 @@ def run(steps: int, ckpt_dir: str, batch_size: int = 8, seq_len: int = 128,
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
+    parser.add_argument("--model", choices=("tiny", "llama_1b"),
+                        default="tiny")
     parser.add_argument("--steps", type=int, default=50)
     parser.add_argument("--batch-size", type=int, default=8)
     parser.add_argument("--seq-len", type=int, default=128)
@@ -143,7 +182,8 @@ def main(argv=None) -> int:
     init_from_env(device=args.device)
     result = run(args.steps, args.ckpt_dir, batch_size=args.batch_size,
                  seq_len=args.seq_len, device=args.device,
-                 save_interval=args.save_interval, seed=args.seed)
+                 save_interval=args.save_interval, seed=args.seed,
+                 model=args.model)
     print(f"FINAL step={result['step']} loss={result['loss']:.6f}",
           flush=True)
     if args.out:

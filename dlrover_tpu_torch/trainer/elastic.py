@@ -17,18 +17,29 @@ in-place writes after the newest save's device-to-host copies
 (``FlashCheckpointer.wait_staged``), so a save that returned before its
 copies finished never sees the next update.
 
-Not ported yet (ROADMAP.md, queue A): the fault-tolerance hooks of the
-JAX trainer -- hang detector, fault injector, sentinel, mesh transition,
-trace capture, drain coordinator, compile-cache telemetry -- and the
-goodput ledger and fleet roll-up its ``report_step`` and
+Two of the JAX trainer's fault-tolerance hooks are armed at
+construction (``_init_fault_tolerance``) and fed by :meth:`report_step`:
+the step-progress hang detector, which reports a stall to the master as
+a HANG failure (the agent then restarts the process on the master's
+action), and the fault injector of the drills (``DLROVER_FAULT_INJECT``).
+Not ported yet (ROADMAP.md, queue A): the sentinel, mesh transition,
+trace capture, drain coordinator and compile-cache telemetry, and the
+goodput ledger and fleet roll-up that ``report_step`` and
 ``maybe_checkpoint`` feed. A checkpoint failure is raised into the step
 loop rather than logged: a failed device copy must not pass unseen.
 """
 
+import os
 import time
+import weakref
 from typing import Any, Callable, Dict, Optional
 
+from dlrover_tpu_torch.common.constants import TrainingExceptionLevel
 from dlrover_tpu_torch.common.log import default_logger as logger
+from dlrover_tpu_torch.fault_tolerance.hanging_detector import (
+    HangingDetector,
+)
+from dlrover_tpu_torch.fault_tolerance.injection import FaultInjector
 from dlrover_tpu_torch.telemetry import tracing
 
 
@@ -69,7 +80,49 @@ class ElasticTrainer:
         self._global_step = 0
         self._checkpointer = None
         self._ckpt_interval = 0
+        self._hang_detector = None
+        self._fault_injector = None
+        self._init_fault_tolerance()
         self.set_world(cur_nodes)
+
+    def _init_fault_tolerance(self):
+        """Step-progress hang detection (fault_tolerance/hanging_detector
+        .py) + the injection drill hook. Both are no-ops without a master
+        client; detection defaults on, DLROVER_HANG_DETECTION=0 disables,
+        DLROVER_HANG_MIN_TIMEOUT / _MULTIPLIER tune the threshold."""
+        self._fault_injector = FaultInjector.from_env(self._master_client)
+        if self._master_client is None:
+            return
+        if os.environ.get("DLROVER_HANG_DETECTION", "1") == "0":
+            return
+
+        client = self._master_client
+        # weak: the detector's thread must not keep the trainer, and the
+        # model it drives, alive
+        trainer = weakref.ref(self)
+
+        def report(elapsed: float):
+            me = trainer()
+            try:
+                client.report_failure(
+                    f"no step progress for {elapsed:.1f}s (last step "
+                    f"{me._global_step if me is not None else -1})",
+                    TrainingExceptionLevel.HANG,
+                )
+            except Exception as e:
+                logger.warning("hang report failed: %s", e)
+
+        self._hang_detector = HangingDetector(
+            report_fn=report,
+            min_timeout=float(
+                os.environ.get("DLROVER_HANG_MIN_TIMEOUT", "300")
+            ),
+            multiplier=float(
+                os.environ.get("DLROVER_HANG_MULTIPLIER", "10")
+            ),
+        ).start()
+        # ... and the thread ends with the trainer
+        weakref.finalize(self, self._hang_detector.stop)
 
     def set_world(self, cur_nodes: int):
         self._cur_nodes = cur_nodes
@@ -119,12 +172,17 @@ class ElasticTrainer:
     def report_step(self, step: Optional[int] = None, loss=None):
         """Advance the step bookkeeping, tag spans with the step, and
         report the global step to the master every ``report_interval``
-        steps. Returns ``loss`` as a float (which waits for the step)
-        when one is passed."""
+        steps. A completed step feeds the hang detector and is where a
+        planted fault fires. Returns ``loss`` as a float (which waits
+        for the step) when one is passed."""
         self._global_step = step if step is not None else (
             self._global_step + 1
         )
         tracing.set_step(self._global_step)
+        if self._hang_detector is not None:
+            self._hang_detector.record_step(self._global_step)
+        if self._fault_injector is not None:
+            self._fault_injector.maybe_inject(self._global_step)
         if loss is not None:
             loss = float(loss)
         if (

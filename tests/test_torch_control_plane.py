@@ -13,6 +13,7 @@ port (:func:`load_repointed`).
 
 import ast
 import functools
+import gc
 import importlib
 import inspect
 import json
@@ -164,6 +165,25 @@ def run_repointed(test_file: str, pkg: str, test_name: str,
             next(gen, None)
 
 
+def stop_background_loops(threads=None) -> None:
+    """Stop the status reporters and metrics servers, of either package,
+    that agents and masters of finished tests left running (all of
+    them, or those whose threads are in ``threads``): they would go on
+    reporting to a master that is gone. A reporter is only told to
+    stop; one inside an RPC ends when that RPC returns."""
+    for obj in gc.get_objects():
+        if (type(obj).__name__ in ("StatusReporter", "MetricsServer")
+                and type(obj).__module__.startswith("dlrover_tpu")):
+            thread = getattr(obj, "_thread", None)
+            if (thread is None or not thread.is_alive()
+                    or (threads is not None and thread not in threads)):
+                continue
+            if type(obj).__name__ == "MetricsServer":
+                obj.stop()
+            else:
+                obj._stopped.set()
+
+
 #: cases of the JAX tests that touch only modules the port has copied
 REPOINTED = {
     "test_sharding.py": [
@@ -217,8 +237,10 @@ def test_repointing_reaches_the_port():
     mod = load_repointed("test_shard_dispatch.py", "dlrover_tpu_torch")
     assert mod.TaskManager is TaskManager
     assert mod.LocalMasterClient is LocalMasterClient
+    assert mod.MasterClient is port_master_client.MasterClient
     # what the port does not have stays with the JAX package
-    assert mod.MasterClient.__module__ == "dlrover_tpu.agent.master_client"
+    assert (mod.build_master_state_journal.__module__
+            == "dlrover_tpu.master.state_journal")
 
 
 # ------------------------------------------- same inputs, both packages
@@ -304,13 +326,10 @@ def test_sharding_client_batches_and_resume_match_jax():
     assert resumed == jax_resumed == got[8:16]
 
 
-def test_build_master_client_with_an_address_raises(monkeypatch):
-    with pytest.raises(NotImplementedError, match="gRPC MasterClient"):
-        port_master_client.build_master_client("localhost:1234")
-    monkeypatch.setenv(NodeEnv.MASTER_ADDR, "localhost:1234")
-    with pytest.raises(NotImplementedError, match="launcher slice"):
-        port_master_client.build_master_client()
-    monkeypatch.delenv(NodeEnv.MASTER_ADDR)
+def test_build_master_client_without_an_address_is_local(monkeypatch):
+    """No master address, given or in the env: the in-process client
+    (an address gives the RPC client: test_torch_master_service.py)."""
+    monkeypatch.delenv(NodeEnv.MASTER_ADDR, raising=False)
     client = port_master_client.build_master_client()
     assert isinstance(client, LocalMasterClient)
     assert port_master_client.get_master_client() is client

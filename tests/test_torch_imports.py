@@ -1,5 +1,5 @@
 """The port stands alone: no module of ``dlrover_tpu_torch`` (nor
-``chip_smoke.py``) imports JAX, optax, orbax, ml_dtypes or the JAX
+``chip_smoke.py``) imports JAX, optax, orbax, ml_dtypes, grpc or the JAX
 package, and the smoke script refuses to run without the package or
 without a GPU."""
 
@@ -15,7 +15,8 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "dlrover_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "ml_dtypes", "dlrover_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "ml_dtypes", "dlrover_tpu",
+             "grpc")
 FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
