@@ -38,7 +38,17 @@ Phases, each of which raises on failure:
    the launcher's exit, the restore, the worker's card and the losses of
    the steps both incarnations ran (bitwise) are checked, and the
    journal's timestamps give the recovery and its parts;
-8. the kernels line (one JSON object), then the card's name and power
+8. drain: two launches of the same loop on one checkpoint directory.
+   Launch A is preempted (``preempt@6:notice=30``, a 25 s drain budget):
+   the worker drains at the end of step 6 -- the master told, a durable
+   emergency save of step 6 on the persist tier, its shards handed back
+   -- and exits 21, which the agent reports as PREEMPTED without a
+   restart, so the launcher exits 21. The RAM tier is deleted, as a
+   reclaimed host's tmpfs would be. Launch B, the replacement, restores
+   step 6 from the persist tier, trips the sentinel on ``nan@10``, rolls
+   back to step 8 on the master's order, replays step 9 (bitwise) and
+   ends at step 12;
+9. the kernels line (one JSON object), then the card's name and power
    limit, then the device line, last.
 
 Exits non-zero, and prints no result, when there is no CUDA device or
@@ -47,6 +57,7 @@ when the package is not beside this file.
 
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -920,6 +931,58 @@ def _stop_launch(journal: str) -> None:
             pass
 
 
+def _launch(ckpt_dir: str, journal: str, out_file: str, env: dict):
+    """One run of the llama_1b loop under the launcher, as a user starts
+    it, with the journal on and ``env`` (the fault to inject) added;
+    stopped, and its output read, after LAUNCH_TIMEOUT_S. Returns the
+    launcher's process, its stdout and its stderr."""
+    cmd = [
+        sys.executable, "-m", "dlrover_tpu_torch.trainer.elastic_run",
+        "--standalone", "--nnodes", "1:1", "--monitor_interval", "0.3",
+        "--max_restarts", "2", "dlrover_tpu_torch/examples/llama_train.py",
+        "--", "--model", "llama_1b", "--batch-size", str(SLICE["b"]),
+        "--seq-len", str(SLICE["s"]), "--steps", str(LAUNCH_STEPS),
+        "--save-interval", str(LAUNCH_SAVE), "--ckpt-dir", ckpt_dir,
+        "--out", out_file,
+    ]
+    proc = subprocess.Popen(cmd, cwd=ROOT,
+                            env=dict(os.environ, DLROVER_TPU_JOURNAL=journal,
+                                     **env),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=LAUNCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        # a worker holds the pipes too: stop everything, then read
+        _stop_launch(journal)
+        stdout, stderr = proc.communicate(timeout=30)
+    return proc, stdout, stderr
+
+
+def _first(events, kind, after=-1, **data):
+    """(index, event) of the first ``kind`` event after index ``after``
+    whose data holds ``data``; (None, None) when there is none."""
+    for i, e in enumerate(events):
+        if (i > after and e["kind"] == kind
+                and all(e["data"].get(k) == v for k, v in data.items())):
+            return i, e
+    return None, None
+
+
+def _workers(events):
+    """The device of each worker of a launch, and each worker's flash
+    kernel launches per step it ran."""
+    devices = [e["data"]["device"] for e in events
+               if e["kind"] == "train.model_ready"]
+    steps_by_pid = {}
+    for e in events:
+        if e["kind"] == "train.step":
+            steps_by_pid.setdefault(e["pid"], []).append(e["data"])
+    launches = [{k: n / len(steps) for k, n in steps[-1]["launches"].items()}
+                for steps in steps_by_pid.values()]
+    return devices, launches
+
+
 def phase_launch() -> dict:
     """The elastic loop under the launcher, across a real process death:
     master, agent and worker are processes of their own, the worker is
@@ -942,29 +1005,11 @@ def phase_launch() -> dict:
         os.symlink(ram_dir, os.path.join(ckpt_dir, "ram"))
     journal = os.path.join(ckpt_dir, "journal.jsonl")
     out_file = os.path.join(ckpt_dir, "out.txt")
-    cmd = [
-        sys.executable, "-m", "dlrover_tpu_torch.trainer.elastic_run",
-        "--standalone", "--nnodes", "1:1", "--monitor_interval", "0.3",
-        "--max_restarts", "2", "dlrover_tpu_torch/examples/llama_train.py",
-        "--", "--model", "llama_1b", "--batch-size", str(SLICE["b"]),
-        "--seq-len", str(SLICE["s"]), "--steps", str(LAUNCH_STEPS),
-        "--save-interval", str(LAUNCH_SAVE), "--ckpt-dir", ckpt_dir,
-        "--out", out_file,
-    ]
-    env = dict(os.environ, DLROVER_FAULT_INJECT=f"crash@{LAUNCH_CRASH}",
-               DLROVER_TPU_JOURNAL=journal)
     try:
         t_launch = time.time()
-        proc = subprocess.Popen(cmd, cwd=ROOT, env=env,
-                                stdout=subprocess.PIPE,
-                                stderr=subprocess.PIPE, text=True,
-                                start_new_session=True)
-        try:
-            stdout, stderr = proc.communicate(timeout=LAUNCH_TIMEOUT_S)
-        except subprocess.TimeoutExpired:
-            # a worker holds the pipes too: stop everything, then read
-            _stop_launch(journal)
-            stdout, stderr = proc.communicate(timeout=30)
+        proc, stdout, stderr = _launch(
+            ckpt_dir, journal, out_file,
+            {"DLROVER_FAULT_INJECT": f"crash@{LAUNCH_CRASH}"})
         launch_s = time.time() - t_launch
         events = read_journal(journal) if os.path.exists(journal) else []
         out = (open(out_file).read().split(",")
@@ -975,20 +1020,12 @@ def phase_launch() -> dict:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
         shutil.rmtree(ram_dir, ignore_errors=True)
 
-    def first(kind, after=-1, **data):
-        for i, e in enumerate(events):
-            if (i > after and e["kind"] == kind
-                    and all(e["data"].get(k) == v
-                            for k, v in data.items())):
-                return i, e
-        return None, None
-
     failed = []
     if proc.returncode != 0:
         failed.append(f"launcher exit {proc.returncode}")
     if f"INJECTED CRASH rc=17 at step {LAUNCH_CRASH}" not in stdout:
         failed.append("no injected crash")
-    i_crash, crash = first("fault.injected", fault="crash")
+    i_crash, crash = _first(events, "fault.injected", fault="crash")
     # the newest step whose RAM-tier archive was committed before the
     # crash: what the restart must restore (never step 0)
     committed = sorted({
@@ -1008,17 +1045,9 @@ def phase_launch() -> dict:
     if out[:1] != [str(LAUNCH_STEPS)] or out[2:] != [str(want)]:
         failed.append(f"out file {out}, want step {LAUNCH_STEPS} and "
                       f"start_step={want}")
-    devices = [e["data"]["device"] for e in events
-               if e["kind"] == "train.model_ready"]
+    devices, launches = _workers(events)
     if devices != ["cuda:0", "cuda:0"]:
         failed.append(f"workers ran on {devices}")
-    # each worker's flash kernels: 22 launches of each per step it ran
-    steps_by_pid = {}
-    for e in events:
-        if e["kind"] == "train.step":
-            steps_by_pid.setdefault(e["pid"], []).append(e["data"])
-    launches = [{k: n / len(steps) for k, n in steps[-1]["launches"].items()}
-                for steps in steps_by_pid.values()]
     layers = llama.llama_1b().num_layers
     if len(launches) != 2 or any(
             set(per_step.values()) != {layers} for per_step in launches):
@@ -1030,12 +1059,13 @@ def phase_launch() -> dict:
     if len(runs) != 2 or not both or not all(bitwise.values()):
         failed.append(f"losses of the steps both incarnations ran: "
                       f"{bitwise} ({len(runs)} incarnations)")
-    i_joined, joined = first("rendezvous.joined", after=i_crash or 0)
-    i_ready, ready = first("train.model_ready", after=i_crash or 0)
-    i_restore, restore = first("checkpoint.restore", after=i_crash or 0)
-    _, after = first("train.step", after=i_restore or 0,
-                     step=(want or 0) + 1)
-    _, step1 = first("train.step", step=1)
+    after_crash = i_crash or 0
+    i_joined, joined = _first(events, "rendezvous.joined", after_crash)
+    i_ready, ready = _first(events, "train.model_ready", after_crash)
+    i_restore, restore = _first(events, "checkpoint.restore", after_crash)
+    _, after = _first(events, "train.step", after=i_restore or 0,
+                      step=(want or 0) + 1)
+    _, step1 = _first(events, "train.step", step=1)
     marks = (crash, joined, ready, restore, after, step1)
     timeline = {}
     if restarts and all(marks):
@@ -1070,6 +1100,159 @@ def phase_launch() -> dict:
     return timeline
 
 
+#: the drain phase: launch A is preempted after step DRAIN_PREEMPT with a
+#: NOTICE-second window and a BUDGET-second drain; launch B's loss is
+#: poisoned at step DRAIN_NAN, and the sentinel rolls it back to the
+#: last clean save (step 8 at LAUNCH_SAVE = 4)
+DRAIN_PREEMPT, DRAIN_NOTICE, DRAIN_BUDGET, DRAIN_NAN = 6, 30, 25, 10
+
+
+def phase_drain() -> dict:
+    """A preemption and a silent corruption under the launcher: launch
+    A drains in the notice window and exits 21; its replacement, launch
+    B on the same checkpoint directory with the RAM tier gone, restores
+    the emergency save from the persist tier and rolls back a NaN."""
+    import torch
+
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.telemetry import read_journal
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    state_bytes = _state_bytes(llama.llama_1b(remat="dots_attn_out"))
+    ram_dir, _, placed = _elastic_dirs(state_bytes)
+    ckpt_dir = placed["tmp_dir"]
+    if ram_dir != os.path.join(ckpt_dir, "ram"):
+        os.symlink(ram_dir, os.path.join(ckpt_dir, "ram"))
+    journals = [os.path.join(ckpt_dir, f"journal_{x}.jsonl") for x in "ab"]
+    out_file = os.path.join(ckpt_dir, "out.txt")
+    runs, launch_s = [], []
+    try:
+        for journal, env in zip(journals, (
+                {"DLROVER_FAULT_INJECT":
+                 f"preempt@{DRAIN_PREEMPT}:notice={DRAIN_NOTICE}",
+                 "DLROVER_TPU_PREEMPT_NOTICE_BUDGET": str(DRAIN_BUDGET)},
+                {"DLROVER_FAULT_INJECT": f"nan@{DRAIN_NAN}"})):
+            if runs:
+                # a reclaimed host's tmpfs dies with it: the replacement
+                # finds only the persist tier
+                shutil.rmtree(ram_dir)
+                os.makedirs(ram_dir)
+            t_launch = time.time()
+            try:
+                proc, stdout, stderr = _launch(ckpt_dir, journal, out_file,
+                                               env)
+            finally:
+                _stop_launch(journal)
+            launch_s.append(time.time() - t_launch)
+            events = (read_journal(journal) if os.path.exists(journal)
+                      else [])
+            runs.append((proc, stdout, stderr, events))
+    finally:
+        for journal in journals:
+            _stop_launch(journal)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        shutil.rmtree(ram_dir, ignore_errors=True)
+
+    failed = []
+    layers = llama.llama_1b().num_layers
+    for name, (proc, _, _, events) in zip("AB", runs):
+        devices, launches = _workers(events)
+        if devices != ["cuda:0"]:
+            failed.append(f"launch {name}: workers ran on {devices}")
+        if len(launches) != 1 or set(launches[0].values()) != {layers}:
+            failed.append(f"launch {name}: kernel launches per step "
+                          f"{launches}, {layers} of each expected")
+    (proc_a, out_a, _, ev_a), (proc_b, out_b, _, ev_b) = runs
+
+    # launch A: drained at the end of the step, inside the budget
+    if proc_a.returncode != 21:
+        failed.append(f"launch A exit {proc_a.returncode}, 21 expected")
+    if "INJECTED RECLAIM" in out_a:
+        failed.append("launch A was reclaimed before it drained")
+    i_notice, notice = _first(ev_a, "preempt.notice")
+    i_rep, _ = _first(ev_a, "preempt.reported", after=i_notice or 0)
+    i_ckpt, eck = _first(ev_a, "preempt.emergency_ckpt",
+                         after=i_rep or 0)
+    i_drained, drained = _first(ev_a, "preempt.drained",
+                                after=i_ckpt or 0)
+    if None in (i_notice, i_rep, i_ckpt, i_drained):
+        failed.append("launch A's journal lacks preempt.notice -> "
+                      "reported -> emergency_ckpt -> drained")
+    elif not (eck["data"]["ok"] and eck["data"]["durable"]
+              and not eck["data"]["timed_out"]
+              and eck["data"]["step"] == DRAIN_PREEMPT):
+        failed.append(f"emergency save {eck['data']}")
+    _, relinquished = _first(ev_a, "preempt.relinquished")
+    if relinquished is None:
+        failed.append("the master requeued no shards of launch A")
+    if _first(ev_a, "preempt.worker_exit")[1] is None:
+        failed.append("the agent did not report PREEMPTED")
+    if _first(ev_a, "scale.restart")[1] is not None:
+        failed.append("the agent restarted the drained worker")
+
+    # launch B: the persist tier's step, the rollback, the replay
+    if proc_b.returncode != 0:
+        failed.append(f"launch B exit {proc_b.returncode}")
+    i_restore, restore = _first(ev_b, "checkpoint.restore")
+    if (f"RESTORED from step {DRAIN_PREEMPT}" not in out_b
+            or restore is None
+            or restore["data"].get("tier") != "persistent"):
+        failed.append(f"launch B did not restore step {DRAIN_PREEMPT} "
+                      f"from the persist tier ({restore})")
+    rollback_step = DRAIN_NAN - DRAIN_NAN % LAUNCH_SAVE
+    _, trip = _first(ev_b, "anomaly.detected", anomaly="nonfinite_loss",
+                     step=DRAIN_NAN)
+    _, order = _first(ev_b, "rollback.initiated", step=rollback_step)
+    i_rolled, rolled = _first(ev_b, "checkpoint.restore",
+                              after=i_restore or 0)
+    if trip is None or order is None or rolled is None:
+        failed.append(f"no sentinel trip at step {DRAIN_NAN} rolled back "
+                      f"to step {rollback_step}")
+    if f"ROLLBACK to step {rollback_step}" not in out_b:
+        failed.append(f"no 'ROLLBACK to step {rollback_step}'")
+    b_runs = _incarnations(out_b)
+    replay = rollback_step + 1
+    if (len(b_runs) != 2 or b_runs[1].get(replay) is None
+            or b_runs[1][replay] != b_runs[0].get(replay)
+            or not math.isfinite(b_runs[1].get(DRAIN_NAN, math.nan))):
+        failed.append(f"step {replay} replayed {b_runs}")
+    if f"FINAL step={LAUNCH_STEPS}" not in out_b:
+        failed.append(f"no 'FINAL step={LAUNCH_STEPS}'")
+
+    readings = {}
+    if not failed:
+        _, first_b = _first(ev_b, "train.step")
+        readings = {
+            "notice_to_drained_s": drained["ts"] - notice["ts"],
+            "emergency_save_s": eck["data"]["elapsed_s"],
+            "emergency_ram_tier_s": eck["data"]["ram_s"],
+            "emergency_persist_s": eck["data"]["persist_s"],
+            "emergency_pin_wait_s": eck["data"]["pin_wait_s"],
+            "relinquish_s": relinquished["ts"] - eck["ts"],
+            "replacement_restore_s": restore["data"]["duration_s"],
+            "rollback_restore_s": rolled["data"]["duration_s"],
+            "rollback_restore_tier": rolled["data"]["tier"],
+            "notice_to_replacement_first_step_s":
+                first_b["ts"] - notice["ts"],
+        }
+    emit({
+        "phase": "drain", "model": "llama_1b", "batch": SLICE["b"],
+        "seq": SLICE["s"], "steps": LAUNCH_STEPS,
+        "save_interval": LAUNCH_SAVE, "preempt_step": DRAIN_PREEMPT,
+        "notice_s": DRAIN_NOTICE, "budget_s": DRAIN_BUDGET,
+        "nan_step": DRAIN_NAN, "rollback_step": rollback_step,
+        "launcher_rc": [r[0].returncode for r in runs],
+        "launch_s": launch_s, "losses_b": b_runs, **readings, **placed,
+        "nvidia_smi": nvidia_smi_line(),
+    })
+    if failed:
+        for proc, stdout, stderr, _ in runs:
+            print(stdout[-3000:], stderr[-6000:], sep="\n", file=sys.stderr)
+        raise AssertionError("drain: " + "; ".join(failed))
+    return readings
+
+
 def main() -> int:
     if not (ROOT / "dlrover_tpu_torch" / "__init__.py").exists():
         print("chip_smoke: dlrover_tpu_torch is not beside this script",
@@ -1087,6 +1270,7 @@ def main() -> int:
     launches = phase_slice()
     phase_elastic()
     phase_launch()
+    phase_drain()
     line = []
     for name, r in kernels.items():
         line.append({

@@ -18,11 +18,14 @@ Counterpart of ``dlrover_tpu/agent/elastic/training.py``. The agent
   4. monitors it, and on membership change (a waiting node appears),
      process failure or the master's restart action (a reported hang)
      restarts the process, which restores from the flash checkpoint.
+     A worker that drained after a preemption notice (exit code
+     ``DRAIN_EXIT_CODE``, 21) is reported PREEMPTED and not restarted:
+     the host is being reclaimed, and the restart budget is not
+     charged. The master's DRAIN action sends the worker group SIGTERM.
 
 Not ported yet (ROADMAP.md, queue A): the pre-flight network check
-(``--network-check`` raises), the drain's exit code and DRAIN action,
-the relay tier's report lane, the persistent compile cache, the
-metrics server and the goodput ledger.
+(``--network-check`` raises), the relay tier's report lane, the
+persistent compile cache, the metrics server and the goodput ledger.
 """
 
 import os
@@ -47,6 +50,7 @@ from dlrover_tpu_torch.common.constants import (
 )
 from dlrover_tpu_torch.common.grpc_utils import find_free_port
 from dlrover_tpu_torch.common.log import default_logger as logger
+from dlrover_tpu_torch.fault_tolerance.drain import DRAIN_EXIT_CODE
 from dlrover_tpu_torch.telemetry import counter, record
 
 
@@ -230,6 +234,19 @@ class ElasticTrainingAgent:
         if action == NodeAction.RESTART_WORKER:
             logger.info("Master heartbeat action: restart workers")
             self._restart_requested.set()
+        elif action == NodeAction.DRAIN:
+            logger.warning(
+                "Master heartbeat action: drain (platform "
+                "reclaim ahead) — SIGTERM worker group"
+            )
+            record(
+                "preempt.drain_action",
+                node_rank=self._config.node_rank,
+            )
+            # SIGTERM only: the worker's DrainCoordinator
+            # runs its notice-window sequence and exits
+            # rc 21; this agent stays up to classify it
+            self._signal_worker_group(signal.SIGTERM)
         elif action == NodeAction.STOP:
             logger.info("Master heartbeat action: stop")
             # full stop: end the monitor loop AND kill the
@@ -327,6 +344,29 @@ class ElasticTrainingAgent:
                 logger.info("Training process succeeded")
                 return result
             if result.state == WorkerState.FAILED:
+                if result.return_code == DRAIN_EXIT_CODE:
+                    # graceful drain (fault_tolerance/drain.py): the
+                    # worker already checkpointed, relinquished its
+                    # shards and reported PREEMPTED. A local relaunch
+                    # is pointless — the host is being reclaimed.
+                    # Report PREEMPTED (idempotent with the worker's
+                    # own report_preemption; covers the race where
+                    # that RPC was lost) and exit so the master
+                    # relaunches the NODE without charging its budget.
+                    logger.warning(
+                        "Worker drained gracefully (rc=%d); node is "
+                        "being preempted", DRAIN_EXIT_CODE,
+                    )
+                    record(
+                        "preempt.worker_exit",
+                        node_rank=self._config.node_rank,
+                        restart_count=self._restart_count,
+                    )
+                    self._client.update_node_status(
+                        NodeStatus.FAILED, NodeExitReason.PREEMPTED,
+                        self._restart_count,
+                    )
+                    return result
                 self._report_failure(result)
                 if result.return_code in (137, -9):
                     # OOM-class death: a LOCAL relaunch cannot help —

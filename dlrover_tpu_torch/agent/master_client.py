@@ -25,13 +25,14 @@ Every public RPC of :class:`MasterClient` runs under a
   counter.
 
 Not ported yet (ROADMAP.md, queue A): the relay tier's failover, the
-fleet observation of RPC latency, and the goodput, sentinel, reshard,
-preemption, metrics and serving calls.
+fleet observation of RPC latency, and the goodput, reshard, metrics and
+serving calls.
 """
 
 import functools
 import os
 import random
+import socket
 import threading
 import time
 from typing import Callable, Dict, List, Optional
@@ -493,6 +494,39 @@ class MasterClient:
         return int(self._call("relinquish_shards", req).requeued)
 
     @supervised_rpc
+    def report_preemption(self, reason: str = "",
+                          notice_budget_s: float = 0.0,
+                          deadline_ts: float = 0.0,
+                          restart_count: int = 0):
+        """Drain step 1 (fault_tolerance/drain.py): announce the
+        reclaim notice so the master marks this node PREEMPTED, evicts
+        it from rendezvous. The master ships with this client, so an
+        error reaches the caller (the drain records it)."""
+        req = self._fill(comm.PreemptionNotice(
+            reason=reason, notice_budget_s=notice_budget_s,
+            deadline_ts=deadline_ts, restart_count=restart_count,
+        ))
+        return self._call("report_preemption", req)
+
+    @supervised_rpc
+    def report_anomaly(self, kind: str, step: int, value: float = 0.0,
+                       zscore: float = 0.0, host: str = "",
+                       last_good_step: int = -1,
+                       restart_count: int = 0):
+        """Sentinel trip (fault_tolerance/sentinel.py): report a
+        silent-corruption signal and receive the master's verdict — a
+        coordinated rollback order, "none" (no clean checkpoint yet),
+        or "job_failed" once the rollback budget is spent. An error
+        reaches the caller: a failing master is never a silent "no
+        order"."""
+        req = self._fill(comm.AnomalyReport(
+            kind=kind, step=step, value=value, zscore=zscore,
+            host=host or socket.gethostname(),
+            last_good_step=last_good_step, restart_count=restart_count,
+        ))
+        return self._call("report_anomaly", req)
+
+    @supervised_rpc
     def report_used_resource(self, cpu_percent: float, memory_mb: int,
                              tpu_stats: Optional[List[Dict]] = None):
         req = self._fill(comm.ResourceStats(
@@ -660,6 +694,16 @@ class LocalMasterClient:
     def relinquish_shards(self, dataset_name=""):
         self._task_manager.recover_tasks(self._node_type, self._node_id)
         return 0
+
+    def report_preemption(self, reason="", notice_budget_s=0.0,
+                          deadline_ts=0.0, restart_count=0):
+        pass
+
+    def report_anomaly(self, kind, step, value=0.0, zscore=0.0,
+                       host="", last_good_step=-1, restart_count=0):
+        # masterless: no one to coordinate a rollback with; the
+        # sentinel's local anomaly window is the whole story
+        return None
 
 
 _master_client = None

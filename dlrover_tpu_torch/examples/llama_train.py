@@ -18,8 +18,14 @@ not ported yet (ROADMAP.md, queue A). Each shard's tokens are made from
 its sample index, as the JAX example's ``synth_batch`` makes them, so
 every shard is reproducible. Under the launcher the master client is
 the RPC one (``build_master_client`` reads the master address the agent
-exports), and the ElasticTrainer arms the hang detector and the fault
-injector of the drills. ``--model`` picks llama_tiny (the default) or
+exports), and the ElasticTrainer arms the hang detector, the fault
+injector of the drills, the sentinel and the preemption drain. The drain
+gets this loop's step and state: a SIGTERM (``preempt@k:notice=N``)
+lands an emergency save of the step it ended inside the notice window
+and the worker exits 21. A rollback order from the master (the sentinel
+tripped on ``nan@k`` or ``sdc@k``) restores the ordered step, rewinds the
+shard ledger to it and prints ``ROLLBACK to step k``; training goes on
+in the same process. ``--model`` picks llama_tiny (the default) or
 llama_1b at full width with ``bench.py``'s optimizer. Prints ``step k
 loss x`` per step (the loss's full repr), ``RESTORED from step k`` after
 a restore and ``FINAL step=N loss=...`` at the end, as the JAX example
@@ -44,6 +50,7 @@ import torch
 
 from dlrover_tpu_torch.agent.master_client import build_master_client
 from dlrover_tpu_torch.agent.sharding.client import ShardingClient
+from dlrover_tpu_torch.common.constants import NodeStatus
 from dlrover_tpu_torch.models import llama
 from dlrover_tpu_torch.ops.cuda import flash_attention
 from dlrover_tpu_torch.telemetry import record
@@ -84,6 +91,30 @@ def synth_batch(start: int, end: int, seq_len: int = 128,
 def checkpoint_state(trainer, step: int, sharding: ShardingClient) -> Dict:
     return {**trainer.train_state(), "step": step,
             "data": sharding.get_shard_checkpoint()}
+
+
+def rollback(order, trainer, sharding, ckpt, client, sentinel) -> int:
+    """Restore the master-ordered last clean step, as the JAX loop
+    does: the model and optimizer from its archive, the shard ledger
+    rewound to its ``"data"`` so the voided steps see their shards
+    again. Returns the restored step."""
+    rolled, _ = ckpt.restore(
+        target={**trainer.train_state(), "step": 0, "data": ""},
+        step=order["step"])
+    if rolled is None:
+        raise RuntimeError(f"rollback step {order['step']} not found")
+    trainer.load_train_state(rolled)
+    if rolled["data"] and not sharding.restore_shard_from_checkpoint(
+            rolled["data"]):
+        raise RuntimeError("the master refused the shard checkpoint")
+    step = int(rolled["step"])
+    sentinel.note_restored(step, order["id"])
+    # the RUNNING re-report closes the rollback window on the master
+    update = getattr(client, "update_node_status", None)
+    if update is not None:
+        update(NodeStatus.RUNNING)
+    print(f"ROLLBACK to step {step}", flush=True)
+    return step
 
 
 def run(steps: int, ckpt_dir: str, batch_size: int = 8, seq_len: int = 128,
@@ -131,6 +162,12 @@ def run(steps: int, ckpt_dir: str, batch_size: int = 8, seq_len: int = 128,
     # the flash kernels launched from here on (none on the CPU)
     launched_before = dict(flash_attention.LAUNCHES)
     step, loss = start_step, float("nan")
+    # the emergency save of a preemption: ``step`` is the last step
+    # whose update and shard report are done (the drain runs between
+    # steps, or at a step's end), and the state is built when it runs
+    elastic.drain.set_state_provider(lambda: (
+        step, lambda: checkpoint_state(trainer, step, sharding)))
+    sentinel = elastic.sentinel
     shards: List = []
     losses: List[float] = []
     try:
@@ -141,8 +178,9 @@ def run(steps: int, ckpt_dir: str, batch_size: int = 8, seq_len: int = 128,
             batch = trainer.shard_batch(elastic.microbatch(
                 synth_batch(shard.start, shard.end, seq_len,
                             cfg.vocab_size)))
+            loss = elastic.report_step(step + 1,
+                                       loss=elastic.train_step(batch))
             step += 1
-            loss = elastic.report_step(step, loss=elastic.train_step(batch))
             sharding.report_batch_done()
             shards.append((shard.start, shard.end))
             losses.append(loss)
@@ -150,6 +188,14 @@ def run(steps: int, ckpt_dir: str, batch_size: int = 8, seq_len: int = 128,
                 k: n - launched_before[k]
                 for k, n in flash_attention.LAUNCHES.items()})
             print(f"step {step} loss {loss!r}", flush=True)
+            order = (sentinel.pending_rollback()
+                     if sentinel is not None else None)
+            if order is not None:
+                # the poisoned steps never reach a save; a notice during
+                # the restore drains at the next step's dispatch
+                step = rollback(order, trainer, sharding, ckpt, client,
+                                sentinel)
+                continue
             # durable: a crash drill hard-kills shortly after a cadence
             # step -- the archive must already be on the RAM tier
             elastic.maybe_checkpoint(
@@ -157,6 +203,7 @@ def run(steps: int, ckpt_dir: str, batch_size: int = 8, seq_len: int = 128,
                 durable=True)
     finally:
         sharding.stop()
+        elastic.drain.disarm()
         # flush the async save pipeline before exit
         ckpt.close()
     return {"start_step": start_step, "step": step, "loss": loss,

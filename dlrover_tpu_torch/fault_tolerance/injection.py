@@ -13,13 +13,40 @@ Two triggers:
                                     forever / for 120 s)
   - ``oom@5``                       raise MemoryError at step 5
   - ``error@5:msg``                 raise RuntimeError(msg) at step 5
+  - ``preempt@5``                   SIGTERM own process group (spot-VM
+                                    reclaim shape: the agent sees a
+                                    signal death or the drain's rc 21,
+                                    not a Python traceback)
+  - ``preempt@5:notice=5``          SIGTERM now, hard SIGKILL reclaim
+                                    5 s later — the termination-notice
+                                    window the graceful drain
+                                    (fault_tolerance/drain.py) must
+                                    beat
+  - ``nan@5`` / ``nan@5:host=0``    replace the step-5 loss scalar with
+                                    NaN (silent corruption; the
+                                    sentinel must trip). ``host=H``
+                                    restricts the fault to node rank H
+                                    so a multi-worker drill poisons
+                                    exactly one host.
+  - ``sdc@5:flip=2``                flip 2 exponent bits of the step-5
+                                    loss scalar (finite but grossly
+                                    wrong — the MAD spike detector's
+                                    case); accepts ``host=H`` too:
+                                    a comma chunk without ``@``
+                                    (``sdc@5:flip=2,host=1``) extends
+                                    the previous fault's kv arg rather
+                                    than starting a new fault.
 
-  The JAX package's other kinds (``preempt``, ``nan``, ``sdc``,
-  ``master_crash``, ``serve_kill``, ``node_lost``, ``node_join``) parse
-  the same way, but a due one raises ``NotImplementedError`` naming the
-  module it waits for (:data:`WAITS_FOR`): the drain, the sentinel, the
-  master's failover, serving and resharding are not ported yet
-  (ROADMAP.md, queue A).
+  The JAX package's other kinds (``master_crash``, ``serve_kill``,
+  ``node_lost``, ``node_join``) parse the same way, but a due one raises
+  ``NotImplementedError`` naming the module it waits for
+  (:data:`WAITS_FOR`): the master's failover, serving and resharding
+  are not ported yet (ROADMAP.md, queue A).
+
+  Where the JAX ``preempt`` sleeps after its SIGTERM until the drain or
+  the reclaim ends the process, the port's returns: the drain inside a
+  step waits for the step's end (fault_tolerance/drain.py), and
+  SIGTERM's default action has ended an unarmed process already.
 
   Env injections fire only on the *first* incarnation (restart count 0
   from ``NodeEnv.RESTART_COUNT``), so a drill hits once and the relaunch
@@ -33,6 +60,9 @@ Two triggers:
 """
 
 import os
+import signal
+import struct
+import threading
 import time
 from dataclasses import dataclass
 from typing import List, Optional
@@ -49,16 +79,64 @@ KINDS = (
     "nan", "sdc", "serve_kill", "node_lost", "node_join",
 )
 
+#: silent-corruption kinds: they do not kill the process — the trainer
+#: feeds its loss scalar through ``corrupt_loss`` and the sentinel
+#: (fault_tolerance/sentinel.py) must notice the poisoned value
+CORRUPTION_KINDS = frozenset({"nan", "sdc"})
+
 #: the JAX package's module each kind not acted on here waits for
 WAITS_FOR = {
-    "preempt": "fault_tolerance/drain.py",
-    "nan": "fault_tolerance/sentinel.py",
-    "sdc": "fault_tolerance/sentinel.py",
     "master_crash": "master/state_journal.py",
     "serve_kill": "serving/worker.py",
     "node_lost": "reshard/coordinator.py",
     "node_join": "reshard/coordinator.py",
 }
+
+
+def _signal_own_group(sig: int) -> None:
+    """Signal the whole process group, like a real node preemption
+    (coworker loaders die with the trainer) — but ONLY when this
+    process leads its own group (the agent spawns workers with
+    start_new_session); in a shared group, group-wide delivery would
+    kill the supervisor that must observe the death."""
+    try:
+        if os.getpgid(0) == os.getpid():
+            os.killpg(os.getpgid(0), sig)
+        else:
+            os.kill(os.getpid(), sig)
+    except (OSError, PermissionError):
+        os.kill(os.getpid(), sig)
+
+
+def _reclaim_after(notice: float) -> None:
+    """The platform's hard deadline: nothing the process does extends
+    it. SIGKILL, so not even a signal handler can intercept."""
+    time.sleep(notice)
+    print(
+        f"INJECTED RECLAIM after {notice}s notice window", flush=True,
+    )
+    _signal_own_group(signal.SIGKILL)
+
+
+def _arg_kv(arg: str, key: str) -> Optional[str]:
+    """Value of ``key=`` in a comma-separated kv arg, or None."""
+    for kv in arg.split(","):
+        k, _, v = kv.partition("=")
+        if k.strip() == key and v.strip():
+            return v.strip()
+    return None
+
+
+def _flip_bits(x: float, nbits: int) -> float:
+    """Flip ``nbits`` low exponent bits of the float64 — an SDC-shaped
+    corruption: finite (bit 62 is never touched, so the exponent can't
+    saturate to inf/nan for a normal input) but orders of magnitude
+    wrong, the gross-but-plausible value the MAD detector exists for."""
+    nbits = max(1, min(10, int(nbits)))
+    (bits,) = struct.unpack("<Q", struct.pack("<d", float(x)))
+    bits ^= ((1 << nbits) - 1) << 52
+    (y,) = struct.unpack("<d", struct.pack("<Q", bits))
+    return y
 
 
 @dataclass
@@ -118,7 +196,7 @@ class FaultInjector:
         poll_every: int = 10,
     ):
         self._node_rank = node_rank
-        self._faults = parse_spec(spec) if spec else []
+        self._faults = self._host_filter(parse_spec(spec) if spec else [])
         # first-incarnation gating for env faults
         if restart_count > 0:
             self._faults = [
@@ -126,6 +204,18 @@ class FaultInjector:
             ]
         self._client = master_client
         self._poll_every = max(1, poll_every)
+
+    def _host_filter(self, faults: List[Fault]) -> List[Fault]:
+        """Corruption kinds honor ``host=H``, so one shared spec poisons
+        exactly one node rank."""
+        kept = []
+        for f in faults:
+            if f.kind in CORRUPTION_KINDS:
+                host = _arg_kv(f.arg, "host")
+                if host is not None and int(host) != self._node_rank:
+                    continue
+            kept.append(f)
+        return kept
 
     @classmethod
     def from_env(cls, master_client=None) -> Optional["FaultInjector"]:
@@ -146,13 +236,44 @@ class FaultInjector:
     # -- trigger -----------------------------------------------------------
 
     def maybe_inject(self, step: int) -> None:
-        """Call once per completed step; executes any due fault."""
+        """Call once per completed step; executes any due fault.
+        Corruption kinds are NOT executed here — they fire from
+        ``corrupt_loss`` on the step's loss scalar instead."""
         if self._client is not None and step % self._poll_every == 0:
             self._poll_remote()
         for fault in self._faults:
-            if fault.due(step):
+            if fault.kind not in CORRUPTION_KINDS and fault.due(step):
                 fault.fired = True
                 self._execute(fault, step)
+
+    def corrupt_loss(self, step: int, loss: float) -> float:
+        """Apply any due nan/sdc fault to this step's loss scalar —
+        the trainer routes the value it is about to hand the sentinel
+        through here, so the corruption rides the normal signal path
+        instead of a side channel."""
+        for fault in self._faults:
+            if fault.kind not in CORRUPTION_KINDS or not fault.due(step):
+                continue
+            fault.fired = True
+            logger.warning(
+                "FAULT INJECTION: %s at step %d (arg=%r)",
+                fault.kind, step, fault.arg,
+            )
+            record(
+                "fault.injected", fault=fault.kind, step=step,
+                arg=fault.arg, node_rank=self._node_rank,
+            )
+            if fault.kind == "nan":
+                print(f"INJECTED NAN LOSS at step {step}", flush=True)
+                return float("nan")
+            flip = int(_arg_kv(fault.arg, "flip") or 2)
+            corrupted = _flip_bits(loss, flip)
+            print(
+                f"INJECTED SDC at step {step}: loss {loss!r} -> "
+                f"{corrupted!r} (flip={flip})", flush=True,
+            )
+            return corrupted
+        return loss
 
     def _poll_remote(self) -> None:
         try:
@@ -165,7 +286,7 @@ class FaultInjector:
             self._client.kv_store_set(
                 f"{KV_PREFIX}/{self._node_rank}", b""
             )
-            self._faults.extend(parse_spec(raw.decode()))
+            self._faults.extend(self._host_filter(parse_spec(raw.decode())))
         except Exception as e:
             logger.warning("fault-inject poll failed: %s", e)
 
@@ -181,8 +302,8 @@ class FaultInjector:
             "FAULT INJECTION: %s at step %d (arg=%r)",
             fault.kind, step, fault.arg,
         )
-        # journaled BEFORE executing: a crash never returns, and the
-        # drill's timeline needs the cause ahead of the effect
+        # journaled BEFORE executing: crash/preempt never return, and
+        # the drill's timeline needs the cause ahead of the effect
         record(
             "fault.injected", fault=fault.kind, step=step,
             arg=fault.arg, node_rank=self._node_rank,
@@ -205,3 +326,23 @@ class FaultInjector:
             raise RuntimeError(
                 fault.arg or f"injected error at step {step}"
             )
+        elif fault.kind == "preempt":
+            # arg ``notice=N``: the platform's termination-notice
+            # window — SIGTERM now, hard SIGKILL reclaim N seconds
+            # later, the spot-VM preemption shape the drain sequence
+            # (fault_tolerance/drain.py) must beat. Without it the
+            # process only gets the SIGTERM.
+            notice = _arg_kv(fault.arg, "notice")
+            notice = float(notice) if notice is not None else None
+            print(
+                f"INJECTED PREEMPTION at step {step} "
+                f"(notice={notice})", flush=True,
+            )
+            if notice is not None:
+                threading.Thread(
+                    target=_reclaim_after, args=(notice,),
+                    name="preempt-reclaim", daemon=True,
+                ).start()
+            # delivered to this process before the call returns: the
+            # handler has run when it does (see the module docstring)
+            _signal_own_group(signal.SIGTERM)

@@ -1,8 +1,7 @@
 """Error-log monitor: classify worker-reported failures.
 
 Parity reference: dlrover/python/master/monitor/error_monitor.py:31.
-A copy of ``dlrover_tpu/master/monitor/error_monitor.py`` without the
-host quarantine, which waits for the sentinel (ROADMAP.md, queue A).
+A copy of ``dlrover_tpu/master/monitor/error_monitor.py``.
 """
 
 from dlrover_tpu_torch.common.constants import TrainingExceptionLevel
@@ -11,8 +10,12 @@ from dlrover_tpu_torch.telemetry import record
 
 
 class ErrorMonitor:
-    def __init__(self):
+    def __init__(self, quarantine=None):
         self._restart_errors = {}
+        #: QuarantineManager (master/node/quarantine.py) when the
+        #: master arms one: the servicer reaches it through here, and
+        #: the job manager consults it at relaunch placement
+        self.quarantine = quarantine
 
     def process_error(self, node, restart_count: int, error_data: str,
                       level: str) -> bool:

@@ -8,20 +8,26 @@ the reference service (elastic_training.proto:243-299).
 Counterpart of ``dlrover_tpu/master/servicer.py`` with the RPCs of the
 launcher: sharding, rendezvous and the KV store, node status,
 heartbeats, failures and the global step, the coalesced status report,
-sync and barriers, the run config and ping. Not ported yet (ROADMAP.md,
-queue A), each answered with the same "unknown RPC method" error as an
-RPC that does not exist: serving (``serve_*``), the relay batch,
-``report_goodput``, fleet digests, the sentinel's ``report_anomaly``,
-``report_reshard``, ``report_preemption``, and ``report_model_info`` /
+sync and barriers, the run config and ping; and those of the one-node
+fault drills: the drain's ``report_preemption`` and the sentinel's
+``report_anomaly`` (quarantine, one rollback order per incident, the
+``DLROVER_TPU_MAX_ROLLBACKS`` budget, the order broadcast under
+``sentinel/rollback_order``). Their goodput accounting waits for the
+goodput ledger. Not ported yet (ROADMAP.md, queue A), each answered with
+the same "unknown RPC method" error as an RPC that does not exist:
+serving (``serve_*``), the relay batch, ``report_goodput``, fleet
+digests, ``report_reshard``, and ``report_model_info`` /
 ``report_custom_data`` (the job metric collector). The JAX master's
 ingest plane (event loop, shards, admission and load shedding) is left
 out too: ``report_node_status`` runs on the RPC thread against one
 :class:`ReporterLedger`.
 """
 
+import json
+import os
 import threading
 import time
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 from dlrover_tpu_torch.common import comm
 from dlrover_tpu_torch.common.constants import (
@@ -116,6 +122,25 @@ class MasterServicer:
         self._kv_store = kv_store or KVStoreService()
         self._start_training_time = 0.0
         self.run_configs = {}
+        # ranks with an announced preemption in flight: their next
+        # RUNNING report closes the preemption window
+        self._preempted_ranks = set()
+        # silent-failure sentinel coordination (sentinel.py): the
+        # quarantine manager rides in on the error monitor so one
+        # object serves the servicer AND the job manager's relaunch
+        # placement
+        self._quarantine = getattr(error_monitor, "quarantine", None)
+        self._rollback_ranks = set()
+        #: the in-flight rollback order, if any: duplicate anomaly
+        #: reports ride it instead of burning budget on one incident
+        self._active_rollback: Optional[dict] = None
+        self._rollback_id = 0
+        self._rollbacks_done = 0
+        # bounded rollback budget: a job that keeps rolling back is
+        # livelocked — convert it into a diagnosed failure
+        self._max_rollbacks = int(
+            os.environ.get("DLROVER_TPU_MAX_ROLLBACKS", "3")
+        )
         # per-reporter delta state behind report_node_status
         self._ledger = ReporterLedger()
         # method -> (requests counter child, latency histogram child):
@@ -419,7 +444,163 @@ class MasterServicer:
                 mgr.mark_node_succeeded(rank)
             elif req.status in ("failed", "deleted"):
                 mgr.remove_alive_node(rank)
+        if req.status == "running" and rank in self._preempted_ranks:
+            # the relaunched incarnation is back: the preemption window
+            # closes here
+            self._preempted_ranks.discard(rank)
+            record(
+                "preempt.recovered", node_type=req.node_type,
+                node_id=req.node_id, rank=rank,
+            )
+        if req.status == "running" and rank in self._rollback_ranks:
+            # the detecting rank restored the last-good step and is
+            # training again: the rollback window closes, and a LATER
+            # anomaly starts a fresh (budget-counted) rollback
+            self._rollback_ranks.discard(rank)
+            if not self._rollback_ranks:
+                self._active_rollback = None
+            record(
+                "rollback.recovered", node_type=req.node_type,
+                node_id=req.node_id, rank=rank,
+            )
         return comm.Response(success=True)
+
+    def rpc_report_preemption(
+        self, req: comm.PreemptionNotice
+    ) -> comm.Response:
+        """Drain step 1 lands here while the node is still alive: mark
+        it PREEMPTED, evict its rank from every rendezvous so the next
+        round never waits on a departed peer, and hand the notice to
+        the job manager when it schedules budget-free relaunches
+        (fault_tolerance/drain.py)."""
+        record(
+            "preempt.reported", node_type=req.node_type,
+            node_id=req.node_id, reason=req.reason,
+            notice_budget_s=req.notice_budget_s,
+            restart_count=req.restart_count,
+        )
+        counter(
+            "dlrover_preemptions_reported_total",
+            "Preemption notices received from draining nodes",
+        ).inc()
+        rank = self._rank_of(req.node_type, req.node_id)
+        self._preempted_ranks.add(rank)
+        if self._job_manager:
+            handle = getattr(
+                self._job_manager, "handle_preemption_notice", None
+            )
+            if handle is not None:
+                handle(req.node_type, req.node_id, req.reason)
+        # instant rendezvous eviction: waiting AND alive sets, so a
+        # round forming right now re-forms without the departing peer
+        for mgr in self._rdzv_managers.values():
+            mgr.remove_alive_node(rank)
+        return comm.Response(success=True)
+
+    def rpc_report_anomaly(
+        self, req: comm.AnomalyReport
+    ) -> comm.AnomalyResponse:
+        """A sentinel trip (fault_tolerance/sentinel.py): attribute the
+        anomaly to its physical host (repeat offenders are
+        quarantined), then coordinate a job-wide rollback to the
+        reporter's last sentinel-clean checkpoint — or fail the job
+        once the rollback budget is exhausted. A job manager without
+        ``mark_job_failed`` (the local one) still gets the
+        ``job_failed`` answer."""
+        record(
+            "anomaly.reported", node_type=req.node_type,
+            node_id=req.node_id, anomaly=req.kind, step=req.step,
+            value=req.value, zscore=req.zscore, host=req.host,
+            last_good_step=req.last_good_step,
+            restart_count=req.restart_count,
+        )
+        counter(
+            "dlrover_anomalies_reported_total",
+            "Anomaly reports received from worker sentinels", ["kind"],
+        ).labels(kind=req.kind or "unknown").inc()
+        rank = self._rank_of(req.node_type, req.node_id)
+        host = req.host or f"node-{req.node_id}"
+        quarantined = False
+        if self._quarantine is not None:
+            quarantined = self._quarantine.note_anomaly(
+                host, kind=req.kind, step=req.step
+            )
+            if quarantined:
+                # surgical removal: the host's rank leaves every
+                # rendezvous NOW (the next round forms without it) and
+                # the job manager stops relaunching onto the host
+                for mgr in self._rdzv_managers.values():
+                    mgr.remove_alive_node(rank)
+                if self._job_manager is not None:
+                    handle = getattr(
+                        self._job_manager, "handle_quarantine", None
+                    )
+                    if handle is not None:
+                        handle(req.node_type, req.node_id, host)
+        if self._active_rollback is not None:
+            # one incident, many reporters: every rank that trips on
+            # the same corrupted state rides the in-flight order
+            self._rollback_ranks.add(rank)
+            return comm.AnomalyResponse(
+                action="rollback",
+                rollback_id=self._active_rollback["id"],
+                rollback_step=self._active_rollback["step"],
+                quarantined=quarantined,
+            )
+        if req.last_good_step < 0:
+            # no sentinel-clean checkpoint exists yet: nothing to roll
+            # back to — the reporter restarts from scratch on its own
+            return comm.AnomalyResponse(
+                action="none", quarantined=quarantined
+            )
+        if self._rollbacks_done >= self._max_rollbacks:
+            record(
+                "rollback.budget_exhausted",
+                rollbacks=self._rollbacks_done,
+                budget=self._max_rollbacks, anomaly=req.kind,
+                node_id=req.node_id, host=host,
+            )
+            mark_failed = getattr(self._job_manager, "mark_job_failed",
+                                  None)
+            if mark_failed is not None:
+                mark_failed(
+                    f"rollback budget exhausted "
+                    f"({self._rollbacks_done}/{self._max_rollbacks}): "
+                    f"recurring {req.kind} anomaly"
+                )
+            return comm.AnomalyResponse(
+                action="job_failed", quarantined=quarantined
+            )
+        self._rollbacks_done += 1
+        self._rollback_id += 1
+        order = {
+            "id": self._rollback_id, "step": int(req.last_good_step),
+            # chains every rank's adoption under the initiating
+            # report_anomaly RPC span
+            "trace": tracing.traceparent() or "",
+        }
+        self._active_rollback = order
+        self._rollback_ranks.add(rank)
+        # KV broadcast: ranks that did NOT trip learn the order from
+        # their sentinel's step-cadence poll and converge on the same
+        # restore step
+        self._kv_store.set(
+            "sentinel/rollback_order", json.dumps(order).encode()
+        )
+        record(
+            "rollback.initiated", rollback_id=order["id"],
+            step=order["step"], anomaly=req.kind, node_id=req.node_id,
+            host=host, rollbacks=self._rollbacks_done,
+            budget=self._max_rollbacks,
+        )
+        counter(
+            "dlrover_rollbacks_initiated_total",
+            "Coordinated last-good rollbacks ordered by the master",
+        ).inc()
+        return comm.AnomalyResponse(
+            action="rollback", rollback_id=order["id"],
+            rollback_step=order["step"], quarantined=quarantined,
+        )
 
     def rpc_relinquish_shards(
         self, req: comm.RelinquishShardsRequest

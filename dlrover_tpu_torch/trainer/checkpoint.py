@@ -54,10 +54,14 @@ cross-process restore consensus and agreement, the peer tier
 (``checkpoint/peer.py``), owner election across processes and the
 owned-only subsets, and the format-v2 catalog restore
 (``checkpoint/loader.py``) that assembles a multi-process save. A
-single-process archive is complete and is read whole. The archives'
-``last_good`` tag and the restore walk past tagged steps come with the
-sentinel. The Orbax branches of the JAX checkpointer belong to a JAX
-library and have no counterpart.
+single-process archive is complete and is read whole. The Orbax
+branches of the JAX checkpointer belong to a JAX library and have no
+counterpart.
+
+The sentinel's verdict (:meth:`FlashCheckpointer.set_clean_fn`) tags
+each save ``last_good`` in its archive and COMMIT doc; a restore that
+picks its step itself walks past a step tagged False, and an explicit
+``step=`` is restored as asked.
 """
 
 import atexit
@@ -339,6 +343,8 @@ class _SaveJob:
     staged: _Staged
     persist_due: bool
     force: bool
+    #: the sentinel's verdict at save() time (None: no sentinel)
+    last_good: Optional[bool] = None
     #: set once the snapshot is on the host
     staged_evt: threading.Event = field(default_factory=threading.Event)
 
@@ -360,6 +366,7 @@ class _PersistJob:
     payload: Tuple[str, Any]
     force: bool
     abandon: Callable[[], None] = lambda: None
+    last_good: Optional[bool] = None
 
 
 class _SerializerLane:
@@ -625,6 +632,10 @@ class FlashCheckpointer:
         self.save_stats: Dict[int, Dict[str, Any]] = {}
         #: the newest restore's tier, step and seconds
         self.last_restore_stats: Optional[Dict[str, Any]] = None
+        # the sentinel's clean verdict: archives saved inside an
+        # anomaly window are tagged last_good=False and skipped by the
+        # restore walk-down
+        self._clean_fn: Optional[Callable[[], bool]] = None
 
     def _save_topology(self) -> Dict[str, int]:
         return {
@@ -645,6 +656,13 @@ class FlashCheckpointer:
         _, layout = _device_layout(ckpt_store.flatten_with_path(state))
         if layout is not None:
             self._pool.reserve(layout, layout[2])
+
+    def set_clean_fn(self, fn: Optional[Callable[[], bool]]) -> None:
+        """Install the sentinel's clean-verdict callback. Called on the
+        train thread at save() time; its answer tags the archive
+        (``last_good``) so a coordinated rollback never restores a step
+        saved while an anomaly window was open."""
+        self._clean_fn = fn
 
     def _raise_stage_error(self) -> None:
         err, self._stage_error = self._stage_error, None
@@ -674,6 +692,15 @@ class FlashCheckpointer:
         ts_wall = time.time()
         self._ensure_workers()
         staged = _stage(state, self._pool, self._stage_sync, self._streams)
+        # verdict captured on the train thread, at save() time: the
+        # background lanes must tag the archive with what the sentinel
+        # knew when the state was snapshotted, not when it lands
+        last_good = None
+        if self._clean_fn is not None:
+            try:
+                last_good = bool(self._clean_fn())
+            except Exception:
+                last_good = None
         job = _SaveJob(
             step=step,
             staged=staged,
@@ -682,6 +709,7 @@ class FlashCheckpointer:
                 and step % self.persist_interval == 0
             ),
             force=force_persist,
+            last_good=last_good,
         )
         if self._stage_sync or staged.event is None:
             job.staged_evt.set()  # host copies already owned
@@ -786,14 +814,15 @@ class FlashCheckpointer:
             )
             if job.persist_due:
                 self._skip_persist(
-                    _PersistJob(job.step, ("none", None), job.force),
+                    _PersistJob(job.step, ("none", None), job.force,
+                                last_good=job.last_good),
                     "stage_failed",
                 )
             return
         snapshot = staged.tree
         ram_ok = True
         try:
-            nbytes = self._write_ram(job.step, snapshot)
+            nbytes = self._write_ram(job.step, snapshot, job.last_good)
             t_ram = time.perf_counter()
             logger.info(
                 "Flash save step %d: RAM tier in %.0f ms (pipelined)",
@@ -826,7 +855,8 @@ class FlashCheckpointer:
         self._release(staged)
         job.staged = None
         if job.persist_due:
-            self._enqueue_persist(job.step, snapshot, job.force, ram_ok)
+            self._enqueue_persist(job.step, snapshot, job.force, ram_ok,
+                                  job.last_good)
 
     def _release(self, staged: _Staged) -> None:
         if staged.pinned is not None:
@@ -838,12 +868,14 @@ class FlashCheckpointer:
             self.ram_dir, f"step-{step}-proc-{self._process_index}"
         )
 
-    def _write_ram(self, step: int, snapshot: Any) -> int:
+    def _write_ram(self, step: int, snapshot: Any,
+                   last_good: Optional[bool] = None) -> int:
         path = self._ram_path(step)
         tmp = path + ".tmp"
         with open(tmp, "wb") as f:
             nbytes = ckpt_store.snapshot_to_file(
-                snapshot, step, f, topology=self._save_topology(),
+                snapshot, step, f, last_good=last_good,
+                topology=self._save_topology(),
             )
         os.replace(tmp, path)
         counter(
@@ -897,7 +929,8 @@ class FlashCheckpointer:
         return sorted(records)
 
     def _enqueue_persist(self, step: int, snapshot: Any,
-                         force: bool, ram_ok: bool) -> None:
+                         force: bool, ram_ok: bool,
+                         last_good: Optional[bool] = None) -> None:
         """Serializer lane -> persist queue handoff. A queued persist
         references the RAM-tier file (pinned against gc); when the RAM
         write failed it carries the host snapshot and the worker builds
@@ -906,14 +939,16 @@ class FlashCheckpointer:
             path = self._ram_path(step)
             self._pin(path)
             job = _PersistJob(
-                step, ("store", path), force, abandon=lambda: self._unpin(path),
+                step, ("store", path), force,
+                abandon=lambda: self._unpin(path), last_good=last_good,
             )
         else:
             logger.warning(
                 "RAM tier for step %d unavailable; persisting from "
                 "the in-memory snapshot", step,
             )
-            job = _PersistJob(step, ("snapshot", snapshot), force)
+            job = _PersistJob(step, ("snapshot", snapshot), force,
+                              last_good=last_good)
         self._persistq.submit(job)
 
     def _skip_persist(self, job: _PersistJob, reason: str) -> None:
@@ -957,7 +992,8 @@ class FlashCheckpointer:
             else:  # "snapshot": RAM tier failed -- archive from memory
                 buf = io.BytesIO()
                 size = ckpt_store.snapshot_to_file(
-                    payload, step, buf, topology=self._save_topology(),
+                    payload, step, buf, last_good=job.last_good,
+                    topology=self._save_topology(),
                 )
                 buf.seek(0)
                 ckpt_store.put_shard_stream(
@@ -965,7 +1001,8 @@ class FlashCheckpointer:
                     attempt=self._attempt, size=size,
                 )
                 extra = {"source": "memory"}
-            ckpt_store.commit_step(self._store, step, attempt=self._attempt)
+            ckpt_store.commit_step(self._store, step, attempt=self._attempt,
+                                   last_good=job.last_good)
             ckpt_store.gc_steps(self._store, self.max_persist_keep)
             dt = time.time() - t0
             logger.info("Persistent save step %d done", step)
@@ -1017,7 +1054,9 @@ class FlashCheckpointer:
         ``target``: a tree of the state's structure; every tensor comes
         back on its target tensor's device, after its shape and dtype
         were checked. ``step=None`` picks the newest step and walks down
-        the persist tier past unreadable ones; an explicit step never falls back. Raises
+        the persist tier past unreadable ones and past steps saved
+        inside a sentinel anomaly window (``last_good=False``); an
+        explicit step is restored as asked and never falls back. Raises
         :class:`RestoreError` when checkpoints exist but none could be
         restored. ``last_restore_stats`` then holds the tier, the step,
         the seconds the restore took and the archive's bytes.
@@ -1041,16 +1080,25 @@ class FlashCheckpointer:
             return None, None
         failures: List[str] = []
         if step in ram:
+            tainted = False
             try:
                 with open(ram[step], "rb") as f:
                     man = ckpt_store.read_manifest(f)
-                    state = self._restore_local_archive(f, man, target)
-                    self._restored("ram", step, t0, f)
-                    return state, step
+                    # an auto-selected step saved inside an anomaly
+                    # window must not be restored -- the corruption the
+                    # sentinel tripped on may already be in it. An
+                    # explicit step is the caller's (master's) choice.
+                    tainted = auto_step and man.get("last_good") is False
+                    if not tainted:
+                        state = self._restore_local_archive(f, man, target)
+                        self._restored("ram", step, t0, f)
+                        return state, step
             except (ckpt_store.ArchiveError, OSError) as e:
                 failures.append(f"RAM tier step {step}: {e}")
                 logger.warning(
                     "RAM restore failed (%s); trying persistent", e)
+            if tainted:
+                self._note_tainted(step, step, tier="ram")
         # auto-selection may land on a step whose persist shard is gone
         # (a RAM-tier step never persisted): walk down the restorable
         # persist steps. An explicit step never falls back.
@@ -1058,6 +1106,10 @@ class FlashCheckpointer:
         if auto_step:
             candidates += [s for s in reversed(avail) if s < step]
         for cand in candidates:
+            if (auto_step and
+                    ckpt_store.step_last_good(self._store, cand) is False):
+                self._note_tainted(cand, step, tier="persistent")
+                continue
             try:
                 with ckpt_store.open_step(
                     self._store, cand, self._process_index
@@ -1101,6 +1153,26 @@ class FlashCheckpointer:
             raise RestoreError(
                 "no checkpoint could be restored: " + "; ".join(failures))
         return None, None
+
+    def _note_tainted(self, cand: int, requested: int,
+                      tier: str) -> None:
+        """Journal an auto-restore candidate rejected for carrying the
+        ``last_good=False`` tag (saved inside a sentinel anomaly
+        window) -- same vocabulary as every other walk-down rejection."""
+        record(
+            "checkpoint.restore_fallback", step=cand,
+            requested_step=requested, reason="anomaly_window",
+            tier=tier,
+        )
+        counter(
+            "dlrover_ckpt_restore_fallbacks_total",
+            "Persist-tier restore candidates rejected during "
+            "the walk-down", ["reason"],
+        ).labels(reason="anomaly_window").inc()
+        logger.warning(
+            "Step %d (%s tier) was saved inside an anomaly window; "
+            "skipping it for restore", cand, tier,
+        )
 
     def _restored(self, tier: str, step: int, t0: float, archive,
                   **extra) -> None:

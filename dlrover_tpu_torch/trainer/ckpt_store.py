@@ -282,6 +282,7 @@ def _write_members(zf: zipfile.ZipFile, fileobj, members) -> Dict[str, str]:
 
 
 def snapshot_to_file(snapshot: Any, step: int, fileobj: BinaryIO,
+                     last_good: Optional[bool] = None,
                      topology: Optional[Dict[str, int]] = None) -> int:
     """Write a state tree to ``fileobj`` as a safe archive; returns the
     bytes written (-1 if the file can't tell()).
@@ -289,7 +290,9 @@ def snapshot_to_file(snapshot: Any, step: int, fileobj: BinaryIO,
     Leaves: CPU torch tensors (one ``"shards"`` entry each, covering the
     whole tensor), numpy arrays (``"array"``), or JSON primitives
     (``"py"``); anything else raises ArchiveError at save time. Members
-    are written from the leaves' memory without a copy. ``topology``
+    are written from the leaves' memory without a copy. ``last_good``
+    is the sentinel's verdict at save time, written to the manifest when
+    not None (False: saved inside an anomaly window). ``topology``
     (``{"n_processes": 1, "process_index": 0}``) stamps the save
     topology into the manifest; the owned-only subsets of a
     multi-process save come with the distributed slice.
@@ -304,6 +307,12 @@ def snapshot_to_file(snapshot: Any, step: int, fileobj: BinaryIO,
         # member name -> sha256 of its serialized bytes
         "digests": {},
     }
+    if last_good is not None:
+        # sentinel verdict at save time (fault_tolerance/sentinel.py):
+        # False = this save happened inside an anomaly window and the
+        # restore walk-down must skip it. Absent (older archives, or no
+        # sentinel armed) is treated as clean.
+        manifest["last_good"] = bool(last_good)
     if topology is not None:
         manifest["topology"] = {
             "n_processes": int(topology.get("n_processes", 1)),
@@ -757,6 +766,19 @@ def read_manifest(fileobj: BinaryIO) -> Dict[str, Any]:
     return manifest
 
 
+def archive_last_good(fileobj: BinaryIO) -> Optional[bool]:
+    """Peek the sentinel verdict out of an archive's manifest WITHOUT
+    loading (or digest-verifying) the arrays — the RAM-tier restore
+    path must be able to reject a tainted archive for pennies. Returns
+    None for untagged (pre-sentinel) or unreadable archives: both are
+    treated as clean, matching :func:`step_last_good`."""
+    try:
+        v = read_manifest(fileobj).get("last_good")
+    except ArchiveError:
+        return None
+    return None if v is None else bool(v)
+
+
 # --------------------------------------------------------------------------
 # object stores
 # --------------------------------------------------------------------------
@@ -926,13 +948,17 @@ def open_step(store: ObjectStore, step: int,
     )
 
 
-def commit_step(store: ObjectStore, step: int,
-                attempt: str = "0") -> None:
+def commit_step(store: ObjectStore, step: int, attempt: str = "0",
+                last_good: Optional[bool] = None) -> None:
     """Publish the COMMIT marker of a one-process save, after its data
-    object: a step without it is invisible to readers. The barrier that
-    waits for every process's shard first comes with the multi-process
-    slice (ROADMAP.md, queue A)."""
+    object: a step without it is invisible to readers. ``last_good``
+    (tri-state) carries the saver's sentinel verdict into the COMMIT doc
+    so :func:`step_last_good` can read it without opening an archive.
+    The barrier that waits for every process's shard first comes with
+    the multi-process slice (ROADMAP.md, queue A)."""
     doc = {"step": step, "n_processes": 1, "attempt": attempt}
+    if last_good is not None:
+        doc["last_good"] = bool(last_good)
     store.put(commit_key(step), json.dumps(doc).encode("utf-8"))
 
 
@@ -958,6 +984,18 @@ def _commit_manifest(store: ObjectStore, step: int) -> Dict[str, Any]:
     if not isinstance(doc, dict):
         raise KeyError(f"step {step} COMMIT malformed")
     return doc
+
+
+def step_last_good(store: ObjectStore, step: int) -> Optional[bool]:
+    """The sentinel verdict recorded at commit time: False = saved
+    inside an anomaly window, True = sentinel-clean, None = no verdict
+    (pre-sentinel archive, or unreadable COMMIT — treated as clean by
+    callers, matching pre-tag behavior)."""
+    try:
+        v = _commit_manifest(store, step).get("last_good")
+    except KeyError:
+        return None
+    return None if v is None else bool(v)
 
 
 def available_steps(store: ObjectStore, process_index: int) -> List[int]:

@@ -17,14 +17,22 @@ in-place writes after the newest save's device-to-host copies
 (``FlashCheckpointer.wait_staged``), so a save that returned before its
 copies finished never sees the next update.
 
-Two of the JAX trainer's fault-tolerance hooks are armed at
-construction (``_init_fault_tolerance``) and fed by :meth:`report_step`:
-the step-progress hang detector, which reports a stall to the master as
-a HANG failure (the agent then restarts the process on the master's
-action), and the fault injector of the drills (``DLROVER_FAULT_INJECT``).
-Not ported yet (ROADMAP.md, queue A): the sentinel, mesh transition,
-trace capture, drain coordinator and compile-cache telemetry, and the
-goodput ledger and fleet roll-up that ``report_step`` and
+Four of the JAX trainer's fault-tolerance hooks are armed at
+construction (``_init_fault_tolerance``): the step-progress hang
+detector, which reports a stall to the master as a HANG failure (the
+agent then restarts the process on the master's action); the fault
+injector of the drills (``DLROVER_FAULT_INJECT``); the silent-failure
+sentinel (``TrainingSentinel.from_env``), which :meth:`report_step`
+feeds the step's loss (through the injector's ``corrupt_loss``) and
+which tags the saves of an anomaly window (``set_clean_fn``); and the
+preemption drain (``DrainCoordinator``, armed on SIGTERM), whose
+emergency save takes the state :meth:`maybe_checkpoint` was last given
+unless the loop sets its own provider. A step is open for the drain
+from its dispatch to the end of :meth:`maybe_checkpoint` for it (or the
+next dispatch): a notice inside it waits for its end, since the update
+runs in place (fault_tolerance/drain.py). Not ported yet (ROADMAP.md,
+queue A): mesh transition, trace capture and compile-cache telemetry,
+and the goodput ledger and fleet roll-up that ``report_step`` and
 ``maybe_checkpoint`` feed. A checkpoint failure is raised into the step
 loop rather than logged: a failed device copy must not pass unseen.
 """
@@ -34,12 +42,17 @@ import time
 import weakref
 from typing import Any, Callable, Dict, Optional
 
-from dlrover_tpu_torch.common.constants import TrainingExceptionLevel
+from dlrover_tpu_torch.common.constants import (
+    NodeEnv,
+    TrainingExceptionLevel,
+)
 from dlrover_tpu_torch.common.log import default_logger as logger
+from dlrover_tpu_torch.fault_tolerance.drain import DrainCoordinator
 from dlrover_tpu_torch.fault_tolerance.hanging_detector import (
     HangingDetector,
 )
 from dlrover_tpu_torch.fault_tolerance.injection import FaultInjector
+from dlrover_tpu_torch.fault_tolerance.sentinel import TrainingSentinel
 from dlrover_tpu_torch.telemetry import tracing
 
 
@@ -62,6 +75,7 @@ class ElasticTrainer:
         loss = elastic.train_step(elastic.microbatch(batch))
         elastic.report_step(loss=loss)
         elastic.maybe_checkpoint(state)
+        order = elastic.sentinel.pending_rollback()  # restore order["step"]
     """
 
     def __init__(
@@ -82,24 +96,50 @@ class ElasticTrainer:
         self._ckpt_interval = 0
         self._hang_detector = None
         self._fault_injector = None
+        #: (step, state) given to the newest maybe_checkpoint: the
+        #: drain's emergency save takes it
+        self._last_state = None
         self._init_fault_tolerance()
         self.set_world(cur_nodes)
 
     def _init_fault_tolerance(self):
         """Step-progress hang detection (fault_tolerance/hanging_detector
-        .py) + the injection drill hook. Both are no-ops without a master
-        client; detection defaults on, DLROVER_HANG_DETECTION=0 disables,
-        DLROVER_HANG_MIN_TIMEOUT / _MULTIPLIER tune the threshold."""
+        .py), the injection drill hook, the silent-failure sentinel
+        (``DLROVER_TPU_SENTINEL=0`` disables) and the graceful drain on
+        SIGTERM. Hang detection needs a master client; it defaults on,
+        DLROVER_HANG_DETECTION=0 disables, DLROVER_HANG_MIN_TIMEOUT /
+        _MULTIPLIER tune the threshold."""
         self._fault_injector = FaultInjector.from_env(self._master_client)
+        self._sentinel = TrainingSentinel.from_env(self._master_client)
+        # weak: neither the signal handler nor the detector's thread may
+        # keep the trainer, and the model it drives, alive
+        trainer = weakref.ref(self)
+
+        def attr(name):
+            me = trainer()
+            return None if me is None else getattr(me, name)
+
+        def stalled():
+            # a hung step never reaches its end: drain without waiting
+            detector = attr("_hang_detector")
+            return detector is not None and detector.is_hanged()
+
+        self._drain = DrainCoordinator(
+            master_client_fn=lambda: attr("_master_client"),
+            checkpointer_fn=lambda: attr("_checkpointer"),
+            state_provider=lambda: attr("_last_state"),
+            restart_count=int(
+                os.environ.get(NodeEnv.RESTART_COUNT, "0") or 0
+            ),
+            stalled_fn=stalled,
+        )
+        self._drain.arm()
         if self._master_client is None:
             return
         if os.environ.get("DLROVER_HANG_DETECTION", "1") == "0":
             return
 
         client = self._master_client
-        # weak: the detector's thread must not keep the trainer, and the
-        # model it drives, alive
-        trainer = weakref.ref(self)
 
         def report(elapsed: float):
             me = trainer()
@@ -149,9 +189,14 @@ class ElasticTrainer:
         key = self._accum_steps
         step_fn = self._step_cache.get(key)
         if step_fn is None:
-            trainer = self._trainer
+            trainer, drain = self._trainer, self._drain
 
             def step_fn(batches):
+                # the state is whole until this dispatch: a notice that
+                # waited for the previous step's end drains here at the
+                # latest, and one from now on waits for this step's
+                drain.release()
+                drain.hold()
                 if trainer.accum_steps != key:
                     trainer.set_accum_steps(key)
                 with tracing.span("train.dispatch"):
@@ -169,12 +214,15 @@ class ElasticTrainer:
             for x in batch
         )
 
-    def report_step(self, step: Optional[int] = None, loss=None):
+    def report_step(self, step: Optional[int] = None, loss=None,
+                    grad_norm=None):
         """Advance the step bookkeeping, tag spans with the step, and
         report the global step to the master every ``report_interval``
         steps. A completed step feeds the hang detector and is where a
-        planted fault fires. Returns ``loss`` as a float (which waits
-        for the step) when one is passed."""
+        planted fault fires; its loss (through a planted corruption)
+        goes to the sentinel, which otherwise polls for a rollback
+        order. Returns ``loss`` as a float (which waits for the step)
+        when one is passed."""
         self._global_step = step if step is not None else (
             self._global_step + 1
         )
@@ -185,6 +233,19 @@ class ElasticTrainer:
             self._fault_injector.maybe_inject(self._global_step)
         if loss is not None:
             loss = float(loss)
+            if self._fault_injector is not None:
+                # corruption drills (nan@N / sdc@N) poison the scalar
+                # here so the sentinel sees exactly what a corrupting
+                # host would produce
+                loss = self._fault_injector.corrupt_loss(
+                    self._global_step, loss
+                )
+            if self._sentinel is not None:
+                self._sentinel.check(self._global_step, loss, grad_norm)
+        elif self._sentinel is not None:
+            # no scalar this step: still poll for rollback orders
+            # issued on another rank's anomaly
+            self._sentinel.poll_rollback_order()
         if (
             self._master_client is not None
             and self._global_step % self._report_interval == 0
@@ -207,6 +268,12 @@ class ElasticTrainer:
         (``wait_staged``)."""
         self._checkpointer = checkpointer
         self._ckpt_interval = max(0, int(save_interval))
+        if self._sentinel is not None and hasattr(
+            checkpointer, "set_clean_fn"
+        ):
+            # archives saved inside an anomaly window get tagged
+            # last_good=False and are skipped by the restore walk-down
+            checkpointer.set_clean_fn(self._sentinel.is_clean)
 
         def before_update():
             with tracing.span("train.wait_staged"):
@@ -228,17 +295,46 @@ class ElasticTrainer:
         then, to build it). Returns the train-thread stall in ms when a
         save was issued, else None. ``force`` also persists the save;
         ``durable`` waits until it is on the RAM tier
-        (``FlashCheckpointer.save``)."""
-        if self._checkpointer is None:
-            return None
+        (``FlashCheckpointer.save``). This is the step's end for the
+        drain: a notice that landed inside the step drains here, before
+        any cadence save; one that lands during the cadence save waits
+        for its end, since the emergency save needs the pinned block and
+        the serializer that this save holds."""
         step = self._global_step if step is None else step
-        if not (force or self.checkpoint_due(step)):
-            return None
-        if callable(state):
-            state = state()
-        return self._checkpointer.save(step, state, force_persist=force,
-                                       durable=durable)
+        self._last_state = (step, state)
+        self._drain.release()
+        self._drain.hold()
+        try:
+            if self._checkpointer is None:
+                return None
+            if not (force or self.checkpoint_due(step)):
+                return None
+            if callable(state):
+                state = state()
+            stall_ms = self._checkpointer.save(
+                step, state, force_persist=force, durable=durable)
+            if self._sentinel is not None:
+                # ignored inside an anomaly window: a tainted save is
+                # never a rollback target
+                self._sentinel.note_checkpoint(step)
+            return stall_ms
+        finally:
+            # a notice during the cadence save drains after it
+            self._drain.release()
 
     @property
     def global_step(self) -> int:
         return self._global_step
+
+    @property
+    def sentinel(self) -> Optional[TrainingSentinel]:
+        """The armed :class:`~dlrover_tpu_torch.fault_tolerance.sentinel.
+        TrainingSentinel` (None when DLROVER_TPU_SENTINEL=0)."""
+        return self._sentinel
+
+    @property
+    def drain(self) -> DrainCoordinator:
+        """The armed :class:`~dlrover_tpu_torch.fault_tolerance.drain.
+        DrainCoordinator` (set its state provider where the loop knows
+        its step and state better than :meth:`maybe_checkpoint`)."""
+        return self._drain

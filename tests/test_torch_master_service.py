@@ -243,8 +243,8 @@ def test_servicer_replies_match_jax():
 
 @pytest.mark.parametrize("method", [
     "serve_submit", "report_relay_batch", "report_goodput",
-    "report_anomaly", "report_reshard", "report_preemption",
-    "report_model_info", "report_custom_data", "no_such_rpc",
+    "report_reshard", "report_model_info", "report_custom_data",
+    "no_such_rpc",
 ])
 def test_rpcs_left_out_are_unknown(method):
     servicer = MasterServicer()
