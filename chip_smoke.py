@@ -20,6 +20,11 @@ Phases, each of which raises on failure:
    launch counts, step time, tokens/s, MFU, peak memory -- and the
    model's hidden states and loss through the kernels against
    ``mha_reference``, with a wrong attention that must fail the gate;
+   the step profile (``trainer/profiler.py``: its FLOPs, a floor that
+   leaves out the flash kernels, give HFU beside MFU), which must leave
+   the training state, the generators and the launch counts bitwise as
+   they were, and one sample of the resource monitor's device probe,
+   which must equal ``torch.cuda``'s own counters;
 5. profile: torch.profiler over two more train steps -- device time by
    kernel group, the top kernels and the device's idle share;
 6. elastic: the elastic loop at the same width -- the master's data
@@ -37,7 +42,14 @@ Phases, each of which raises on failure:
    newest checkpoint committed before the crash and trains to step 12;
    the launcher's exit, the restore, the worker's card and the losses of
    the steps both incarnations ran (bitwise) are checked, and the
-   journal's timestamps give the recovery and its parts;
+   journal's timestamps give the recovery and its parts. The job's
+   account: the master's ``/goodput`` on a pinned port, polled while the
+   launch runs, must answer and see two incarnations of node 0; the
+   journal's offline replay (``telemetry.goodput.reconstruct``) must
+   attribute at least 95% of each process's time, sum each process's
+   phases to its elapsed time within 1%, recover the crash's fault
+   window and book the gap after the crash as ``restart``; goodput %,
+   badput by cause and MTTR of both are printed beside ``recovery_s``;
 8. drain: two launches of the same loop on one checkpoint directory.
    Launch A is preempted (``preempt@6:notice=30``, a 25 s drain budget):
    the worker drains at the end of step 6 -- the master told, a durable
@@ -47,7 +59,11 @@ Phases, each of which raises on failure:
    reclaimed host's tmpfs would be. Launch B, the replacement, restores
    step 6 from the persist tier, trips the sentinel on ``nan@10``, rolls
    back to step 8 on the master's order, replays step 9 (bitwise) and
-   ends at step 12;
+   ends at step 12. The drain's final goodput snapshot must be sent
+   (``preempt.drained``), the SIGTERM must leave one flight record, the
+   drain must fit its budget, and the replay of both launches must book
+   ``preempt`` and ``rollback`` badput and recover the rollback's
+   window;
 9. the kernels line (one JSON object), then the card's name and power
    limit, then the device line, last.
 
@@ -535,6 +551,8 @@ def phase_slice():
             f"{hidden_err['wrong']} <= {HIDDEN_TOL}")
     loss_kernel, loss_ref = losses["kernel"], losses["reference"]
 
+    step_profile = _profile_and_sample(trainer, mb)
+
     phase_profile(trainer, mb, step_s * 1e3)
 
     tokens_per_step = batch * seq
@@ -548,12 +566,82 @@ def phase_slice():
         "model_flops_per_step": model_flops,
         "mfu_percent": utilization(model_flops, step_s,
                                    peak_flops_per_chip()),
+        # the counted FLOPs leave out the flash kernels: a floor
+        "hfu_floor_percent": utilization(step_profile["flops"], step_s,
+                                         peak_flops_per_chip()),
+        "step_profile": step_profile,
         "max_memory_allocated_bytes": peak_mem,
         "final_loss": loss_val, "loss_kernel": loss_kernel,
         "loss_reference": loss_ref,
         "launches_per_step": {n: c / steps for n, c in launches.items()},
     })
     return launches
+
+
+def _profile_and_sample(trainer, mb) -> dict:
+    """The worker's step profile (trainer/profiler.py) on the full-width
+    step, which must leave the training state, the generators and the
+    kernels' launch counts bitwise as they were; then one sample of the
+    resource monitor's device probe, which must read the allocator's own
+    counters."""
+    import torch
+
+    from dlrover_tpu_torch.agent.monitor.resource import ResourceMonitor
+    from dlrover_tpu_torch.ops.cuda import flash_attention as fa
+    from dlrover_tpu_torch.trainer import profiler
+
+    def state():
+        st = trainer.train_state()
+        opt = st["optimizer"]
+        tensors = [t.detach().clone() for part in (
+            st["model"], opt["mu"], opt["nu"]) for t in part.values()]
+        return tensors, opt["count"]
+
+    torch.cuda.synchronize()
+    before, count = state()
+    launches = dict(fa.LAUNCHES)
+    rng = (torch.get_rng_state(), torch.cuda.get_rng_state())
+    t0 = time.perf_counter()
+    prof = profiler.profile_step(trainer.forward_backward, mb,
+                                 params=trainer.model)
+    profile_s = time.perf_counter() - t0
+    after, count_after = state()
+    failed = []
+    if count_after != count or not all(
+            torch.equal(a, b) for a, b in zip(before, after)):
+        failed.append("the profile changed the training state")
+    if fa.LAUNCHES != launches:
+        failed.append(f"launch counts {fa.LAUNCHES}, {launches} before")
+    if not (torch.equal(torch.get_rng_state(), rng[0])
+            and torch.equal(torch.cuda.get_rng_state(), rng[1])):
+        failed.append("the profile moved the generators")
+    if any(p.grad is not None for p in trainer.model.parameters()):
+        failed.append("the profile left gradients")
+    if prof.device != "cuda" or not prof.flops > 0:
+        failed.append(f"profile {prof}")
+    del before, after
+
+    reports = []
+
+    class Client:
+        def report_used_resource(self, *args):
+            reports.append(args)
+
+    torch.cuda.synchronize()
+    sample = ResourceMonitor(Client(), collect_device=True
+                             ).report_resource()[0]
+    allocated = torch.cuda.memory_allocated()
+    peak = torch.cuda.max_memory_allocated()
+    if (sample["bytes_in_use"] != allocated
+            or sample["peak_bytes_in_use"] != peak or len(reports) != 1):
+        failed.append(f"resource sample {sample} against allocated "
+                      f"{allocated}, peak {peak}")
+    if failed:
+        raise AssertionError("slice profile: " + "; ".join(failed))
+    return {"flops": prof.flops, "device": prof.device,
+            "excludes": "the flash kernels (outside ATen)",
+            "seconds": profile_s, "param_count": prof.param_count,
+            "state_bitwise": True, "resource_sample": sample}
 
 
 def _kernel_group(name: str) -> str:
@@ -959,6 +1047,89 @@ def _launch(ckpt_dir: str, journal: str, out_file: str, env: dict):
     return proc, stdout, stderr
 
 
+class _GoodputPoll:
+    """Polls a master's ``/goodput`` on a background thread while a
+    launch runs and keeps the last answer that carries a job account
+    (the master stops serving when the launch ends)."""
+
+    def __init__(self, port: int, interval: float = 0.2):
+        import threading
+
+        self.port, self.interval = port, interval
+        self.last, self.answers = None, 0
+        self._done = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        import urllib.request
+
+        while not self._done.is_set():
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{self.port}/goodput",
+                        timeout=2) as resp:
+                    answer = json.loads(resp.read())
+                if answer.get("job"):
+                    self.last = answer
+                    self.answers += 1
+            except OSError:
+                pass
+            self._done.wait(self.interval)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._done.set()
+        self._thread.join(timeout=10)
+        return False
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _replay(events, failed, what) -> dict:
+    """The offline goodput replay of a launch's journal, held to its
+    gates: each process's phases sum to its elapsed time within 1%, and
+    at least 95% of each process's time is attributed (not idle)."""
+    from dlrover_tpu_torch.telemetry import goodput
+
+    report = goodput.reconstruct(events)
+    for key, proc in report["procs"].items():
+        elapsed = proc["elapsed_s"]
+        if abs(sum(proc["phases"].values()) - elapsed) > 0.01 * elapsed:
+            failed.append(f"{what}: {key}'s phases do not sum to its "
+                          f"{elapsed} s")
+        if proc["phases"]["idle"] > 0.05 * elapsed:
+            failed.append(f"{what}: {key} attributes under 95% "
+                          f"({proc['phases']})")
+    if not report["procs"]:
+        failed.append(f"{what}: the replay found no process")
+    return report
+
+
+def _goodput_line(report) -> dict:
+    """Goodput %, badput by cause and MTTR of a summary."""
+    job = report["job"]
+    return {"goodput_percent": job["goodput_percent"],
+            "attributed_percent": job["attributed_percent"],
+            "badput_s": job["badput_s"], "mttr_s": job["mttr_s"],
+            "faults": job["faults"], "procs": job["procs"],
+            "wall_s": job["wall_s"]}
+
+
+def _profiles(events) -> list:
+    """Each worker's step profile after its first step (the example's
+    ``train.profile``): FLOPs counted and the seconds it took."""
+    return [e["data"] for e in events if e["kind"] == "train.profile"]
+
+
 def _first(events, kind, after=-1, **data):
     """(index, event) of the first ``kind`` event after index ``after``
     whose data holds ``data``; (None, None) when there is none."""
@@ -1005,11 +1176,16 @@ def phase_launch() -> dict:
         os.symlink(ram_dir, os.path.join(ckpt_dir, "ram"))
     journal = os.path.join(ckpt_dir, "journal.jsonl")
     out_file = os.path.join(ckpt_dir, "out.txt")
+    # the master serves /goodput on a pinned port (the agent, started
+    # after it, finds the port taken and serves none)
+    metrics_port = _free_port()
     try:
         t_launch = time.time()
-        proc, stdout, stderr = _launch(
-            ckpt_dir, journal, out_file,
-            {"DLROVER_FAULT_INJECT": f"crash@{LAUNCH_CRASH}"})
+        with _GoodputPoll(metrics_port) as poll:
+            proc, stdout, stderr = _launch(
+                ckpt_dir, journal, out_file,
+                {"DLROVER_FAULT_INJECT": f"crash@{LAUNCH_CRASH}",
+                 "DLROVER_TPU_METRICS_PORT": str(metrics_port)})
         launch_s = time.time() - t_launch
         events = read_journal(journal) if os.path.exists(journal) else []
         out = (open(out_file).read().split(",")
@@ -1082,6 +1258,34 @@ def phase_launch() -> dict:
         }
     else:
         failed.append("the journal lacks a mark of the recovery")
+    # the job's account: the offline replay of the journal, and the
+    # master's live /goodput
+    report = _replay(events, failed, "launch")
+    crash_windows = [f for f in report["faults"] if f["cause"] == "crash"]
+    if len(crash_windows) != 1 or crash_windows[0]["recovered_ts"] is None:
+        failed.append(f"the replay's crash windows {crash_windows}")
+    gap = report["nodes"].get("0", {}).get("restart_gap_s", 0.0)
+    if not gap > 0 or not report["job"]["badput_s"]["restart"] >= gap:
+        failed.append(f"the replay booked the crash gap {gap} s as "
+                      f"{report['job']['badput_s']}")
+    live = poll.last
+    if live is None:
+        failed.append("the master's /goodput never answered")
+    elif (live["nodes"].get("0", {}).get("procs", 0) < 2
+          or not live["job"]["faults"]):
+        failed.append(f"/goodput saw one incarnation of node 0 "
+                      f"({live['nodes']})")
+    profiles = _profiles(events)
+    if len(profiles) != 2 or {p["device"] for p in profiles} != {"cuda"}:
+        failed.append(f"each worker's step profile {profiles}")
+    accounting = {
+        "replay": {**_goodput_line(report), "restart_gap_s": gap,
+                   "crash_window": crash_windows},
+        "live": ({**_goodput_line(live), "answers": poll.answers,
+                  "node0_procs": live["nodes"].get("0", {}).get("procs")}
+                 if live else None),
+        "profiles": profiles,
+    }
     emit({
         "phase": "launch", "model": "llama_1b", "batch": SLICE["b"],
         "seq": SLICE["s"], "steps": LAUNCH_STEPS,
@@ -1092,7 +1296,8 @@ def phase_launch() -> dict:
         "launches_per_step": launches,
         "steps_redone": both, "loss_bitwise": bitwise,
         "losses": runs, "state_bytes": state_bytes, **placed,
-        **timeline, "nvidia_smi": nvidia_smi_line(),
+        **timeline, "goodput": accounting,
+        "nvidia_smi": nvidia_smi_line(),
     })
     if failed:
         print(stdout[-4000:], stderr[-8000:], sep="\n", file=sys.stderr)
@@ -1126,13 +1331,16 @@ def phase_drain() -> dict:
         os.symlink(ram_dir, os.path.join(ckpt_dir, "ram"))
     journals = [os.path.join(ckpt_dir, f"journal_{x}.jsonl") for x in "ab"]
     out_file = os.path.join(ckpt_dir, "out.txt")
-    runs, launch_s = [], []
+    # the flight records of each launch (a SIGTERM writes one)
+    crash_dirs = [os.path.join(ckpt_dir, f"crash_{x}") for x in "ab"]
+    runs, launch_s, records = [], [], []
     try:
-        for journal, env in zip(journals, (
+        for journal, crash_dir, env in zip(journals, crash_dirs, (
                 {"DLROVER_FAULT_INJECT":
                  f"preempt@{DRAIN_PREEMPT}:notice={DRAIN_NOTICE}",
                  "DLROVER_TPU_PREEMPT_NOTICE_BUDGET": str(DRAIN_BUDGET)},
                 {"DLROVER_FAULT_INJECT": f"nan@{DRAIN_NAN}"})):
+            env = dict(env, DLROVER_TPU_CRASH_DIR=crash_dir)
             if runs:
                 # a reclaimed host's tmpfs dies with it: the replacement
                 # finds only the persist tier
@@ -1148,6 +1356,8 @@ def phase_drain() -> dict:
             events = (read_journal(journal) if os.path.exists(journal)
                       else [])
             runs.append((proc, stdout, stderr, events))
+            records.append(sorted(os.listdir(crash_dir))
+                           if os.path.isdir(crash_dir) else [])
     finally:
         for journal in journals:
             _stop_launch(journal)
@@ -1220,6 +1430,37 @@ def phase_drain() -> dict:
     if f"FINAL step={LAUNCH_STEPS}" not in out_b:
         failed.append(f"no 'FINAL step={LAUNCH_STEPS}'")
 
+    # the job's account across both launches: the drain's final goodput
+    # snapshot, and the replay's preempt and rollback badput
+    if drained is not None and drained["data"].get("goodput") is not True:
+        failed.append(f"the drain's goodput step failed {drained['data']}")
+    report = _replay(ev_a + ev_b, failed, "drain")
+    badput = report["job"]["badput_s"]
+    if not (badput["preempt"] > 0 and badput["rollback"] > 0):
+        failed.append(f"the replay's badput {badput}")
+    rollback_windows = [f for f in report["faults"]
+                        if f["cause"] == "rollback"]
+    if not rollback_windows or any(f["recovered_ts"] is None
+                                   for f in rollback_windows):
+        failed.append(f"the replay's rollback windows {rollback_windows}")
+    dumps = [e["data"]["reason"] for e in ev_a
+             if e["kind"] == "flight.dumped"]
+    if (dumps != ["signal-SIGTERM"] or len(records[0]) != 1
+            or not records[0][0].endswith("signal-SIGTERM")):
+        failed.append(f"launch A's flight records {dumps} {records[0]}")
+    if notice is not None and drained is not None and (
+            drained["ts"] - notice["ts"] > DRAIN_BUDGET):
+        failed.append(f"the drain took {drained['ts'] - notice['ts']} s "
+                      f"of a {DRAIN_BUDGET} s budget")
+    profiles = _profiles(ev_a) + _profiles(ev_b)
+    if len(profiles) != 2 or {p["device"] for p in profiles} != {"cuda"}:
+        failed.append(f"each worker's step profile {profiles}")
+    accounting = {"replay": {**_goodput_line(report),
+                             "rollback_windows": rollback_windows},
+                  "drain_goodput_step": (drained or {}).get(
+                      "data", {}).get("goodput"),
+                  "flight_records": records, "profiles": profiles}
+
     readings = {}
     if not failed:
         _, first_b = _first(ev_b, "train.step")
@@ -1244,7 +1485,7 @@ def phase_drain() -> dict:
         "nan_step": DRAIN_NAN, "rollback_step": rollback_step,
         "launcher_rc": [r[0].returncode for r in runs],
         "launch_s": launch_s, "losses_b": b_runs, **readings, **placed,
-        "nvidia_smi": nvidia_smi_line(),
+        "goodput": accounting, "nvidia_smi": nvidia_smi_line(),
     })
     if failed:
         for proc, stdout, stderr, _ in runs:

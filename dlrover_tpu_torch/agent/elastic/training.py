@@ -23,9 +23,13 @@ Counterpart of ``dlrover_tpu/agent/elastic/training.py``. The agent
      the host is being reclaimed, and the restart budget is not
      charged. The master's DRAIN action sends the worker group SIGTERM.
 
+The agent serves its host's ``/metrics``, ``/goodput`` and ``/healthz``
+(telemetry/http.py; an ephemeral port unless
+``DLROVER_TPU_METRICS_PORT`` pins or disables it) and arms its own
+goodput ledger, whose phases follow the events it journals.
 Not ported yet (ROADMAP.md, queue A): the pre-flight network check
-(``--network-check`` raises), the relay tier's report lane, the
-persistent compile cache, the metrics server and the goodput ledger.
+(``--network-check`` raises), the relay tier's report lane and the
+persistent compile cache.
 """
 
 import os
@@ -51,7 +55,8 @@ from dlrover_tpu_torch.common.constants import (
 from dlrover_tpu_torch.common.grpc_utils import find_free_port
 from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.fault_tolerance.drain import DRAIN_EXIT_CODE
-from dlrover_tpu_torch.telemetry import counter, record
+from dlrover_tpu_torch.telemetry import counter, goodput, record
+from dlrover_tpu_torch.telemetry.http import start_metrics_server
 
 
 @dataclass
@@ -225,6 +230,14 @@ class ElasticTrainingAgent:
         self._remaining_restarts = config.max_restarts
         self._status_reporter = None
         self._restart_requested = threading.Event()
+        # per-host scrape point (the master serves its own): ephemeral
+        # port unless DLROVER_TPU_METRICS_PORT pins/disables it
+        self._metrics_server = start_metrics_server()
+        # per-process goodput ledger: phases derive from the events
+        # this agent already journals (scale.restart,
+        # rendezvous.joined, agent.master_lost/_reconnected) via the
+        # journal tap — no extra calls needed here
+        self._goodput = goodput.install()
     def _handle_master_action(self, action: str):
         """Act on the directive the master piggybacks on the report ack
         (parity: the reference agent's DiagnosisAction handling). A
@@ -523,6 +536,9 @@ class ElasticTrainingAgent:
         if self._status_reporter is not None:
             self._status_reporter.stop()
         self._kill_workers()
+        if self._metrics_server is not None:
+            self._metrics_server.stop()
+            self._metrics_server = None
 
 
 def launch_agent(config: ElasticLaunchConfig,

@@ -24,9 +24,11 @@ Every public RPC of :class:`MasterClient` runs under a
   ``agent.master_reconnected`` journal events and a reconnect-attempts
   counter.
 
+``report_global_step`` carries this process's goodput ledger
+(telemetry/goodput.py) when one is armed, and ``report_goodput`` sends
+it off the step cadence (``final=True`` at a drain's end).
 Not ported yet (ROADMAP.md, queue A): the relay tier's failover, the
-fleet observation of RPC latency, and the goodput, reshard, metrics and
-serving calls.
+fleet observation of RPC latency, and the reshard and serving calls.
 """
 
 import functools
@@ -49,7 +51,7 @@ from dlrover_tpu_torch.master.shard.dataset_splitter import (
     new_dataset_splitter,
 )
 from dlrover_tpu_torch.master.shard.task_manager import TaskManager
-from dlrover_tpu_torch.telemetry import counter, record, tracing
+from dlrover_tpu_torch.telemetry import counter, goodput, record, tracing
 
 #: hard reconnect deadline (seconds) — how long a worker rides out a
 #: master outage before giving up. Default covers a pod reschedule plus
@@ -552,11 +554,45 @@ class MasterClient:
     @supervised_rpc
     def report_global_step(self, step: int,
                            timestamp: Optional[float] = None):
+        # piggyback the goodput ledger when this process armed one
+        # (telemetry/goodput.py) — empty fields otherwise, so the wire
+        # message is unchanged for ledger-less processes
         req = self._fill(comm.GlobalStep(
             timestamp=timestamp or time.time(), step=step,
-            pid=os.getpid(),
+            pid=os.getpid(), **goodput.report_fields(),
         ))
         return self._call("report_global_step", req)
+
+    @supervised_rpc
+    def report_goodput(self, final: bool = False):
+        """Push the full ledger snapshot outside the step cadence
+        (once with ``final=True`` at a drain's end so the master closes
+        the incarnation). No-op without an armed ledger."""
+        fields = goodput.report_fields()
+        if not fields:
+            return None
+        req = self._fill(comm.GoodputReport(
+            pid=os.getpid(), host=socket.gethostname(),
+            final=final, **fields,
+        ))
+        return self._call("report_goodput", req)
+
+    @supervised_rpc
+    def report_custom_data(self, data: Dict):
+        """Free-form metrics into the stats pipeline (evaluator
+        results; parity: report_customized_data)."""
+        req = self._fill(comm.CustomData(data=dict(data)))
+        return self._call("report_custom_data", req)
+
+    @supervised_rpc
+    def report_model_info(self, param_count: int, flops_per_step: float,
+                          batch_size: int, seq_len: int = 0,
+                          extra: Optional[Dict] = None):
+        req = self._fill(comm.ModelInfo(
+            param_count=param_count, flops_per_step=flops_per_step,
+            batch_size=batch_size, seq_len=seq_len, extra=extra or {},
+        ))
+        return self._call("report_model_info", req)
 
     # ----------------------------------------------------------------- sync
 
@@ -668,6 +704,16 @@ class LocalMasterClient:
         return self._task_manager.restore_dataset_from_checkpoint(content)
 
     def report_global_step(self, step, timestamp=None):
+        pass
+
+    def report_goodput(self, final=False):
+        pass
+
+    def report_custom_data(self, data):
+        pass
+
+    def report_model_info(self, param_count, flops_per_step, batch_size,
+                          seq_len=0, extra=None):
         pass
 
     # the agent's calls: an in-process master has no agent to answer,

@@ -2,13 +2,13 @@
 
 Counterpart of ``dlrover_tpu/agent/status_reporter.py``. At fleet
 scale the master's binding constraint is control-plane fan-in: N
-agents x (heartbeat + global-step + resource) unary RPCs on independent
-cadences. This module folds them into ONE ``report_node_status`` rpc
-per agent per interval with delta semantics:
+agents x (heartbeat + global-step + goodput + resource) unary RPCs on
+independent cadences. This module folds them into ONE
+``report_node_status`` rpc per agent per interval with delta semantics:
 
 * the heartbeat timestamp is always present (it IS the liveness signal);
-* step / resource sections ride along only when they changed since the
-  last *acked* report (``has_*`` gates on the wire message);
+* step / goodput / resource sections ride along only when they changed
+  since the last *acked* report (``has_*`` gates on the wire message);
 * the first report of an incarnation — and any report after the master
   replies ``resync=True`` (it restarted and lost the delta baseline) —
   is ``full=True`` and resends everything.
@@ -16,10 +16,10 @@ per agent per interval with delta semantics:
 The master's pending action (restart, stop) rides back on the ack.
 The report interval is jittered ±20% so a master restart doesn't get
 the whole fleet's re-hellos back in phase. Left out of the JAX
-reporter: the goodput, serving and fleet-digest sections, which wait
-for those modules (ROADMAP.md, queue A), and its load-shed retry and
-its fallback to the per-rpc heartbeat, since the port's master never
-sheds a report and always serves the rpc.
+reporter: the serving and fleet-digest sections, which wait for those
+modules (ROADMAP.md, queue A), and its load-shed retry and its fallback
+to the per-rpc heartbeat, since the port's master never sheds a report
+and always serves the rpc.
 """
 
 import os
@@ -27,18 +27,21 @@ import random
 import socket
 import threading
 import time
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 from dlrover_tpu_torch.common import comm
 from dlrover_tpu_torch.common.log import default_logger as logger
+from dlrover_tpu_torch.telemetry import goodput as goodput_mod
 from dlrover_tpu_torch.telemetry.journal import current_job_id, record
 
 #: fractional interval jitter (0.2 = ±20%)
 JITTER = 0.2
-#: resend resource at least every N intervals even if "unchanged" —
-#: bounds how stale a delta'd section can get when the change
-#: detector's thresholds hide slow drift
+#: resend goodput/resource at least every N intervals even if
+#: "unchanged" — bounds how stale a delta'd section can get when the
+#: change detector's thresholds hide slow drift
 DEFAULT_MAX_SKIP = 8
+#: a phase total must advance this much to count as changed
+GOODPUT_MIN_DELTA_S = 1.0
 CPU_MIN_DELTA_PCT = 5.0
 MEM_MIN_DELTA_MB = 64
 
@@ -49,6 +52,7 @@ class DeltaTracker:
 
     def __init__(self, incarnation: int = 0,
                  max_skip: int = DEFAULT_MAX_SKIP,
+                 goodput_min_delta_s: float = GOODPUT_MIN_DELTA_S,
                  job_id: str = ""):
         self._incarnation = incarnation
         #: job namespace stamped into every composed report;
@@ -58,20 +62,35 @@ class DeltaTracker:
         self._seq = 0
         self._full_next = True
         self._max_skip = max(1, max_skip)
+        self._goodput_min_delta = goodput_min_delta_s
         # last-ACKED baselines — only advanced by commit(), so a shed
         # or failed report never silently drops a delta
         self._acked_step = -1
         self._acked_cpu: Optional[float] = None
         self._acked_mem: Optional[int] = None
+        self._acked_phases: Dict[str, float] = {}
+        self._acked_phase = ""
+        self._skipped_goodput = 0
         self._skipped_resource = 0
 
     def request_full(self):
         self._full_next = True
 
+    def _goodput_changed(self, fields: Dict) -> bool:
+        if fields.get("goodput_phase", "") != self._acked_phase:
+            return True
+        phases = fields.get("goodput_phases") or {}
+        for name, total in phases.items():
+            if abs(total - self._acked_phases.get(name, 0.0)) \
+                    >= self._goodput_min_delta:
+                return True
+        return False
+
     def compose(self, timestamp: float,
                 step: Optional[int] = None,
                 step_ts: float = 0.0,
                 pid: int = 0,
+                goodput_fields: Optional[Dict] = None,
                 resource: Optional[Tuple[float, int]] = None,
                 host: str = "",
                 final: bool = False,
@@ -90,14 +109,36 @@ class DeltaTracker:
             job_id=self.job_id,
         )
         if full or final:
-            # host only travels on full reports (the master's goodput
-            # ledger reads it) — steady-state deltas stay host-free
+            # host only travels when someone reads it: the master
+            # consumes it solely in the goodput ledger (and below when
+            # a goodput section is attached) — steady-state deltas
+            # stay host-free
             report.host = host or socket.gethostname()
         if step is not None and (full or step > self._acked_step):
             report.has_step = True
             report.step = step
             report.step_ts = step_ts or timestamp
             report.pid = pid
+        if goodput_fields:
+            self._skipped_goodput += 1
+            if (full or final
+                    or self._skipped_goodput >= self._max_skip
+                    or self._goodput_changed(goodput_fields)):
+                report.has_goodput = True
+                report.pid = pid
+                report.host = host or socket.gethostname()
+                report.goodput_phases = dict(
+                    goodput_fields.get("goodput_phases") or {}
+                )
+                report.goodput_elapsed_s = goodput_fields.get(
+                    "goodput_elapsed_s", 0.0
+                )
+                report.goodput_start_ts = goodput_fields.get(
+                    "goodput_start_ts", 0.0
+                )
+                report.goodput_phase = goodput_fields.get(
+                    "goodput_phase", ""
+                )
         if resource is not None:
             cpu, mem = resource
             self._skipped_resource += 1
@@ -117,6 +158,10 @@ class DeltaTracker:
         self._full_next = False
         if report.has_step:
             self._acked_step = report.step
+        if report.has_goodput:
+            self._acked_phases = dict(report.goodput_phases)
+            self._acked_phase = report.goodput_phase
+            self._skipped_goodput = 0
         if report.has_resource:
             self._acked_cpu = report.cpu_percent
             self._acked_mem = report.memory_mb
@@ -184,7 +229,10 @@ class StatusReporter:
     # ----------------------------------------------------------- one report
 
     def tick_once(self):
-        report = self._tracker.compose(time.time(), pid=self._pid)
+        report = self._tracker.compose(
+            time.time(), pid=self._pid,
+            goodput_fields=goodput_mod.report_fields(),
+        )
         self.sent += 1
         ack = self._client.report_node_status(report)
         self.acked += 1

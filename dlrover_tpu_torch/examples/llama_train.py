@@ -32,7 +32,10 @@ a restore and ``FINAL step=N loss=...`` at the end, as the JAX example
 does; ``--out`` gets ``step,loss,start_step``. The journal gets
 ``train.model_ready`` (the model on its device) and ``train.step`` per
 step (with the flash kernels' launches so far), the marks a recovery's
-timeline is read from.
+timeline is read from. After each incarnation's first step the
+ElasticTrainer profiles the step (trainer/profiler.py) and reports it to
+the master's job metric collector; ``train.profile`` journals its FLOPs
+and seconds.
 
 The checkpointed state is ``{"model": {name: parameter}, "optimizer":
 {"mu": ..., "nu": ..., "count": ...}, "step": N, "data": <the shard
@@ -188,6 +191,14 @@ def run(steps: int, ckpt_dir: str, batch_size: int = 8, seq_len: int = 128,
                 k: n - launched_before[k]
                 for k, n in flash_attention.LAUNCHES.items()})
             print(f"step {step} loss {loss!r}", flush=True)
+            if step == start_step + 1:
+                t0 = time.perf_counter()
+                prof = elastic.report_model_profile(
+                    batch, batch_size=batch_size, seq_len=seq_len)
+                if prof is not None:
+                    record("train.profile", flops=prof.flops,
+                           device=prof.device,
+                           seconds=round(time.perf_counter() - t0, 3))
             order = (sentinel.pending_rollback()
                      if sentinel is not None else None)
             if order is not None:

@@ -27,7 +27,9 @@ deadline-budgeted drain sequence bounded by
 3. relinquish in-flight shards (``relinquish_shards`` RPC) so the
    ``TaskManager`` requeues them immediately instead of waiting out
    the task-timeout watchdog;
-4. chain the previously installed signal disposition and exit with
+4. send the final goodput snapshot (``report_goodput(final=True)``) so
+   the master closes the incarnation under the preempt cause;
+5. chain the previously installed signal disposition and exit with
    :data:`DRAIN_EXIT_CODE` so the agent classifies the death as
    PREEMPTED, not a crash.
 
@@ -52,9 +54,10 @@ signal time from a host copy the loop takes after every step; copying
 the port's state (6.6 GB for Llama-1.1B) to the host every step is no
 option.
 
-Waiting for the goodput ledger (ROADMAP.md, queue A): the JAX
-sequence's step 4, a final goodput snapshot (its result entry here says
-it was skipped), and the flight recorder's branch of the signal chain.
+The flight recorder's SIGTERM hook (telemetry/flight_recorder.py),
+installed after the drain is armed, dumps at signal time and then calls
+this handler, which may defer the notice as above: the dump neither
+breaks the hold nor re-delivers the signal.
 """
 
 import os
@@ -322,14 +325,17 @@ class DrainCoordinator:
         result["relinquished"] = self._bounded(
             "relinquish", deadline, self._relinquish_shards
         )
-        # 4. the final goodput snapshot waits for the goodput ledger
-        result["goodput"] = {"ok": False, "timed_out": False,
-                             "value": None, "skipped": "no goodput ledger"}
+        # 4. final goodput snapshot closes the incarnation under the
+        # preempt cause instead of an open-ended restart window
+        result["goodput"] = self._bounded(
+            "goodput", deadline, self._final_goodput
+        )
         record(
             "preempt.drained", reason=reason, step=step,
             remaining_s=round(max(0.0, deadline - time.monotonic()), 3),
             reported=bool(result.get("reported", {}).get("ok")),
             relinquished=result.get("relinquished", {}).get("value"),
+            goodput=bool(result["goodput"].get("ok")),
         )
         return result
 
@@ -394,6 +400,12 @@ class DrainCoordinator:
             return None
         return client.relinquish_shards()
 
+    def _final_goodput(self):
+        client = self._master_client_fn()
+        if client is None:
+            return None
+        return client.report_goodput(final=True)
+
     # ------------------------------------------------------------ plumbing
 
     def _bounded(self, name: str, deadline: float,
@@ -435,7 +447,12 @@ class DrainCoordinator:
         return out
 
     def _chain_prev(self, signum, frame) -> None:
-        """Compose with the pre-arm disposition."""
+        """Compose with the pre-arm disposition. The flight recorder's
+        hook is special-cased: when it was installed first (we chained
+        onto it), calling it back would call the handler it chains to
+        (an older coordinator's, say) or re-deliver the signal after
+        its own chain bottoms out on SIG_DFL and kill the process with
+        the wrong rc — dump directly instead."""
         prev = self._prev.get(signum)
         if prev in (None, signal.SIG_IGN, signal.SIG_DFL):
             return
@@ -446,6 +463,11 @@ class DrainCoordinator:
             # earlier trainer's, say): the drain has already run once,
             # and invoking the older handler would start a second
             # sequence and hard-exit through ITS exit_fn
+            return
+        from dlrover_tpu_torch.telemetry import flight_recorder
+
+        if prev is flight_recorder._on_signal:
+            flight_recorder.dump_flight_record("preempt-drain")
             return
         if callable(prev):
             try:

@@ -19,9 +19,9 @@ the supervising agent's next heartbeat with a ``restart`` action — the
 process is replaced without the node ever leaving RUNNING (the agent and
 its heartbeat survive; only the training process is recycled).
 
-A copy of ``dlrover_tpu/fault_tolerance/hanging_detector.py`` without
-the flight record written on a hang (``telemetry/flight_recorder.py`` is
-not ported yet, ROADMAP.md queue A).
+A copy of ``dlrover_tpu/fault_tolerance/hanging_detector.py``: a
+detected stall writes a flight record (telemetry/flight_recorder.py)
+before it is journaled and reported.
 """
 
 import threading
@@ -151,11 +151,24 @@ class HangingDetector:
             "dlrover_hang_stalls_total",
             "Stalls the step-progress hang detector flagged",
         ).inc()
+        # flight record FIRST: the report_fn path can end in the master
+        # restarting this process — the stacks must be on disk by then
+        dump_path = None
+        try:
+            from dlrover_tpu_torch.telemetry import flight_recorder
+
+            dump_path = flight_recorder.dump_on_hang(
+                stalled_for=elapsed, step=step,
+                threshold=self.timeout(),
+            )
+        except Exception as e:  # diagnosis never blocks the report
+            logger.warning("hang flight record failed: %s", e)
         record(
             "hang.detected", step=step,
             stalled_for=round(elapsed, 1),
             stalled_s=round(elapsed, 1),
             threshold_s=round(self.timeout(), 1),
+            flight_record=dump_path,
         )
         if self._report_fn is not None:
             self._report_fn(elapsed)

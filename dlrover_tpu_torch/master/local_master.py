@@ -5,10 +5,15 @@ Used both by ``--standalone`` launches (subprocess) and by tests as an
 in-process fixture with a real loopback RPC server (the reference's
 start_local_master pattern, dlrover/python/tests/test_utils.py:256).
 
-Counterpart of ``dlrover_tpu/master/local_master.py`` without the
-serving request router, the fleet and goodput aggregators, the resource
-advisor and the metrics HTTP server, none of which is ported yet
-(ROADMAP.md, queue A); its run loop is the JAX master's.
+Counterpart of ``dlrover_tpu/master/local_master.py``, with its
+goodput aggregator (served at ``/goodput`` of the metrics server it
+starts; ``DLROVER_TPU_METRICS_PORT`` pins the port, ``off`` disables)
+and the job metric collector that the JAX package's distributed master
+builds; like the JAX distributed master, it journals the job's final
+account (``goodput.job_summary``) when it stops. Left out until they are
+ported (ROADMAP.md, queue A): the
+serving request router, the fleet aggregator (``/fleet`` answers 404)
+and the resource advisor. Its run loop is the JAX master's.
 """
 
 import time
@@ -25,6 +30,14 @@ from dlrover_tpu_torch.master.monitor.speed_monitor import SpeedMonitor
 from dlrover_tpu_torch.master.node.local_job_manager import LocalJobManager
 from dlrover_tpu_torch.master.servicer import create_master_service
 from dlrover_tpu_torch.master.shard.task_manager import TaskManager
+from dlrover_tpu_torch.master.stats import (
+    JobMeta,
+    JobMetricCollector,
+    LocalStatsReporter,
+)
+from dlrover_tpu_torch.telemetry import goodput as goodput_mod
+from dlrover_tpu_torch.telemetry import record
+from dlrover_tpu_torch.telemetry.http import start_metrics_server
 
 
 class LocalJobMaster:
@@ -40,6 +53,13 @@ class LocalJobMaster:
         }
         self.sync_service = SyncService(self.job_manager)
         self.error_monitor = ErrorMonitor()
+        self.goodput_aggregator = goodput_mod.GoodputAggregator()
+        # a reporter of its own, as the JAX distributed master builds
+        # it: the class-level registry of new_stats_reporter would let
+        # two masters in one process share what they store
+        self.stats_reporter = LocalStatsReporter(JobMeta())
+        self.job_metric_collector = JobMetricCollector(
+            reporter=self.stats_reporter)
         self._server, self.servicer = create_master_service(
             port,
             task_manager=self.task_manager,
@@ -48,19 +68,31 @@ class LocalJobMaster:
             rdzv_managers=self.rdzv_managers,
             sync_service=self.sync_service,
             error_monitor=self.error_monitor,
+            job_metric_collector=self.job_metric_collector,
+            goodput_aggregator=self.goodput_aggregator,
         )
         self.port = self._server.port
         self._exit_code = 0
         self._exit_reason = ""
+        self._metrics_server = None
 
     @property
     def addr(self) -> str:
         return f"localhost:{self.port}"
 
+    @property
+    def metrics_port(self) -> int:
+        return self._metrics_server.port if self._metrics_server else 0
+
     def prepare(self):
         self.job_manager.start()
         self.task_manager.start()
         self._server.start()
+        # /goodput serves this master's aggregation
+        goodput_mod.set_job_provider(self.goodput_aggregator.summary)
+        # Prometheus /metrics + /journal (telemetry/http.py);
+        # DLROVER_TPU_METRICS_PORT pins the port, "off" disables
+        self._metrics_server = start_metrics_server()
         logger.info("Local master serving on port %d", self.port)
 
     def run(self, check_interval: float = 3.0) -> int:
@@ -98,4 +130,14 @@ class LocalJobMaster:
     def stop(self):
         self.task_manager.stop()
         self.job_manager.stop()
+        # journal the final job account before the server goes away, as
+        # the JAX distributed master does: a post-mortem compares the
+        # offline `dump --goodput` replay with this live total
+        summary = self.goodput_aggregator.summary()
+        if summary["job"]["procs"]:
+            record("goodput.job_summary", **summary["job"])
+        goodput_mod.set_job_provider(None)
         self._server.stop(grace=1.0)
+        if self._metrics_server is not None:
+            self._metrics_server.stop()
+            self._metrics_server = None

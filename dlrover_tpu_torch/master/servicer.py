@@ -12,14 +12,17 @@ sync and barriers, the run config and ping; and those of the one-node
 fault drills: the drain's ``report_preemption`` and the sentinel's
 ``report_anomaly`` (quarantine, one rollback order per incident, the
 ``DLROVER_TPU_MAX_ROLLBACKS`` budget, the order broadcast under
-``sentinel/rollback_order``). Their goodput accounting waits for the
-goodput ledger. Not ported yet (ROADMAP.md, queue A), each answered with
-the same "unknown RPC method" error as an RPC that does not exist:
-serving (``serve_*``), the relay batch, ``report_goodput``, fleet
-digests, ``report_reshard``, and ``report_model_info`` /
-``report_custom_data`` (the job metric collector). The JAX master's
-ingest plane (event loop, shards, admission and load shedding) is left
-out too: ``report_node_status`` runs on the RPC thread against one
+``sentinel/rollback_order``); and those of the job's accounting: the
+goodput aggregator (telemetry/goodput.py) fed by ``report_global_step``,
+the status report's goodput section and ``report_goodput``, with the
+preemption and rollback windows noted and closed for MTTR, and the job
+metric collector (master/stats) fed by the dataset, task, step and
+``report_model_info`` / ``report_custom_data`` calls. Not ported yet
+(ROADMAP.md, queue A), each answered with the same "unknown RPC method"
+error as an RPC that does not exist: serving (``serve_*``), the relay
+batch, fleet digests and ``report_reshard``. The JAX master's ingest
+plane (event loop, shards, admission and load shedding) is left out
+too: ``report_node_status`` runs on the RPC thread against one
 :class:`ReporterLedger`.
 """
 
@@ -112,6 +115,8 @@ class MasterServicer:
         sync_service=None,
         error_monitor=None,
         kv_store=None,
+        job_metric_collector=None,
+        goodput_aggregator=None,
     ):
         self._task_manager = task_manager
         self._job_manager = job_manager
@@ -120,6 +125,11 @@ class MasterServicer:
         self._sync_service = sync_service
         self._error_monitor = error_monitor
         self._kv_store = kv_store or KVStoreService()
+        self._job_metric_collector = job_metric_collector
+        # job-level goodput accounting (telemetry/goodput.py): fed by
+        # the workers' ledger snapshots; the RUNNING report closes the
+        # fault window a preemption or rollback opened
+        self._goodput = goodput_aggregator
         self._start_training_time = 0.0
         self.run_configs = {}
         # ranks with an announced preemption in flight: their next
@@ -158,6 +168,14 @@ class MasterServicer:
         self._job = current_job_id()
         self._job_monitors_lock = threading.Lock()
         self._job_monitors: Dict[str, object] = {}
+
+    def _running_nodes(self):
+        """Deferred node-list snapshot for the stats collector: only
+        materialized when its rate limiter actually takes a sample."""
+        return (
+            self._job_manager.get_running_nodes()
+            if self._job_manager else []
+        )
 
     def speed_monitor_for(self, job: str):
         """The speed monitor owning ``job``'s step stream: the primary
@@ -251,6 +269,10 @@ class MasterServicer:
                 "storage_type": req.storage_type,
             },
         )
+        if self._job_metric_collector and req.task_type == TaskType.TRAINING:
+            self._job_metric_collector.collect_dataset_metric(
+                req.dataset_name, req.dataset_size
+            )
         return comm.Response(success=True)
 
     def _note_training_started(self):
@@ -303,6 +325,13 @@ class MasterServicer:
             # as its own completion
             return comm.Response(
                 success=False, reason="task not accepted"
+            )
+        if self._job_metric_collector:
+            # shard-fed jobs advance the speed window here, not via
+            # report_global_step — sample runtime stats on the same
+            # trigger so the resource optimizer sees their throughput
+            self._job_metric_collector.collect_runtime_stats(
+                self._speed_monitor, self._running_nodes,
             )
         return comm.Response(success=True)
 
@@ -446,8 +475,10 @@ class MasterServicer:
                 mgr.remove_alive_node(rank)
         if req.status == "running" and rank in self._preempted_ranks:
             # the relaunched incarnation is back: the preemption window
-            # closes here
+            # closes here for MTTR accounting
             self._preempted_ranks.discard(rank)
+            if self._goodput is not None:
+                self._goodput.mark_recovered("preempt")
             record(
                 "preempt.recovered", node_type=req.node_type,
                 node_id=req.node_id, rank=rank,
@@ -459,6 +490,8 @@ class MasterServicer:
             self._rollback_ranks.discard(rank)
             if not self._rollback_ranks:
                 self._active_rollback = None
+            if self._goodput is not None:
+                self._goodput.mark_recovered("rollback")
             record(
                 "rollback.recovered", node_type=req.node_type,
                 node_id=req.node_id, rank=rank,
@@ -495,6 +528,8 @@ class MasterServicer:
         # round forming right now re-forms without the departing peer
         for mgr in self._rdzv_managers.values():
             mgr.remove_alive_node(rank)
+        if self._goodput is not None:
+            self._goodput.note_fault(cause="preempt", node_id=req.node_id)
         return comm.Response(success=True)
 
     def rpc_report_anomaly(
@@ -597,6 +632,10 @@ class MasterServicer:
             "dlrover_rollbacks_initiated_total",
             "Coordinated last-good rollbacks ordered by the master",
         ).inc()
+        if self._goodput is not None:
+            self._goodput.note_fault(
+                cause="rollback", node_id=req.node_id
+            )
         return comm.AnomalyResponse(
             action="rollback", rollback_id=order["id"],
             rollback_step=order["step"], quarantined=quarantined,
@@ -686,6 +725,32 @@ class MasterServicer:
             self._speed_monitor.collect_global_step(
                 req.step, req.timestamp, node_id=req.node_id
             )
+        if self._job_metric_collector:
+            self._job_metric_collector.collect_runtime_stats(
+                self._speed_monitor, self._running_nodes,
+            )
+        if self._goodput is not None and req.goodput_phases:
+            self._goodput.observe_report(
+                node_id=req.node_id, pid=req.pid,
+                start_ts=req.goodput_start_ts,
+                elapsed_s=req.goodput_elapsed_s,
+                phases=req.goodput_phases,
+                phase=req.goodput_phase,
+            )
+        return comm.Response(success=True)
+
+    def rpc_report_goodput(self, req: comm.GoodputReport) -> comm.Response:
+        """A full ledger snapshot off the step cadence (process exit
+        sends final=True, closing the incarnation in the aggregator)."""
+        if self._goodput is not None and req.goodput_phases:
+            self._goodput.observe_report(
+                node_id=req.node_id, pid=req.pid,
+                start_ts=req.goodput_start_ts,
+                elapsed_s=req.goodput_elapsed_s,
+                phases=req.goodput_phases,
+                phase=req.goodput_phase,
+                host=req.host, final=req.final,
+            )
         return comm.Response(success=True)
 
     def rpc_report_node_status(
@@ -693,7 +758,7 @@ class MasterServicer:
     ) -> comm.NodeStatusAck:
         """The coalesced fan-in path: one rpc per agent per
         interval carrying heartbeat + whatever changed since the last
-        ack (step, resource), with the pending action piggy-
+        ack (step, goodput, resource), with the pending action piggy-
         backed on the ack. The ledger update and the section
         application happen, in that order, before the ack is
         composed."""
@@ -726,12 +791,42 @@ class MasterServicer:
                 req.step, req.step_ts or req.timestamp,
                 node_id=req.node_id,
             )
+            if self._job_metric_collector \
+                    and monitor is self._speed_monitor:
+                self._job_metric_collector.collect_runtime_stats(
+                    self._speed_monitor, self._running_nodes,
+                )
+        if req.has_goodput and self._goodput is not None \
+                and req.goodput_phases:
+            self._goodput.observe_report(
+                node_id=req.node_id, pid=req.pid,
+                start_ts=req.goodput_start_ts,
+                elapsed_s=req.goodput_elapsed_s,
+                phases=req.goodput_phases,
+                phase=req.goodput_phase,
+                host=req.host, final=req.final,
+                job=job,
+            )
         if req.has_resource and self._job_manager:
             self._job_manager.update_node_resource_usage(
                 req.node_type, req.node_id, req.cpu_percent,
                 req.memory_mb, [],
             )
         return action
+
+    def rpc_report_model_info(self, req: comm.ModelInfo) -> comm.Response:
+        if self._job_metric_collector:
+            self._job_metric_collector.collect_model_metric(req)
+        return comm.Response(success=True)
+
+    def rpc_report_custom_data(self, req: comm.CustomData) -> comm.Response:
+        """Evaluator results / user counters into the stats pipeline
+        (parity: report_customized_data RPC). The dict is ONE row —
+        splitting it per key would detach eval metrics from their
+        step."""
+        if self._job_metric_collector and req.data:
+            self._job_metric_collector.collect_custom_metrics(req.data)
+        return comm.Response(success=True)
 
     # ----------------------------------------------------------------- sync
 
@@ -775,6 +870,8 @@ def create_master_service(
     sync_service=None,
     error_monitor=None,
     kv_store=None,
+    job_metric_collector=None,
+    goodput_aggregator=None,
 ):
     """Build the RPC server around a MasterServicer
     (parity: servicer.py:478)."""
@@ -786,6 +883,8 @@ def create_master_service(
         sync_service=sync_service,
         error_monitor=error_monitor,
         kv_store=kv_store,
+        job_metric_collector=job_metric_collector,
+        goodput_aggregator=goodput_aggregator,
     )
     server = GenericRpcServer(servicer.handle, port=port)
     return server, servicer

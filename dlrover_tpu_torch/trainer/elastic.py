@@ -30,11 +30,21 @@ emergency save takes the state :meth:`maybe_checkpoint` was last given
 unless the loop sets its own provider. A step is open for the drain
 from its dispatch to the end of :meth:`maybe_checkpoint` for it (or the
 next dispatch): a notice inside it waits for its end, since the update
-runs in place (fault_tolerance/drain.py). Not ported yet (ROADMAP.md,
-queue A): mesh transition, trace capture and compile-cache telemetry,
-and the goodput ledger and fleet roll-up that ``report_step`` and
-``maybe_checkpoint`` feed. A checkpoint failure is raised into the step
-loop rather than logged: a failed device copy must not pass unseen.
+runs in place (fault_tolerance/drain.py). With the hang detector come
+its observability hooks, installed after the drain is armed: ``/healthz``
+reports the stall (telemetry/http.py), SIGTERM writes a flight record
+before the drain's handler runs (telemetry/flight_recorder.py), and the
+lock watch arms when ``DLROVER_TPU_LOCKWATCH=1``.
+
+The process's goodput ledger (telemetry/goodput.py) is armed at
+construction: :meth:`report_step` marks training, and the train-thread
+stall that :meth:`maybe_checkpoint`'s save returns is credited as
+``ckpt_stall``. :meth:`report_model_profile` sends the step's profile
+(trainer/profiler.py) to the master, and ``DLROVER_TRACE_DIR`` opens a
+window of ``torch.profiler`` trace over a few steps. Not ported yet
+(ROADMAP.md, queue A): mesh transition, compile-cache telemetry and the
+fleet roll-up. A checkpoint failure is raised into the step loop rather
+than logged: a failed device copy must not pass unseen.
 """
 
 import os
@@ -53,7 +63,14 @@ from dlrover_tpu_torch.fault_tolerance.hanging_detector import (
 )
 from dlrover_tpu_torch.fault_tolerance.injection import FaultInjector
 from dlrover_tpu_torch.fault_tolerance.sentinel import TrainingSentinel
-from dlrover_tpu_torch.telemetry import tracing
+from dlrover_tpu_torch.telemetry import (
+    flight_recorder,
+    goodput,
+    lockwatch,
+    tracing,
+)
+from dlrover_tpu_torch.telemetry.http import attach_hang_detector
+from dlrover_tpu_torch.trainer import profiler
 
 
 def compute_accum_steps(max_nodes: int, cur_nodes: int) -> int:
@@ -99,6 +116,10 @@ class ElasticTrainer:
         #: (step, state) given to the newest maybe_checkpoint: the
         #: drain's emergency save takes it
         self._last_state = None
+        # per-process goodput ledger (telemetry/goodput.py): phase
+        # transitions ride on events that already fire; the trainer
+        # only marks steps (-> training) and checkpoint stalls
+        self._goodput = goodput.install()
         self._init_fault_tolerance()
         self.set_world(cur_nodes)
 
@@ -111,6 +132,9 @@ class ElasticTrainer:
         _MULTIPLIER tune the threshold."""
         self._fault_injector = FaultInjector.from_env(self._master_client)
         self._sentinel = TrainingSentinel.from_env(self._master_client)
+        # zero-code timeline capture (DLROVER_TRACE_DIR): see
+        # trainer/profiler.py TraceCapture
+        self._trace_capture = profiler.TraceCapture.from_env()
         # weak: neither the signal handler nor the detector's thread may
         # keep the trainer, and the model it drives, alive
         trainer = weakref.ref(self)
@@ -163,6 +187,18 @@ class ElasticTrainer:
         ).start()
         # ... and the thread ends with the trainer
         weakref.finalize(self, self._hang_detector.stop)
+        # observability wiring around the detector: /healthz on any
+        # telemetry endpoint in THIS process reports the stall (503 +
+        # stalled_for), and a SIGTERM leaves a flight record (all-thread
+        # stacks + last spans). The recorder hooks SIGTERM after the
+        # drain, so it dumps first and then hands the signal to the
+        # drain's handler, which holds it to the step's end
+        attach_hang_detector(self._hang_detector)
+        flight_recorder.install_signal_hook()
+        # runtime lock-order watchdog (no-op unless
+        # DLROVER_TPU_LOCKWATCH=1); late is still useful — the
+        # trainer's own locks are created after this point
+        lockwatch.install()
 
     def set_world(self, cur_nodes: int):
         self._cur_nodes = cur_nodes
@@ -214,6 +250,30 @@ class ElasticTrainer:
             for x in batch
         )
 
+    def report_model_profile(self, batch, batch_size: int = 0,
+                             seq_len: int = 0):
+        """Profile one forward and backward of the current step on
+        ``batch`` (the layout :attr:`train_step` takes) and send it to
+        the master's stats pipeline (trainer/profiler.py). The training
+        state, the random generators and the flash kernels' launch
+        counts are as before. Call once after the first step; a failure
+        is logged and never interrupts training."""
+        if self._master_client is None:
+            return None
+        try:
+            prof = profiler.profile_step(
+                self._trainer.forward_backward, batch,
+                params=self._trainer.model,
+            )
+        except Exception as e:
+            logger.warning("model profiling failed: %s", e)
+            return None
+        profiler.report_profile(
+            self._master_client, prof, batch_size=batch_size,
+            seq_len=seq_len,
+        )
+        return prof
+
     def report_step(self, step: Optional[int] = None, loss=None,
                     grad_norm=None):
         """Advance the step bookkeeping, tag spans with the step, and
@@ -227,8 +287,13 @@ class ElasticTrainer:
             self._global_step + 1
         )
         tracing.set_step(self._global_step)
+        # a completed step is the proof of useful work: it opens the
+        # training phase and closes any hang/restart window
+        self._goodput.on_step()
         if self._hang_detector is not None:
             self._hang_detector.record_step(self._global_step)
+        if self._trace_capture is not None:
+            self._trace_capture.step(self._global_step)
         if self._fault_injector is not None:
             self._fault_injector.maybe_inject(self._global_step)
         if loss is not None:
@@ -317,6 +382,12 @@ class ElasticTrainer:
                 # ignored inside an anomaly window: a tainted save is
                 # never a rollback target
                 self._sentinel.note_checkpoint(step)
+            if stall_ms:
+                # the train-thread stall save() measured (not the
+                # archive's time, nor the drain's hold) re-labels the
+                # tail of the current training interval as ckpt_stall
+                self._goodput.credit(goodput.Phase.CKPT_STALL,
+                                     stall_ms / 1000.0)
             return stall_ms
         finally:
             # a notice during the cadence save drains after it

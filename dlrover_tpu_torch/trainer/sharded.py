@@ -283,6 +283,17 @@ class ShardedTrainer:
         self.optimizer.step([acc.div_(accum) for acc in sums])
         return loss / accum
 
+    def forward_backward(self, batch) -> None:
+        """The step's forward and backward on ``batch`` (the layout of
+        :meth:`train_step`) without its update: the gradients come from
+        ``torch.autograd.grad`` and are dropped, so neither ``.grad``
+        nor the optimizer is touched (the step profile,
+        trainer/profiler.py)."""
+        params = self._trained()
+        for i in range(self.accum_steps):
+            loss = self._loss_fn(self.model, tuple(x[i] for x in batch))
+            torch.autograd.grad(loss, params, allow_unused=True)
+
     def microbatch(self, batch):
         """[global_batch, ...] -> [accum, global_batch / accum, ...]."""
         a = self.accum_steps

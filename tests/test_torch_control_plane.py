@@ -141,25 +141,38 @@ def load_repointed(test_file: str, pkg: str) -> types.ModuleType:
 
 def run_repointed(test_file: str, pkg: str, test_name: str,
                   request) -> None:
-    """Run one test of ``test_file`` in ``pkg``'s version, inside the
-    module's autouse fixtures, with the pytest fixtures it names."""
+    """Run one test of ``test_file`` in ``pkg``'s version. The fixtures
+    the module defines (its autouse ones first) are set up from the
+    module itself, so a test that names one gets that package's value;
+    any other fixture comes from pytest."""
     mod = load_repointed(test_file, pkg)
-    autouse = [
-        obj._get_wrapped_function() for obj in vars(mod).values()
+    fixtures = {
+        n: obj for n, obj in vars(mod).items()
         if getattr(obj, "_fixture_function_marker", None) is not None
-        and obj._fixture_function_marker.autouse
-    ]
-    test = getattr(mod, test_name)
-    kwargs = {name: request.getfixturevalue(name)
-              for name in inspect.signature(test).parameters}
-    finalizers = []
-    for fixture in autouse:
-        gen = fixture()
-        if inspect.isgenerator(gen):
-            next(gen)
-            finalizers.append(gen)
+    }
+    values, finalizers = {}, []
+
+    def resolve(name):
+        if name in values:
+            return values[name]
+        if name not in fixtures:
+            return request.getfixturevalue(name)
+        fn = fixtures[name]._get_wrapped_function()
+        out = fn(**{p: resolve(p)
+                    for p in inspect.signature(fn).parameters})
+        if inspect.isgenerator(out):
+            finalizers.append(out)
+            out = next(out)
+        values[name] = out
+        return out
+
     try:
-        test(**kwargs)
+        for name, obj in fixtures.items():
+            if obj._fixture_function_marker.autouse:
+                resolve(name)
+        test = getattr(mod, test_name)
+        test(**{p: resolve(p)
+                for p in inspect.signature(test).parameters})
     finally:
         for gen in reversed(finalizers):
             next(gen, None)

@@ -138,7 +138,7 @@ class StubCkpt:
 
 #: journal fields that time the sequence, or that only the port records
 _TIMED = {"remaining_s", "elapsed_s", "deferred", "ram_s", "persist_s",
-          "pin_wait_s", "error"}
+          "pin_wait_s", "error", "goodput"}
 
 
 def _sequence(cls, mod, budget, provided):
@@ -153,25 +153,24 @@ def _sequence(cls, mod, budget, provided):
                            if k not in _TIMED})
               for e in mod.default_journal().events()
               if e["kind"].startswith("preempt.")]
-    calls = [c for c in client.calls if c[0] != "report_goodput"]
     result = {k: {kk: vv for kk, vv in v.items() if kk != "error"}
               if isinstance(v, dict) else v
-              for k, v in result.items() if k != "goodput"}
-    return events, calls, ckpt.calls, result, client.calls
+              for k, v in result.items()}
+    return events, client.calls, ckpt.calls, result
 
 
 @pytest.mark.parametrize("budget,provided", [
     (10.0, (7, {"w": 1})), (2.0, (4, {"w": 2})), (10.0, None)])
 def test_same_notice_gives_the_same_sequence(budget, provided):
-    """The same stubs through both coordinators: the same RPCs, the same
-    save (durable above the floor, the RAM tier below it) and the same
-    journal; only the final goodput snapshot, which waits for the
-    goodput ledger, is the JAX package's alone."""
+    """The same stubs through both coordinators: the same RPCs, the
+    final goodput snapshot among them, the same save (durable above the
+    floor, the RAM tier below it), the same journal and the same
+    result, whose goodput step is ok."""
     want = _sequence(JaxDrainCoordinator, jax_telemetry, budget, provided)
     got = _sequence(DrainCoordinator, telemetry, budget, provided)
-    assert got[:4] == want[:4]
-    assert ("report_goodput", True) in want[4]
-    assert ("report_goodput", True) not in got[4]
+    assert got == want
+    assert ("report_goodput", True) in got[1]
+    assert got[3]["goodput"]["ok"] and "skipped" not in got[3]["goodput"]
     kinds = [k for k, _ in got[0]]
     assert kinds[0] == "preempt.notice" and kinds[-1] == "preempt.drained"
 
@@ -231,7 +230,8 @@ def test_notice_between_steps_drains_at_once():
     assert exits == [DRAIN_EXIT_CODE] and not d.pending
     assert ckpt.calls[0] == ("save", 5, {"w": 1}, True, True)
     assert [c[0] for c in client.calls] == ["report_preemption",
-                                            "relinquish_shards"]
+                                            "relinquish_shards",
+                                            "report_goodput"]
 
 
 def test_notice_inside_a_stalled_step_drains_at_once_without_the_save():
@@ -249,7 +249,8 @@ def test_notice_inside_a_stalled_step_drains_at_once_without_the_save():
     assert exits == [DRAIN_EXIT_CODE] and not d.pending
     assert ckpt.calls == []
     assert [c[0] for c in client.calls] == ["report_preemption",
-                                            "relinquish_shards"]
+                                            "relinquish_shards",
+                                            "report_goodput"]
 
 
 def test_preempt_kind_signals_its_own_process(monkeypatch):

@@ -1,7 +1,9 @@
 """The port stands alone: no module of ``dlrover_tpu_torch`` (nor
 ``chip_smoke.py``) imports JAX, optax, orbax, ml_dtypes, grpc or the JAX
-package, and the smoke script refuses to run without the package or
-without a GPU."""
+package, the smoke script refuses to run without the package or
+without a GPU, and the modules the agent and the master load -- the
+telemetry surface, the stats pipeline, the resource monitor and their
+entry points -- import no torch."""
 
 import ast
 import os
@@ -93,3 +95,37 @@ def test_chip_smoke_without_gpu_fails():
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr
     assert '"ok"' not in out.stdout
+
+
+#: modules the agent and the master load: the telemetry surface, the
+#: stats pipeline, the resource monitor (torch only inside its device
+#: probe) and their entry points
+TORCH_FREE = (
+    "dlrover_tpu_torch.telemetry.goodput",
+    "dlrover_tpu_torch.telemetry.http",
+    "dlrover_tpu_torch.telemetry.flight_recorder",
+    "dlrover_tpu_torch.telemetry.lockwatch",
+    "dlrover_tpu_torch.telemetry.dump",
+    "dlrover_tpu_torch.master.stats",
+    "dlrover_tpu_torch.agent.monitor.resource",
+    "dlrover_tpu_torch.master.main",
+    "dlrover_tpu_torch.master.local_master",
+    "dlrover_tpu_torch.agent.elastic.training",
+    "dlrover_tpu_torch.trainer.elastic_run",
+)
+
+
+@pytest.mark.parametrize("module", TORCH_FREE)
+def test_agent_and_master_modules_load_without_torch(module):
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = [m for m in sys.modules if m == 'torch' "
+        "or m.startswith('torch.')]\n"
+        "assert not bad, bad[:5]\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
