@@ -27,14 +27,40 @@ Phases, each of which raises on failure:
    which must equal ``torch.cuda``'s own counters;
 5. profile: torch.profiler over two more train steps -- device time by
    kernel group, the top kernels and the device's idle share;
-6. elastic: the elastic loop at the same width -- the master's data
+6. data: the shm data plane feeding the same trainer. Block A is
+   ``bench.py --data shm``'s path: ``ShmDataLoader`` with two coworker
+   processes making seeded batches, ``DevicePrefetch(depth=2)`` on a
+   copy stream whose transform reshapes into microbatches and casts the
+   int32 tokens to int64; 2 warm-up steps, then steps in turns of 4 fed
+   in memory and from the ring, with their step times, the train
+   thread's wait in ``next()`` and the fill thread's ``data.fetch`` and
+   ``data.stage`` spans, and the producers' start; then a transform
+   that raises at the third batch, which must raise in the loop. Block
+   B is ``ElasticShmDataLoader`` on a local master service: two
+   coworkers, 24 rows in shards of 3, 8 steps. Gates: every batch a
+   step used, copied on the card before and after the step, equals the
+   tokens its producer made; each batch once (block B's rows cover
+   range(24) once); finite losses and 22 launches of each kernel per
+   step; no coworker loads libcuda or torch and no second process holds
+   a CUDA context; no ring left in ``/dev/shm``;
+7. elastic: the elastic loop at the same width -- the master's data
    shards through a ShardingClient, ElasticTrainer steps, flash
    checkpoints at steps 4 and 8 -- then a crash, a fresh trainer
    restored from step 4 on the RAM tier (model, optimizer and data
    position), steps 5-8 again, and a restore from the persist tier:
    state checksums, shards and losses against the uninterrupted run,
    stall, staging, serialize, persist and restore times;
-7. launch: the same llama_1b loop as a user runs it, under the elastic
+8. eval: the checkpoint evaluator -- a llama_1b state trains 4 steps; at
+   steps 2 and 4 its held-out loss (a 3 x 2048 batch from seed 9999) is
+   computed directly and the state saved durably; a
+   ``CheckpointEvaluator`` restores each step into a fresh model,
+   evaluates it through the flash forward and reports it over RPC, as
+   an evaluator node, into a master service's job metric collector.
+   Gates: steps [2, 4] evaluated once each, each loss bitwise the direct
+   one, 22 forward launches and no backward launch per evaluation, the
+   collector holding step 4 and its loss; restore seconds, forward ms
+   and save-to-report seconds are printed;
+9. launch: the same llama_1b loop as a user runs it, under the elastic
    launcher (``python -m dlrover_tpu_torch.trainer.elastic_run
    --standalone``: the local master, the agent and the worker in
    processes of their own) with ``DLROVER_FAULT_INJECT=crash@10``: the
@@ -50,22 +76,22 @@ Phases, each of which raises on failure:
    phases to its elapsed time within 1%, recover the crash's fault
    window and book the gap after the crash as ``restart``; goodput %,
    badput by cause and MTTR of both are printed beside ``recovery_s``;
-8. drain: two launches of the same loop on one checkpoint directory.
-   Launch A is preempted (``preempt@6:notice=30``, a 25 s drain budget):
-   the worker drains at the end of step 6 -- the master told, a durable
-   emergency save of step 6 on the persist tier, its shards handed back
-   -- and exits 21, which the agent reports as PREEMPTED without a
-   restart, so the launcher exits 21. The RAM tier is deleted, as a
-   reclaimed host's tmpfs would be. Launch B, the replacement, restores
-   step 6 from the persist tier, trips the sentinel on ``nan@10``, rolls
-   back to step 8 on the master's order, replays step 9 (bitwise) and
-   ends at step 12. The drain's final goodput snapshot must be sent
-   (``preempt.drained``), the SIGTERM must leave one flight record, the
-   drain must fit its budget, and the replay of both launches must book
-   ``preempt`` and ``rollback`` badput and recover the rollback's
-   window;
-9. the kernels line (one JSON object), then the card's name and power
-   limit, then the device line, last.
+10. drain: two launches of the same loop on one checkpoint directory.
+    Launch A is preempted (``preempt@6:notice=30``, a 25 s drain budget):
+    the worker drains at the end of step 6 -- the master told, a durable
+    emergency save of step 6 on the persist tier, its shards handed back
+    -- and exits 21, which the agent reports as PREEMPTED without a
+    restart, so the launcher exits 21. The RAM tier is deleted, as a
+    reclaimed host's tmpfs would be. Launch B, the replacement, restores
+    step 6 from the persist tier, trips the sentinel on ``nan@10``, rolls
+    back to step 8 on the master's order, replays step 9 (bitwise) and
+    ends at step 12. The drain's final goodput snapshot must be sent
+    (``preempt.drained``), the SIGTERM must leave one flight record, the
+    drain must fit its budget, and the replay of both launches must book
+    ``preempt`` and ``rollback`` badput and recover the rollback's
+    window;
+11. the kernels line (one JSON object), then the card's name and power
+    limit, then the device line, last.
 
 Exits non-zero, and prints no result, when there is no CUDA device or
 when the package is not beside this file.
@@ -575,7 +601,7 @@ def phase_slice():
         "loss_reference": loss_ref,
         "launches_per_step": {n: c / steps for n, c in launches.items()},
     })
-    return launches
+    return launches, trainer, mb
 
 
 def _profile_and_sample(trainer, mb) -> dict:
@@ -980,6 +1006,419 @@ def phase_elastic() -> dict:
     if failed:
         raise AssertionError("elastic: " + "; ".join(failed))
     return run_a
+
+
+#: phase "data": block A is ``bench.py --data shm``'s loader (2 coworkers
+#: of seeded batches), 2 warm-up steps, then blocks of DATA_BLOCK steps
+#: in turns: in memory, shm, in memory, shm; block B the elastic feed on
+#: a master service, DATA_B_ROWS rows in shards of SLICE["b"], one step
+#: per shard
+DATA_WORKERS, DATA_WARMUP, DATA_BLOCK = 2, 2, 4
+DATA_TURNS = ("inmem", "shm", "inmem", "shm")
+DATA_B_ROWS = 24
+
+
+class _ContextWatch:
+    """Who holds a CUDA context while the coworkers run, sampled on a
+    thread every 50 ms from the loader's start until every coworker has
+    exited: per coworker, whether its memory ever mapped libcuda or
+    torch, and the most processes ``nvidia-smi`` listed on the card at
+    once (in a container their pids may be the host's, so only their
+    number is gated)."""
+
+    def __init__(self, pids):
+        import threading
+
+        self.maps = {pid: {"samples": 0, "libcuda": False, "torch": False}
+                     for pid in pids}
+        self.most_apps = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.is_set():
+            alive = False
+            for pid, seen in self.maps.items():
+                try:
+                    with open(f"/proc/{pid}/maps") as f:
+                        maps = f.read()
+                except OSError:
+                    continue
+                alive = True
+                seen["samples"] += 1
+                seen["libcuda"] |= "libcuda" in maps
+                seen["torch"] |= "libtorch" in maps
+            if not alive:
+                return
+            out = subprocess.run(
+                ["nvidia-smi", "--query-compute-apps=pid",
+                 "--format=csv,noheader"],
+                capture_output=True, text=True).stdout
+            self.most_apps = max(self.most_apps, len(out.split()))
+            self._stop.wait(0.05)
+
+    def result(self, what: str, failed: list) -> dict:
+        """Stop sampling; the readings, with what fails the gate added
+        to ``failed``."""
+        self._stop.set()
+        self._thread.join(timeout=30)
+        if self.most_apps > 1:
+            failed.append(f"{what}: {self.most_apps} processes held a CUDA "
+                          f"context at once")
+        for pid, seen in self.maps.items():
+            if seen["libcuda"] or seen["torch"]:
+                failed.append(f"{what}: coworker {pid} mapped {seen}")
+        if not any(seen["samples"] for seen in self.maps.values()):
+            failed.append(f"{what}: no coworker was seen running")
+        return {"most_compute_apps": self.most_apps,
+                "coworkers": self.maps}
+
+
+def phase_data(trainer, mb) -> None:
+    """The shm data plane feeding the slice's llama_1b trainer. Block A:
+    ``ShmDataLoader`` over seeded batches and ``DevicePrefetch(depth=2)``
+    whose transform reshapes into microbatches and casts the int32
+    tokens to int64 on the host, timed in turns with the in-memory batch
+    ``mb``; then a transform that raises at the third batch. Block B:
+    ``ElasticShmDataLoader`` on a local master service. Every batch a
+    step used is copied on the card before and after its step and held
+    to the tokens its producer made, recomputed here."""
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.data import shm_ring, synth
+    from dlrover_tpu_torch.data.elastic_shm import ElasticShmDataLoader
+    from dlrover_tpu_torch.data.shm_dataloader import (
+        DevicePrefetch,
+        ShmDataLoader,
+    )
+    from dlrover_tpu_torch.master.local_master import LocalJobMaster
+    from dlrover_tpu_torch.ops.cuda import flash_attention as fa
+    from dlrover_tpu_torch.telemetry import tracing
+
+    b, s = SLICE["b"], SLICE["s"]
+    cfg = trainer.model.cfg
+    slot_bytes = max(1 << 20, 4 * b * s * 2 + 4096)
+    failed, losses = [], []
+
+    def transform(batch):
+        tokens, targets = batch[0], batch[1]
+        return trainer.microbatch((tokens.astype(np.int64),
+                                   targets.astype(np.int64)))
+
+    def step(batch, seen):
+        """One train step on a staged batch; its tokens copied on the
+        card before and after the step."""
+        before = batch[0].clone()
+        losses.append(trainer.train_step(batch))
+        seen.append((before, batch[0].clone()))
+
+    def host(t):
+        return t.cpu().numpy().reshape(b, s)
+
+    # -- block A: bench.py --data shm ------------------------------------
+    n_a = DATA_WARMUP + DATA_BLOCK * DATA_TURNS.count("shm")
+    source = synth.SeededBatches(n_a, b, s, cfg.vocab_size, seed=0)
+    made = {t.astype(np.int64).tobytes(): i
+            for i, t in enumerate(source.expected())}
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    loader = ShmDataLoader(source, num_workers=DATA_WORKERS,
+                           slot_bytes=slot_bytes)
+    watch = _ContextWatch(loader.pids)
+    while loader.in_ring == 0:
+        time.sleep(0.0005)
+    start_a = time.perf_counter() - loader.started_at
+    prefetch = DevicePrefetch(loader, depth=2, transform=transform)
+    batches = iter(prefetch)
+    seen_a, stall = [], []
+    for _ in range(DATA_WARMUP):
+        step(next(batches), seen_a)
+    torch.cuda.synchronize()
+    # the coworkers wait on a full ring by now; the sampling stops
+    # before the timed turns
+    ctx_a = watch.result("block A", failed)
+    tracing.clear()
+    tracing.enable()
+    turns = {"inmem": [], "shm": []}
+    for feed in DATA_TURNS:
+        t0 = time.perf_counter()
+        for _ in range(DATA_BLOCK):
+            if feed == "inmem":
+                losses.append(trainer.train_step(mb))
+                continue
+            t1 = time.perf_counter()
+            batch = next(batches)
+            stall.append(time.perf_counter() - t1)
+            step(batch, seen_a)
+            del batch
+        float(losses[-1])  # the block's one sync
+        turns[feed].append((time.perf_counter() - t0) / DATA_BLOCK * 1e3)
+    spans = tracing.summarize(("data.fetch", "data.stage"))
+    tracing.disable()
+    if next(batches, None) is not None:
+        failed.append(f"block A: more than the {n_a} batches made")
+    prefetch.join()
+    loader.shutdown()
+    left_a = shm_ring.segments_of(os.getpid())
+    idx_a = []
+    for before, after in seen_a:
+        i, j = (made.get(host(t).tobytes()) for t in (before, after))
+        if i is None or i != j:
+            failed.append(f"block A: a batch on the card is no batch made "
+                          f"(before the step {i}, after it {j})")
+        idx_a.append(i)
+    if sorted(idx_a) != list(range(n_a)):
+        failed.append(f"block A: batches consumed {sorted(idx_a)}, each of "
+                      f"{n_a} once expected")
+
+    # the planted fault: a transform that raises at the third batch
+    calls = []
+
+    def planted(batch):
+        calls.append(1)
+        if len(calls) == 3:
+            raise RuntimeError("planted transform fault at batch 3")
+        return transform(batch)
+
+    loader = ShmDataLoader(synth.SeededBatches(5, b, s, cfg.vocab_size),
+                           num_workers=DATA_WORKERS, slot_bytes=slot_bytes)
+    prefetch = DevicePrefetch(loader, depth=2, transform=planted)
+    got, raised = 0, None
+    try:
+        for _ in prefetch:
+            got += 1
+    except RuntimeError as e:
+        raised = str(e)
+    prefetch.join()
+    loader.shutdown()
+    if raised is None or "planted" not in raised or got != 2:
+        failed.append(f"planted transform fault: {got} batches, then "
+                      f"{raised!r}")
+    left_a += shm_ring.segments_of(os.getpid())
+
+    # -- block B: ElasticShmDataLoader on a master service ---------------
+    def with_rows(batch):
+        return transform(batch), (int(batch[2][0]), int(batch[2][1]))
+
+    master = LocalJobMaster(port=0)
+    master.prepare()
+    seen_b, rows_b, ctx_b = [], [], {}
+    try:
+        elastic = ElasticShmDataLoader(
+            synth.ShardBatch(s, cfg.vocab_size), dataset_name="chip-data",
+            batch_size=b, dataset_size=DATA_B_ROWS, num_epochs=1,
+            num_workers=DATA_WORKERS, master_addr=master.addr,
+            slot_bytes=slot_bytes, transform=with_rows)
+        watch = _ContextWatch(elastic.producer_pids)
+        try:
+            batches = iter(elastic)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(DATA_B_ROWS // b):
+                batch, rows = next(batches)
+                if i == 0:
+                    first_b = time.perf_counter() - elastic.started_at
+                    t0 = time.perf_counter()
+                step(batch, seen_b)
+                rows_b.append(rows)
+                del batch
+            float(losses[-1])
+            step_b = (time.perf_counter() - t0) / (DATA_B_ROWS // b - 1) * 1e3
+            if next(batches, None) is not None:
+                failed.append("block B: a batch past the dataset")
+            ctx_b = watch.result("block B", failed)
+        finally:
+            elastic.shutdown()
+    finally:
+        master.stop()
+    left_b = shm_ring.segments_of(os.getpid())
+    for (before, after), (start, end) in zip(seen_b, rows_b):
+        want = synth.synth_batch(start, end, s, cfg.vocab_size)[0]
+        if not all(np.array_equal(host(t), want) for t in (before, after)):
+            failed.append(f"block B: rows {start}-{end} on the card differ "
+                          f"from the tokens made")
+    covered = sorted(r for start, end in rows_b for r in range(start, end))
+    if covered != list(range(DATA_B_ROWS)):
+        failed.append(f"block B: rows {rows_b} do not cover "
+                      f"range({DATA_B_ROWS}) once")
+    if left_a or left_b:
+        failed.append(f"segments left in /dev/shm: {left_a + left_b}")
+
+    # every step's loss finite, 22 launches of each kernel per step
+    steps = len(losses)
+    if not bool(torch.isfinite(torch.stack(losses)).all()):
+        failed.append("a non-finite loss")
+    for name, n in fa.LAUNCHES.items():
+        if n != cfg.num_layers * steps:
+            failed.append(f"{name} launched {n} times in {steps} steps")
+    step_ms = {k: statistics.mean(v) for k, v in turns.items()}
+    emit({
+        "phase": "data", "model": "llama_1b", "batch": b, "seq": s,
+        "workers": DATA_WORKERS, "slot_bytes": slot_bytes,
+        "prefetch_depth": 2,
+        "token_cast": "int32 -> int64 in the transform, on the host",
+        "block_a": {
+            "batches": n_a, "step_ms_turns": turns, "step_ms": step_ms,
+            "tokens_per_sec": {k: b * s / v * 1e3
+                               for k, v in step_ms.items()},
+            "shm_over_inmem": step_ms["shm"] / step_ms["inmem"],
+            "data_stall_ms": statistics.mean(stall) * 1e3,
+            "data_stall_ms_max": max(stall) * 1e3,
+            "shard_dispatch_ms": spans.get("data.fetch", {}).get("mean_ms"),
+            "data_stage_ms": spans.get("data.stage", {}).get("mean_ms"),
+            "data_stage_ms_max": spans.get("data.stage", {}).get("max_ms"),
+            "producer_start_s": start_a, "cuda_contexts": ctx_a,
+        },
+        "planted_fault": {"batches_before": got, "raised": raised},
+        "block_b": {
+            "rows": DATA_B_ROWS, "rows_by_step": rows_b, "step_ms": step_b,
+            "tokens_per_sec": b * s / step_b * 1e3,
+            "first_batch_s": first_b, "cuda_contexts": ctx_b,
+        },
+        "losses": [float(x) for x in losses[-3:]],
+        "launches_per_step": {k: n / steps for k, n in fa.LAUNCHES.items()},
+        "segments_left": left_a + left_b,
+        "nvidia_smi": nvidia_smi_line(),
+    })
+    if failed:
+        raise AssertionError("data: " + "; ".join(failed))
+
+
+#: phase "eval": llama_1b trained EVAL_STEPS steps, saved at EVAL_SAVES;
+#: the held-out batch's seed is the JAX eval example's
+EVAL_STEPS, EVAL_SAVES, HELD_OUT_SEED = 4, (2, 4), 9999
+
+
+def phase_eval() -> dict:
+    """The checkpoint evaluator on the card: a llama_1b state trains
+    EVAL_STEPS steps; at each step of EVAL_SAVES its held-out loss is
+    computed directly and the state saved durably; then a
+    ``CheckpointEvaluator`` restores the step into a fresh model,
+    evaluates it through the flash forward and reports over RPC, as an
+    evaluator node, into a master service's job metric collector."""
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.agent.master_client import MasterClient
+    from dlrover_tpu_torch.common.constants import NodeType
+    from dlrover_tpu_torch.data import synth
+    from dlrover_tpu_torch.master.servicer import create_master_service
+    from dlrover_tpu_torch.master.stats.job_collector import (
+        JobMetricCollector,
+    )
+    from dlrover_tpu_torch.master.stats.reporter import JobMeta
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.ops.cuda import flash_attention as fa
+    from dlrover_tpu_torch.trainer.checkpoint import FlashCheckpointer
+    from dlrover_tpu_torch.trainer.evaluator import (
+        CheckpointEvaluator,
+        report_to,
+    )
+    from dlrover_tpu_torch.trainer.sharded import (
+        adamw,
+        make_trainer_for_llama,
+    )
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = llama.llama_1b(remat="dots_attn_out")
+    b, s = SLICE["b"], SLICE["s"]
+    held = torch.from_numpy(synth.synth_batch(
+        HELD_OUT_SEED, HELD_OUT_SEED + b, s, cfg.vocab_size)[0]
+        .astype(np.int64)).cuda()
+
+    def held_out_loss(model) -> float:
+        with torch.no_grad():
+            return float(llama.next_token_loss(model, (held, held)))
+
+    collector = JobMetricCollector(JobMeta(name="chip-eval"))
+    server, _ = create_master_service(0, job_metric_collector=collector)
+    server.start()
+    ram_dir, persist_dir, placed = _elastic_dirs(_state_bytes(cfg))
+    failed, direct, evals, saved_at, reported_at = [], {}, [], {}, {}
+    try:
+        trainer = make_trainer_for_llama(
+            cfg, strategy="ddp", optimizer=adamw(1e-4, b1=0.9, b2=0.95))
+        trainer.init(seed=0)
+        fresh = make_trainer_for_llama(cfg, strategy="ddp")
+        fresh.init(seed=1)
+        ckpt = FlashCheckpointer(persist_dir, ram_dir=ram_dir,
+                                 persist_interval=0)
+        reader = FlashCheckpointer(persist_dir, ram_dir=ram_dir,
+                                   persist_interval=0)
+        client = MasterClient(f"localhost:{server.port}", 0,
+                              NodeType.EVALUATOR)
+        send = report_to(client)
+
+        def report(step, results):
+            send(step, results)
+            reported_at[step] = time.perf_counter()
+
+        def eval_fn(state, step):
+            fresh.load_train_state(state)
+            torch.cuda.synchronize()
+            fa.reset_launches()
+            t0 = time.perf_counter()
+            loss = held_out_loss(fresh.model)  # the sync
+            ms = (time.perf_counter() - t0) * 1e3
+            evals.append({"step": step, "loss": loss, "forward_ms": ms,
+                          "launches": dict(fa.LAUNCHES),
+                          "restore": dict(reader.last_restore_stats)})
+            return {"loss": loss}
+
+        evaluator = CheckpointEvaluator(
+            reader, eval_fn,
+            target={**fresh.train_state(), "step": 0}, report_fn=report,
+            poll_interval=0.0)
+        for k in range(1, EVAL_STEPS + 1):
+            batch = trainer.shard_batch(trainer.microbatch(
+                synth.synth_batch(b * k, b * k + b, s, cfg.vocab_size)))
+            trainer.train_step(tuple(x.long() for x in batch))
+            if k in EVAL_SAVES:
+                direct[k] = held_out_loss(trainer.model)
+                ckpt.save(k, {**trainer.train_state(), "step": k},
+                          durable=True)
+                saved_at[k] = time.perf_counter()
+                evaluator.poll_once()
+        ckpt.close()
+        stats = dict(collector._custom)
+        del trainer, fresh, evaluator, ckpt, reader
+    finally:
+        server.stop()
+        shutil.rmtree(placed["tmp_dir"], ignore_errors=True)
+        shutil.rmtree(ram_dir, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    if [e["step"] for e in evals] != list(EVAL_SAVES):
+        failed.append(f"evaluated steps {[e['step'] for e in evals]}, "
+                      f"{list(EVAL_SAVES)} expected")
+    for e in evals:
+        if e["loss"] != direct.get(e["step"]):
+            failed.append(f"step {e['step']}: eval loss {e['loss']!r} != "
+                          f"the direct {direct.get(e['step'])!r}")
+        if e["launches"] != {"fwd": cfg.num_layers, "dq": 0, "dkv": 0}:
+            failed.append(f"step {e['step']}: launches {e['launches']}")
+    last = EVAL_SAVES[-1]
+    if (stats.get("eval_step") != last
+            or stats.get("eval_loss") != direct.get(last)):
+        failed.append(f"the collector holds {stats}")
+    if not all(math.isfinite(v) for v in direct.values()):
+        failed.append(f"held-out losses {direct}")
+    emit({
+        "phase": "eval", "model": "llama_1b", "batch": b, "seq": s,
+        "steps": EVAL_STEPS, "saves": list(EVAL_SAVES),
+        "held_out_seed": HELD_OUT_SEED, "direct_loss": direct,
+        "evals": evals, "collector": stats,
+        "save_to_report_s": {k: reported_at[k] - saved_at[k]
+                             for k in reported_at if k in saved_at},
+        **placed, "nvidia_smi": nvidia_smi_line(),
+    })
+    if failed:
+        raise AssertionError("eval: " + "; ".join(failed))
+    return {"evals": evals}
 
 
 #: the launch phase: the example's steps, save cadence and injected crash
@@ -1508,8 +1947,11 @@ def main() -> int:
     phase_env()
     phase_build()
     kernels = phase_kernels()
-    launches = phase_slice()
+    launches, trainer, mb = phase_slice()
+    phase_data(trainer, mb)
+    del trainer, mb  # the card's memory goes back for the next phases
     phase_elastic()
+    phase_eval()
     phase_launch()
     phase_drain()
     line = []

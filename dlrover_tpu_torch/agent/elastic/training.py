@@ -480,6 +480,10 @@ class ElasticTrainingAgent:
         rc = self._proc.poll()
         if rc is None:
             return RunResult(WorkerState.HEALTHY)
+        # the worker is gone, crashed or drained: its coworkers are not
+        # (os._exit leaves daemon children running) -- end them, and
+        # unlink its rings, before anything reports or relaunches
+        self._kill_workers()
         if rc == 0:
             return RunResult(WorkerState.SUCCEEDED, 0)
         return RunResult(WorkerState.FAILED, rc)
@@ -503,21 +507,54 @@ class ElasticTrainingAgent:
         self._initialize_workers()
 
     def _kill_workers(self, grace: float = 10.0):
-        if self._proc is None or self._proc.poll() is not None:
+        """End the worker's whole session group, leader first, and
+        unlink the shm rings the leader left. The group outlives its
+        leader: a crash (``os._exit``) or a drain (rc 21) leaves the
+        coworker producers alive under a dead trainer, fetching shards
+        for it and blocked on a ring nobody reads. The JAX agent returns
+        once the leader has exited
+        (``dlrover_tpu/agent/elastic/training.py:505-507``) and never
+        signals them; this one does, and waits for the group to be gone
+        before a successor starts."""
+        if self._proc is None:
             return
-        self._signal_worker_group(signal.SIGTERM)
-        try:
-            self._proc.wait(timeout=grace)
-        except subprocess.TimeoutExpired:
-            self._signal_worker_group(signal.SIGKILL)
-            self._proc.wait()
+        if self._proc.poll() is None:
+            self._signal_worker_group(signal.SIGTERM)
+            try:
+                self._proc.wait(timeout=grace)
+            except subprocess.TimeoutExpired:
+                self._signal_worker_group(signal.SIGKILL)
+                self._proc.wait()
+        pgid = self._proc.pid
+        left = _group_members(pgid)
+        if left:
+            logger.info("Ending %d processes left in the worker's group "
+                        "%d: %s", len(left), pgid, left)
+            self._signal_worker_group(signal.SIGTERM)
+            deadline = time.monotonic() + grace
+            while left and time.monotonic() < deadline:
+                time.sleep(0.05)
+                left = _group_members(pgid)
+            if left:
+                self._signal_worker_group(signal.SIGKILL)
+                deadline = time.monotonic() + grace
+                while (_group_members(pgid)
+                       and time.monotonic() < deadline):
+                    time.sleep(0.05)
+        from dlrover_tpu_torch.data.shm_ring import unlink_segments_of
+
+        unlinked = unlink_segments_of(pgid)
+        if unlinked:
+            logger.info("Unlinked the rings of worker %d: %s", pgid, unlinked)
 
     def _signal_worker_group(self, sig):
         """Signal the worker's own session group (start_new_session at
-        spawn) so coworker children die with the trainer; fall back to
-        the single pid if the group is already gone."""
+        spawn: its id is the leader's pid, and stays valid while any
+        member lives, the leader gone or not) so coworker children die
+        with the trainer; fall back to the single pid if the group is
+        already gone."""
         try:
-            os.killpg(os.getpgid(self._proc.pid), sig)
+            os.killpg(self._proc.pid, sig)
         except (ProcessLookupError, PermissionError, OSError):
             try:
                 self._proc.send_signal(sig)
@@ -539,6 +576,31 @@ class ElasticTrainingAgent:
         if self._metrics_server is not None:
             self._metrics_server.stop()
             self._metrics_server = None
+
+
+def _group_members(pgid: int) -> List[int]:
+    """Live (not zombie) processes of process group ``pgid``, from
+    ``/proc``; where there is no ``/proc``, ``[pgid]`` while a signal
+    can still reach the group."""
+    if not os.path.isdir("/proc"):
+        try:
+            os.killpg(pgid, 0)
+            return [pgid]
+        except OSError:
+            return []
+    members = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except (OSError, IndexError):
+            continue
+        # after the command: state, ppid, pgrp
+        if fields[0] not in ("Z", "X") and int(fields[2]) == pgid:
+            members.append(int(entry))
+    return members
 
 
 def launch_agent(config: ElasticLaunchConfig,

@@ -7,16 +7,34 @@
     python -m dlrover_tpu_torch.trainer.elastic_run --standalone \
         --nnodes 1:1 dlrover_tpu_torch/examples/llama_train.py -- \
         --model llama_1b --batch-size 3 --seq-len 2048 --steps 12 \
-        --save-interval 4 --ckpt-dir /tmp/llama_ckpt
+        --save-interval 4 --ckpt-dir /tmp/llama_ckpt --num-workers 2
 
 Counterpart of ``examples/llama_train.py``: master dataset sharding ->
-ShardingClient -> ElasticTrainer driving the ShardedTrainer step ->
-FlashCheckpointer, and on a restart the restore of model, optimizer and
-data position. The one difference: batches come from a ShardingClient
-in this process, since the shm data plane (``ElasticShmDataLoader``) is
-not ported yet (ROADMAP.md, queue A). Each shard's tokens are made from
-its sample index, as the JAX example's ``synth_batch`` makes them, so
-every shard is reproducible. Under the launcher the master client is
+the feed -> ElasticTrainer driving the ShardedTrainer step ->
+FlashCheckpointer. Each shard's tokens are made from its sample index
+(``data/synth.py``, the JAX example's ``synth_batch``), so every shard
+is reproducible. Two feeds:
+
+* ``--num-workers 0`` (the default): a ShardingClient in this process
+  fetches each shard when its step starts and acks it when the step is
+  done; the checkpoint's ``"data"`` holds the shard ledger, and a
+  restore or a rollback rewinds the master to it, so a restart replays
+  the same shards bitwise (the drills gate on that).
+* ``--num-workers N``: the JAX example's feed, the shm data plane.
+  ``ElasticShmDataLoader`` runs N coworker processes, each pulling
+  shards from the master and pushing their batches into the shm ring;
+  ``DevicePrefetch`` reshapes each batch into microbatches, casts the
+  int32 tokens to int64 on its fill thread and stages them on the GPU
+  on a copy stream. It needs the master's address (the launcher
+  exports it). A producer acks a shard once it has pushed it, so the
+  data position lives in the master's ledger, as in the JAX example:
+  the checkpoint's ``"data"`` stays empty, a restart does not rewind
+  the ledger, and a rollback restores the model and the optimizer only.
+  A crash skips the batches in flight (ROADMAP.md, section C). Under
+  spawn each coworker imports this module, and with it torch, but none
+  touches the card.
+
+Under the launcher the master client is
 the RPC one (``build_master_client`` reads the master address the agent
 exports), and the ElasticTrainer arms the hang detector, the fault
 injector of the drills, the sentinel and the preemption drain. The drain
@@ -54,6 +72,7 @@ import torch
 from dlrover_tpu_torch.agent.master_client import build_master_client
 from dlrover_tpu_torch.agent.sharding.client import ShardingClient
 from dlrover_tpu_torch.common.constants import NodeStatus
+from dlrover_tpu_torch.data import synth
 from dlrover_tpu_torch.models import llama
 from dlrover_tpu_torch.ops.cuda import flash_attention
 from dlrover_tpu_torch.telemetry import record
@@ -81,34 +100,67 @@ def model_config(name: str):
 
 def synth_batch(start: int, end: int, seq_len: int = 128,
                 vocab: int = 256):
-    """One shard's batch. A real job reads and tokenizes a corpus slice
-    here; the synthetic stream is seeded by the sample index so every
-    shard is reproducible (the JAX example's ``synth_batch``)."""
-    rng = np.random.default_rng(start)
-    tokens = rng.integers(
-        0, vocab, (end - start, seq_len), dtype=np.int32
-    ).astype(np.int64)
+    """One shard's batch, the tokens as int64 (``synth.synth_batch``)."""
+    tokens, _ = synth.synth_batch(start, end, seq_len, vocab)
+    tokens = tokens.astype(np.int64)
     return tokens, tokens
 
 
-def checkpoint_state(trainer, step: int, sharding: ShardingClient) -> Dict:
+def checkpoint_state(trainer, step: int,
+                     sharding: Optional[ShardingClient]) -> Dict:
+    """The state a save archives; ``"data"`` is empty under the shm feed
+    (``sharding`` None), whose data position is the master's ledger."""
     return {**trainer.train_state(), "step": step,
-            "data": sharding.get_shard_checkpoint()}
+            "data": (sharding.get_shard_checkpoint()
+                     if sharding is not None else "")}
+
+
+def shm_transform(elastic):
+    """DevicePrefetch's transform for ``synth.ShardBatch`` batches, on
+    the fill thread: (tokens, targets, rows) -> (the int64 microbatches,
+    the shard's (start, end) on the host)."""
+
+    def transform(batch):
+        tokens, targets, rows = batch
+        return (elastic.microbatch((tokens.astype(np.int64),
+                                    targets.astype(np.int64))),
+                (int(rows[0]), int(rows[1])))
+
+    return transform
+
+
+def shm_loader(client, trainer, elastic, cfg, batch_size: int,
+               seq_len: int, dataset_rows: int, num_workers: int):
+    """The shm feed: ``num_workers`` coworkers over the master at the
+    client's address (the in-process client has none, and the loader
+    raises), batches staged on the trainer's device."""
+    from dlrover_tpu_torch.data.elastic_shm import ElasticShmDataLoader
+
+    return ElasticShmDataLoader(
+        synth.ShardBatch(seq_len, cfg.vocab_size), dataset_name=DATASET,
+        batch_size=batch_size, dataset_size=dataset_rows,
+        num_epochs=10**6,  # stream until --steps
+        num_workers=num_workers,
+        master_addr=getattr(client, "master_addr", None),
+        slot_bytes=max(1 << 20, 4 * batch_size * seq_len * 2 + 4096),
+        device=trainer.device, transform=shm_transform(elastic),
+    )
 
 
 def rollback(order, trainer, sharding, ckpt, client, sentinel) -> int:
     """Restore the master-ordered last clean step, as the JAX loop
     does: the model and optimizer from its archive, the shard ledger
     rewound to its ``"data"`` so the voided steps see their shards
-    again. Returns the restored step."""
+    again (the in-process feed only; under the shm feed ``sharding`` is
+    None and the ledger stays). Returns the restored step."""
     rolled, _ = ckpt.restore(
         target={**trainer.train_state(), "step": 0, "data": ""},
         step=order["step"])
     if rolled is None:
         raise RuntimeError(f"rollback step {order['step']} not found")
     trainer.load_train_state(rolled)
-    if rolled["data"] and not sharding.restore_shard_from_checkpoint(
-            rolled["data"]):
+    if sharding is not None and rolled["data"] and not \
+            sharding.restore_shard_from_checkpoint(rolled["data"]):
         raise RuntimeError("the master refused the shard checkpoint")
     step = int(rolled["step"])
     sentinel.note_restored(step, order["id"])
@@ -122,10 +174,14 @@ def rollback(order, trainer, sharding, ckpt, client, sentinel) -> int:
 
 def run(steps: int, ckpt_dir: str, batch_size: int = 8, seq_len: int = 128,
         device: Optional[str] = None, save_interval: int = 10,
-        seed: int = 0, model: str = "tiny") -> Dict:
+        seed: int = 0, model: str = "tiny", num_workers: int = 0,
+        dataset_rows: int = 0) -> Dict:
     """Train to ``steps``, resuming from ``ckpt_dir`` when it holds a
-    checkpoint. Returns what happened: the start step, each step's
-    (start, end) shard and loss, and the final step."""
+    checkpoint; ``num_workers`` > 0 feeds the steps through the shm data
+    plane. ``dataset_rows`` (default ``steps * batch_size``) is the
+    dataset the master shards, in epochs, until ``steps``. Returns what
+    happened: the start step, each step's (start, end) shard and loss,
+    and the final step."""
     cfg, optimizer = model_config(model)
     client = build_master_client()
     trainer = make_trainer_for_llama(cfg, device=device,
@@ -139,11 +195,14 @@ def run(steps: int, ckpt_dir: str, batch_size: int = 8, seq_len: int = 128,
     print(f"DEVICE {on}", flush=True)
     elastic = ElasticTrainer(trainer, max_nodes=1, cur_nodes=1,
                              master_client=client, report_interval=5)
-    sharding = ShardingClient(
-        DATASET, batch_size, num_epochs=10**6,  # stream until --steps
-        dataset_size=steps * batch_size, shuffle=False,
-        num_minibatches_per_shard=1, master_client=client,
-    )
+    dataset_rows = dataset_rows or steps * batch_size
+    sharding = None
+    if num_workers == 0:
+        sharding = ShardingClient(
+            DATASET, batch_size, num_epochs=10**6,  # stream until --steps
+            dataset_size=dataset_rows, shuffle=False,
+            num_minibatches_per_shard=1, master_client=client,
+        )
     ckpt = FlashCheckpointer(
         persist_dir=os.path.join(ckpt_dir, "persist"),
         ram_dir=os.path.join(ckpt_dir, "ram"), persist_interval=0,
@@ -154,8 +213,8 @@ def run(steps: int, ckpt_dir: str, batch_size: int = 8, seq_len: int = 128,
     if restored is not None:
         trainer.load_train_state(restored)
         start_step = int(restored["step"])
-        if restored["data"] and not sharding.restore_shard_from_checkpoint(
-                restored["data"]):
+        if sharding is not None and restored["data"] and not \
+                sharding.restore_shard_from_checkpoint(restored["data"]):
             raise RuntimeError("the master refused the shard checkpoint")
         print(f"RESTORED from step {start_step}", flush=True)
     elastic.attach_checkpointer(ckpt, save_interval=save_interval)
@@ -173,23 +232,39 @@ def run(steps: int, ckpt_dir: str, batch_size: int = 8, seq_len: int = 128,
     sentinel = elastic.sentinel
     shards: List = []
     losses: List[float] = []
+    loader = batches = None
+    if num_workers > 0:
+        loader = shm_loader(client, trainer, elastic, cfg, batch_size,
+                            seq_len, dataset_rows, num_workers)
+        batches = iter(loader)
+        record("data.coworkers", pids=loader.producer_pids,
+               ring=loader.ring_name)
+        print(f"DATA shm workers={num_workers}", flush=True)
     try:
         while step < steps:
-            shard = sharding.fetch_shard()
-            if shard is None:
-                break
-            batch = trainer.shard_batch(elastic.microbatch(
-                synth_batch(shard.start, shard.end, seq_len,
-                            cfg.vocab_size)))
+            if batches is not None:
+                item = next(batches, None)
+                if item is None:
+                    break
+                batch, rows = item
+            else:
+                shard = sharding.fetch_shard()
+                if shard is None:
+                    break
+                rows = (shard.start, shard.end)
+                batch = trainer.shard_batch(elastic.microbatch(
+                    synth_batch(shard.start, shard.end, seq_len,
+                                cfg.vocab_size)))
             loss = elastic.report_step(step + 1,
                                        loss=elastic.train_step(batch))
             step += 1
-            sharding.report_batch_done()
-            shards.append((shard.start, shard.end))
+            if sharding is not None:
+                sharding.report_batch_done()
+            shards.append(rows)
             losses.append(loss)
-            record("train.step", step=step, loss=loss, launches={
-                k: n - launched_before[k]
-                for k, n in flash_attention.LAUNCHES.items()})
+            record("train.step", step=step, loss=loss, rows=list(rows),
+                   launches={k: n - launched_before[k]
+                             for k, n in flash_attention.LAUNCHES.items()})
             print(f"step {step} loss {loss!r}", flush=True)
             if step == start_step + 1:
                 t0 = time.perf_counter()
@@ -213,7 +288,10 @@ def run(steps: int, ckpt_dir: str, batch_size: int = 8, seq_len: int = 128,
                 lambda: checkpoint_state(trainer, step, sharding),
                 durable=True)
     finally:
-        sharding.stop()
+        if loader is not None:
+            loader.shutdown()
+        if sharding is not None:
+            sharding.stop()
         elastic.drain.disarm()
         # flush the async save pipeline before exit
         ckpt.close()
@@ -233,6 +311,12 @@ def main(argv=None) -> int:
     parser.add_argument("--device", type=str, default=None,
                         help="default: the GPU")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--num-workers", type=int, default=0,
+                        help="coworker processes of the shm feed; 0 "
+                             "fetches shards in this process")
+    parser.add_argument("--dataset-rows", type=int, default=0,
+                        help="rows the master shards (default: steps x "
+                             "batch size)")
     parser.add_argument("--out", type=str, default="")
     args = parser.parse_args(argv)
 
@@ -241,7 +325,8 @@ def main(argv=None) -> int:
     result = run(args.steps, args.ckpt_dir, batch_size=args.batch_size,
                  seq_len=args.seq_len, device=args.device,
                  save_interval=args.save_interval, seed=args.seed,
-                 model=args.model)
+                 model=args.model, num_workers=args.num_workers,
+                 dataset_rows=args.dataset_rows)
     print(f"FINAL step={result['step']} loss={result['loss']:.6f}",
           flush=True)
     if args.out:

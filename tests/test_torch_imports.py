@@ -3,7 +3,8 @@
 package, the smoke script refuses to run without the package or
 without a GPU, and the modules the agent and the master load -- the
 telemetry surface, the stats pipeline, the resource monitor and their
-entry points -- import no torch."""
+entry points -- import no torch, nor do the modules the shm data plane's
+coworker processes load."""
 
 import ast
 import os
@@ -39,6 +40,12 @@ def _imported_modules(tree: ast.AST):
               and getattr(node.func, "attr", getattr(node.func, "id", ""))
               in ("import_module", "__import__")):
             yield node.lineno, node.args[0].value
+
+
+def test_the_data_plane_is_under_the_rule():
+    data = {p.name for p in FILES if p.parent == PORT / "data"}
+    assert {"shm_ring.py", "shm_dataloader.py", "elastic_shm.py",
+            "synth.py", "__init__.py"} <= data
 
 
 @pytest.mark.parametrize(
@@ -112,7 +119,38 @@ TORCH_FREE = (
     "dlrover_tpu_torch.master.local_master",
     "dlrover_tpu_torch.agent.elastic.training",
     "dlrover_tpu_torch.trainer.elastic_run",
+    # the shm data plane's producer side: what a coworker process loads
+    # to run an ElasticShmDataLoader's producer on a synth batch_fn
+    "dlrover_tpu_torch.data.shm_ring",
+    "dlrover_tpu_torch.data.shm_dataloader",
+    "dlrover_tpu_torch.data.elastic_shm",
+    "dlrover_tpu_torch.data.synth",
+    "dlrover_tpu_torch.agent.sharding.client",
+    "dlrover_tpu_torch.trainer.sampler",
+    "dlrover_tpu_torch.trainer.evaluator",
 )
+
+
+def test_a_coworker_process_imports_no_torch():
+    """Unpickling and running an ElasticShmDataLoader's producer, as a
+    spawned coworker does, up to its first master call."""
+    code = (
+        "import pickle, sys\n"
+        "from dlrover_tpu_torch.data import elastic_shm, synth\n"
+        "from dlrover_tpu_torch.data.shm_dataloader import _producer_main\n"
+        "p = pickle.loads(pickle.dumps(elastic_shm._ShardedProducer(\n"
+        "    synth.ShardBatch(8, 16), 'd', 2, 8, 1, False, 1, None)))\n"
+        "p.batch_fn(0, 2)\n"
+        "import dlrover_tpu_torch.agent.master_client\n"
+        "bad = [m for m in sys.modules if m == 'torch' "
+        "or m.startswith('torch.')]\n"
+        "assert not bad, bad[:5]\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
 
 
 @pytest.mark.parametrize("module", TORCH_FREE)
