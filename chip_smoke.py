@@ -9,10 +9,11 @@ Phases, each of which raises on failure:
 2. build: the three flash-attention kernels from ``ops/cuda/csrc``, with
    each kernel's registers, spills and dynamic shared memory;
 3. kernels: each kernel against its plain PyTorch version on the card,
-   at the Llama-1.1B train step's attention shape and at one small
+   at the Llama-1.1B train step's attention shape (GQA group 8), at
+   GPT-2 XL's (25 heads over 25 kv heads, group 1) and at one small
    non-causal shape, element by element; planted faults that the same
-   rule must reject; each kernel launched twice at the step's shape,
-   which must give the same bits; times beside the
+   rule must reject; each kernel launched twice at the two train steps'
+   shapes, which must give the same bits; times there beside the
    kernel's bound and PyTorch's own ``scaled_dot_product_attention`` as
    a yardstick;
 4. slice: the Llama-1.1B (TinyLlama shape, 22 layers) train step,
@@ -60,7 +61,18 @@ Phases, each of which raises on failure:
    one, 22 forward launches and no backward launch per evaluation, the
    collector holding step 4 and its loss; restore seconds, forward ms
    and save-to-report seconds are printed;
-9. launch: the same llama_1b loop as a user runs it, under the elastic
+9. families: the other model families. GPT-2 XL (48 layers, hidden
+   1600, 25 heads, vocab 50257, tied head) trains at batch 8 x 1024
+   through ``make_trainer_for`` under AdamW, 2 warm-up and 5 timed
+   steps: step time, tokens/s, MFU, peak memory, 48 launches of each
+   kernel per step, and its hidden states and loss through the kernels
+   against ``mha_reference`` (a wrong attention must fail); two more
+   steps profiled as in phase 5. ``bench.py
+   --model dlrm``'s path: criteo_wide_deep (a 734,208-row table) at
+   batch 4096 under adagrad(0.05), bench.py's fields, its first 3 steps
+   against the port's on the CPU. The MNIST CNN at batch 64, 5
+   adam(1e-3) steps against the CPU's, under torch's TF32 defaults;
+10. launch: the same llama_1b loop as a user runs it, under the elastic
    launcher (``python -m dlrover_tpu_torch.trainer.elastic_run
    --standalone``: the local master, the agent and the worker in
    processes of their own) with ``DLROVER_FAULT_INJECT=crash@10``: the
@@ -76,7 +88,7 @@ Phases, each of which raises on failure:
    phases to its elapsed time within 1%, recover the crash's fault
    window and book the gap after the crash as ``restart``; goodput %,
    badput by cause and MTTR of both are printed beside ``recovery_s``;
-10. drain: two launches of the same loop on one checkpoint directory.
+11. drain: two launches of the same loop on one checkpoint directory.
     Launch A is preempted (``preempt@6:notice=30``, a 25 s drain budget):
     the worker drains at the end of step 6 -- the master told, a durable
     emergency save of step 6 on the persist tier, its shards handed back
@@ -90,8 +102,9 @@ Phases, each of which raises on failure:
     drain must fit its budget, and the replay of both launches must book
     ``preempt`` and ``rollback`` badput and recover the rollback's
     window;
-11. the kernels line (one JSON object), then the card's name and power
-    limit, then the device line, last.
+12. the kernels line (one JSON object; each kernel at both train steps'
+    shapes), then the card's name and power limit, then the device
+    line, last.
 
 Exits non-zero, and prints no result, when there is no CUDA device or
 when the package is not beside this file.
@@ -115,6 +128,9 @@ ROOT = Path(__file__).resolve().parent
 
 #: the slice: llama_1b's attention at the train step's batch 3 x 2048
 SLICE = dict(b=3, s=2048, h=32, kvh=4, d=64, causal=True)
+#: GPT-2 XL's attention at phase "families"'s batch 8 x 1024: plain
+#: multi-head attention, 25 heads over 25 kv heads (GQA group 1)
+GPT = dict(b=8, s=1024, h=25, kvh=25, d=64, causal=True)
 #: a small extra shape: non-causal, no GQA, the 128-wide kernel instance
 SMALL = dict(b=2, s=256, h=4, kvh=4, d=128, causal=False)
 #: kernel vs plain version, both bf16 on the card: every element within
@@ -307,8 +323,9 @@ def _dq_masked(q, k, v, do, lse, delta, keep, scale):
 def planted_faults(q, k, v, do, lse, delta, causal, scale):
     """What a kernel with one of five bugs would return, written with the
     plain versions: {kernel: [(fault, output label, tensor)]}. Each must
-    fail ``closeness`` against the sound plain output. Needs a GQA group
-    of at least 2 and 2 kv heads."""
+    fail ``closeness`` against the sound plain output. Needs 2 kv heads.
+    dK/dV's fault sums a GQA group over its first head only; at group 1,
+    where that is the sound sum, it reads the next query head instead."""
     from dlrover_tpu_torch.ops.attention import mha_reference
     from dlrover_tpu_torch.ops.cuda import flash_attention as fa
 
@@ -334,9 +351,16 @@ def planted_faults(q, k, v, do, lse, delta, causal, scale):
     def first_row(x):
         return x.reshape(b, kvh, h // kvh, s)[:, :, 0].contiguous()
 
-    dk_first, dv_first = fa.dkv_plain(
-        first_head(q), k, v, first_head(do), first_row(lse),
-        first_row(delta), causal, scale)
+    if h == kvh:
+        dkv_fault = "wrong query head"
+        dk_bad, dv_bad = fa.dkv_plain(
+            q.roll(1, dims=2), k, v, do.roll(1, dims=2), lse.roll(1, dims=1),
+            delta.roll(1, dims=1), causal, scale)
+    else:
+        dkv_fault = "group sum of one head"
+        dk_bad, dv_bad = fa.dkv_plain(
+            first_head(q), k, v, first_head(do), first_row(lse),
+            first_row(delta), causal, scale)
     return {
         "fwd": [("k loop one tile short", "o", o_short),
                 ("k loop one tile short", "lse", lse_short),
@@ -344,8 +368,7 @@ def planted_faults(q, k, v, do, lse, delta, causal, scale):
                 ("wrong kv head", "lse", lse_head)],
         "dq": [("k loop one tile short", "dq", dq_short),
                ("wrong kv head", "dq", dq_head)],
-        "dkv": [("group sum of one head", "dk", dk_first),
-                ("group sum of one head", "dv", dv_first)],
+        "dkv": [(dkv_fault, "dk", dk_bad), (dkv_fault, "dv", dv_bad)],
     }
 
 
@@ -483,20 +506,93 @@ def check_kernels(shape, timed: bool):
 
 
 def phase_kernels():
+    """{shape name: check_kernels' dicts} at the Llama-1.1B step's shape
+    and GPT-2 XL's, both timed."""
     import torch
 
     # the plain versions' fp32 products must not drop to TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     check_kernels(SMALL, timed=False)
-    results = check_kernels(SLICE, timed=True)
-    for r in results.values():
-        emit({"phase": "kernels", "shape": SLICE, "timing": {
-            key: r[key] for key in (
-                "kernel_ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "flop", "bytes", "readings_ms",
-                "library_readings_ms")}})
+    results = {}
+    for name, shape in (("llama_1b", SLICE), ("gpt2_xl", GPT)):
+        results[name] = check_kernels(shape, timed=True)
+        for r in results[name].values():
+            emit({"phase": "kernels", "shape": shape, "timing": {
+                key: r[key] for key in (
+                    "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "flop", "bytes", "readings_ms",
+                    "library_readings_ms")}})
     return results
+
+
+def timed_steps(trainer, mb, num_layers: int):
+    """WARMUP_STEPS steps, then TIMED_STEPS on the host clock up to the one
+    sync at their end, the launch counts reset before them: (seconds per
+    timed step, the timed steps' losses, the launches, the failed gates:
+    a loss that is not finite, and other than ``num_layers`` launches of
+    each kernel per step)."""
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.ops.cuda import flash_attention as fa
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    for _ in range(WARMUP_STEPS):
+        trainer.train_step(mb)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [trainer.train_step(mb) for _ in range(TIMED_STEPS)]
+    losses = [float(x) for x in losses]  # waits for the whole chain
+    step_s = (time.perf_counter() - t0) / TIMED_STEPS
+    launches = dict(fa.LAUNCHES)
+    steps = WARMUP_STEPS + TIMED_STEPS
+    failed = [] if all(np.isfinite(losses)) else [f"losses {losses}"]
+    failed += [f"{name} launched {n} times in {steps} steps, want "
+               f"{num_layers} per step" for name, n in launches.items()
+               if n != num_layers * steps]
+    return step_s, losses, launches, failed
+
+
+def attention_gate(model, loss_fn, batch):
+    """The trained model at full width through the kernels, through the
+    plain reference attention, and through a wrong one (kv heads rolled
+    by one): (the readings, the failed gates). The final hidden states
+    through the kernels must lie within HIDDEN_TOL of the reference's
+    and the loss within LOSS_TOL; the wrong attention must fail."""
+    import torch
+
+    from dlrover_tpu_torch.ops.attention import flash_attention, mha_reference
+
+    def wrong_attention(q, k, v):
+        return mha_reference(q, k.roll(1, dims=2), v.roll(1, dims=2))
+
+    attns = {"kernel": flash_attention, "reference": mha_reference,
+             "wrong": wrong_attention}
+    with torch.no_grad():
+        hidden = {n: model.hidden_states(batch[0], attn_fn=f)
+                  for n, f in attns.items()}
+        losses = {n: float(loss_fn(model, batch, attn_fn=f))
+                  for n, f in attns.items()}
+    ref = hidden["reference"].float()
+    hidden_err = {n: ((hidden[n].float() - ref).norm() / ref.norm()).item()
+                  for n in ("kernel", "wrong")}
+    loss_err = {n: abs(losses[n] - losses["reference"])
+                for n in ("kernel", "wrong")}
+    failed = []
+    if hidden_err["kernel"] > HIDDEN_TOL or loss_err["kernel"] > LOSS_TOL:
+        failed.append(
+            f"model through kernels vs mha_reference: hidden states "
+            f"{hidden_err['kernel']} (limit {HIDDEN_TOL}), loss "
+            f"{loss_err['kernel']} (limit {LOSS_TOL})")
+    if hidden_err["wrong"] <= HIDDEN_TOL:
+        failed.append(f"a wrong attention passes the hidden-state gate: "
+                      f"{hidden_err['wrong']} <= {HIDDEN_TOL}")
+    return {"loss": losses, "loss_abs_err": loss_err,
+            "hidden_rel_norm_err": hidden_err, "hidden_tol": HIDDEN_TOL,
+            "loss_tol": LOSS_TOL}, failed
 
 
 def phase_slice():
@@ -505,8 +601,6 @@ def phase_slice():
 
     from dlrover_tpu_torch.auto.device_context import peak_flops_per_chip
     from dlrover_tpu_torch.models import llama
-    from dlrover_tpu_torch.ops.attention import flash_attention, mha_reference
-    from dlrover_tpu_torch.ops.cuda import flash_attention as fa
     from dlrover_tpu_torch.trainer.profiler import utilization
     from dlrover_tpu_torch.trainer.sharded import (
         adamw,
@@ -521,61 +615,20 @@ def phase_slice():
     tokens = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (batch, seq), dtype=np.int64)
     mb = trainer.shard_batch(trainer.microbatch((tokens, tokens)))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
-    fa.reset_launches()
-    for _ in range(WARMUP_STEPS):
-        trainer.train_step(mb)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(TIMED_STEPS):
-        loss = trainer.train_step(mb)
-    loss_val = float(loss)  # the one sync: waits for the whole chain
-    step_s = (time.perf_counter() - t0) / TIMED_STEPS
-    launches = dict(fa.LAUNCHES)
-    steps = WARMUP_STEPS + TIMED_STEPS
-    if not np.isfinite(loss_val):
-        raise AssertionError(f"train loss is {loss_val}")
-    for name, n in launches.items():
-        if n != cfg.num_layers * steps:
-            raise AssertionError(
-                f"{name} launched {n} times in {steps} steps, want "
-                f"{cfg.num_layers} per step")
+    step_s, losses, launches, failed = timed_steps(trainer, mb,
+                                                   cfg.num_layers)
+    loss_val, steps = losses[-1], WARMUP_STEPS + TIMED_STEPS
+    if failed:
+        raise AssertionError("; ".join(failed))
     peak_mem = torch.cuda.max_memory_allocated()
 
-    # the trained model at full width through the kernels, through the
-    # plain reference attention, and through a wrong one
-    def wrong_attention(q, k, v):
-        return mha_reference(q, k.roll(1, dims=2), v.roll(1, dims=2))
-
-    attns = {"kernel": flash_attention, "reference": mha_reference,
-             "wrong": wrong_attention}
-    batch0 = tuple(x[0] for x in mb)
-    with torch.no_grad():
-        hidden = {n: trainer.model.hidden_states(batch0[0], attn_fn=f)
-                  for n, f in attns.items()}
-        losses = {n: float(llama.next_token_loss(trainer.model, batch0,
-                                                 attn_fn=f))
-                  for n, f in attns.items()}
-    ref = hidden["reference"].float()
-    hidden_err = {n: ((hidden[n].float() - ref).norm() / ref.norm()).item()
-                  for n in ("kernel", "wrong")}
-    loss_err = {n: abs(losses[n] - losses["reference"])
-                for n in ("kernel", "wrong")}
-    emit({"phase": "slice_check", "loss": losses,
-          "loss_abs_err": loss_err, "hidden_rel_norm_err": hidden_err,
-          "hidden_tol": HIDDEN_TOL, "loss_tol": LOSS_TOL})
-    if hidden_err["kernel"] > HIDDEN_TOL or loss_err["kernel"] > LOSS_TOL:
-        raise AssertionError(
-            f"model through kernels vs mha_reference: hidden states "
-            f"{hidden_err['kernel']} (limit {HIDDEN_TOL}), loss "
-            f"{loss_err['kernel']} (limit {LOSS_TOL})")
-    if hidden_err["wrong"] <= HIDDEN_TOL:
-        raise AssertionError(
-            f"a wrong attention passes the hidden-state gate: "
-            f"{hidden_err['wrong']} <= {HIDDEN_TOL}")
-    loss_kernel, loss_ref = losses["kernel"], losses["reference"]
+    check, failed = attention_gate(trainer.model, llama.next_token_loss,
+                                   tuple(x[0] for x in mb))
+    emit({"phase": "slice_check", **check})
+    if failed:
+        raise AssertionError("; ".join(failed))
+    loss_kernel, loss_ref = (check["loss"]["kernel"],
+                             check["loss"]["reference"])
 
     step_profile = _profile_and_sample(trainer, mb)
 
@@ -682,7 +735,8 @@ def _kernel_group(name: str) -> str:
     return "other (elementwise, norms, softmax, copies)"
 
 
-def phase_profile(trainer, mb, step_ms: float, steps: int = 2) -> None:
+def phase_profile(trainer, mb, step_ms: float, steps: int = 2,
+                  model: str = "llama_1b") -> None:
     """Where the step's device time goes, by kernel group and the top
     kernels, from torch.profiler over ``steps`` steps. The profiler's own
     host cost slows the wall clock here but not the kernels, so the idle
@@ -716,7 +770,7 @@ def phase_profile(trainer, mb, step_ms: float, steps: int = 2) -> None:
     flash = {re.sub(r"^(void )?flash::|\(.*$", "", n): t / c / 1e3
              for n, t, c in kernels if _kernel_group(n).startswith("flash")}
     emit({
-        "phase": "profile", "steps": steps,
+        "phase": "profile", "model": model, "steps": steps,
         "profiled_wall_ms_per_step": wall_us / steps / 1e3,
         "device_busy_ms_per_step": busy_us / steps / 1e3,
         "device_idle_share": 1.0 - busy_us / steps / 1e3 / step_ms,
@@ -1421,6 +1475,217 @@ def phase_eval() -> dict:
     return {"evals": evals}
 
 
+#: bench.py --model dlrm on the card: batch, warm-up and timed steps; the
+#: card's losses of the first DLRM_CHECK_STEPS steps and the loss after
+#: them within DLRM_LOSS_RTOL (relative) of the same steps of the port on
+#: the CPU from the same weights and batch: fp32 throughout, the two
+#: devices sum in other orders (the table gradient's scatter-add among
+#: them), which on an H100 moved the loss by 8.6e-8 relative; the limit
+#: leaves that a hundredfold and catches an update fault of 1e-5
+DLRM_BATCH, DLRM_WARMUP, DLRM_STEPS = 4096, 5, 30
+DLRM_CHECK_STEPS, DLRM_LOSS_RTOL = 3, 1e-5
+#: the MNIST CNN at the example's batch and optimizer, CNN_STEPS steps,
+#: under torch's defaults, as a user gets them: cuDNN runs the fp32
+#: convolutions in TF32, which keeps 10 of fp32's 23 mantissa bits
+#: (2^-11 relative per operand); the card's losses within CNN_LOSS_RTOL
+#: of the CPU's, from the same weights and batches (Adam can turn a
+#: near-zero gradient element's TF32 error into a step of the other
+#: sign, +-lr)
+CNN_BATCH, CNN_STEPS, CNN_LOSS_RTOL = 64, 5, 1e-2
+
+
+def _gpt_step(failed: list) -> dict:
+    """GPT-2 XL's train step at full width through ``make_trainer_for``:
+    step time, tokens/s, MFU, peak memory, launches per step, the step's
+    device profile; its hidden states and loss through the kernels
+    against ``mha_reference``."""
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.auto.device_context import peak_flops_per_chip
+    from dlrover_tpu_torch.models import gpt, make_trainer_for
+    from dlrover_tpu_torch.trainer.profiler import utilization
+    from dlrover_tpu_torch.trainer.sharded import adamw
+
+    # "dots_attn_out": the matmul outputs saved, as under "dots", with the
+    # attention call outside the checkpointed segments, so the backward
+    # never re-runs the forward kernel (bench.py's Llama policy)
+    cfg = gpt.gpt2_xl(remat="dots_attn_out")
+    batch, seq = GPT["b"], GPT["s"]
+    trainer = make_trainer_for(cfg, optimizer=adamw(1e-4, b1=0.9, b2=0.95))
+    trainer.init(seed=0)
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, seq), dtype=np.int64)
+    mb = trainer.shard_batch(trainer.microbatch((tokens, tokens)))
+    step_s, losses, launches, step_failed = timed_steps(trainer, mb,
+                                                        cfg.num_layers)
+    peak_mem = torch.cuda.max_memory_allocated()
+    check, check_failed = attention_gate(
+        trainer.model, gpt.next_token_loss, tuple(x[0] for x in mb))
+    failed += [f"gpt2_xl: {f}" for f in step_failed + check_failed]
+    # where the step's device time goes (two more steps, profiled)
+    phase_profile(trainer, mb, step_s * 1e3, model="gpt2_xl")
+    tokens_per_step = batch * seq
+    model_flops = gpt.flops_per_token(cfg, seq) * tokens_per_step
+    steps = WARMUP_STEPS + TIMED_STEPS
+    return {
+        "model": "gpt2_xl", "remat": cfg.remat, "batch": batch, "seq": seq,
+        "params": gpt.param_count(cfg), "warmup_steps": WARMUP_STEPS,
+        "timed_steps": TIMED_STEPS, "step_ms": step_s * 1e3,
+        "tokens_per_sec": tokens_per_step / step_s,
+        "model_flops_per_step": model_flops,
+        "mfu_percent": utilization(model_flops, step_s,
+                                   peak_flops_per_chip()),
+        "max_memory_allocated_bytes": peak_mem, "losses": losses,
+        "launches": launches,
+        "launches_per_step": {n: c / steps for n, c in launches.items()},
+        "check": check,
+    }
+
+
+def _steps(trainer, batches) -> list:
+    return [float(trainer.train_step(trainer.shard_batch(b)))
+            for b in batches]
+
+
+def _dlrm_bench(failed: list) -> dict:
+    """``bench.py --model dlrm``'s path on the card: criteo_wide_deep at
+    batch 4096 under adagrad(0.05), its inputs made as bench.py makes
+    them; the first steps held against the CPU's."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.models import dlrm, make_trainer_for
+    from dlrover_tpu_torch.trainer.sharded import adagrad
+
+    cfg = dlrm.criteo_wide_deep()
+    rng = np.random.default_rng(0)
+    dense = rng.standard_normal((1, DLRM_BATCH, cfg.dense_dim),
+                                dtype=np.float32)
+    cat = np.stack([rng.integers(0, v, (1, DLRM_BATCH))
+                    for v in cfg.vocab_sizes], -1).astype(np.int32)
+    labels = rng.integers(0, 2, (1, DLRM_BATCH)).astype(np.int32)
+    batch = (dense, cat, labels)
+    init = dlrm.init_params(cfg, seed=0, device="cpu")
+
+    def run(device):
+        trainer = make_trainer_for(cfg, device=device,
+                                   optimizer=adagrad(0.05))
+        trainer.init(model=copy.deepcopy(init))
+        losses = _steps(trainer, [batch] * DLRM_CHECK_STEPS)
+        with torch.no_grad():
+            after = float(dlrm.loss(trainer.model, tuple(
+                x[0] for x in trainer.shard_batch(batch))))
+        return trainer, losses + [after]
+
+    trainer, card = run("cuda")
+    _, card_again = run("cuda")
+    _, cpu = run("cpu")
+    rel = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
+    if not (all(np.isfinite(card)) and max(rel) <= DLRM_LOSS_RTOL):
+        failed.append(f"dlrm: card losses {card} vs the CPU's {cpu} "
+                      f"(relative {rel}, limit {DLRM_LOSS_RTOL})")
+    mb = trainer.shard_batch(batch)
+    for _ in range(DLRM_WARMUP):
+        loss = trainer.train_step(mb)
+    float(loss)
+    t0 = time.perf_counter()
+    for _ in range(DLRM_STEPS):
+        loss = trainer.train_step(mb)
+    loss_val = float(loss)
+    dt = time.perf_counter() - t0
+    if not np.isfinite(loss_val):
+        failed.append(f"dlrm: final loss {loss_val}")
+    step_time = dt / DLRM_STEPS
+    return {
+        "model": "criteo_wide_deep", "batch": DLRM_BATCH,
+        "optimizer": "adagrad(0.05)", "warmup_steps": DLRM_WARMUP,
+        "timed_steps": DLRM_STEPS,
+        "dlrm_steps_per_sec": 1.0 / step_time,
+        "examples_per_sec": DLRM_BATCH / step_time,
+        "step_time_ms": step_time * 1e3, "table_rows": cfg.padded_vocab,
+        "embed_dim": cfg.embed_dim, "final_loss": loss_val,
+        "check": {"card": card, "cpu": cpu, "rel_err": rel,
+                  "rtol": DLRM_LOSS_RTOL,
+                  # printed only: the scatter-add order may differ
+                  "two_card_runs_bitwise": card == card_again},
+    }
+
+
+def _cnn_steps(failed: list) -> dict:
+    """The MNIST CNN at the example's batch under adam(1e-3), on the card
+    and on the CPU from the same weights and digits."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.examples.cnn_train import make_digits
+    from dlrover_tpu_torch.models import cnn, make_trainer_for
+    from dlrover_tpu_torch.trainer.sharded import adam
+
+    cfg = cnn.mnist_cnn()
+    images, labels = make_digits()
+    batches = [
+        tuple(x[None, i * CNN_BATCH:(i + 1) * CNN_BATCH]
+              for x in (images, labels))
+        for i in range(CNN_STEPS)]
+    init = cnn.init_params(cfg, seed=0, device="cpu")
+    losses = {}
+    for device in ("cuda", "cpu"):
+        trainer = make_trainer_for(cfg, device=device, optimizer=adam(1e-3))
+        trainer.init(model=copy.deepcopy(init))
+        losses[device] = _steps(trainer, batches)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                 losses["cpu"])]
+    if not (all(np.isfinite(losses["cuda"])) and max(rel) <= CNN_LOSS_RTOL):
+        failed.append(f"cnn: card losses {losses['cuda']} vs the CPU's "
+                      f"{losses['cpu']} (relative {rel}, limit "
+                      f"{CNN_LOSS_RTOL})")
+    return {"model": "mnist_cnn", "batch": CNN_BATCH,
+            "optimizer": "adam(1e-3)", "steps": CNN_STEPS,
+            "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+            "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "card": losses["cuda"], "cpu": losses["cpu"], "rel_err": rel,
+            "rtol": CNN_LOSS_RTOL}
+
+
+def phase_families() -> dict:
+    """The other model families on the card: GPT-2 XL's train step on the
+    flash kernels, ``bench.py --model dlrm``'s recommender and the MNIST
+    CNN. One line per family; raises after all three if any gate
+    failed. Returns the GPT step's launches."""
+    import torch
+
+    failed = []
+    t0 = time.perf_counter()
+    gpt_line = _gpt_step(failed)
+    emit({"phase": "families", **gpt_line})
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "families", **_dlrm_bench(failed)})
+    # torch's defaults for the CNN, as a user gets them: phase "kernels"
+    # turned TF32 off for the plain versions
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        emit({"phase": "families", **_cnn_steps(failed)})
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "families", "seconds": time.perf_counter() - t0,
+          "nvidia_smi": nvidia_smi_line()})
+    if failed:
+        raise AssertionError("families: " + "; ".join(failed))
+    return gpt_line["launches"]
+
+
 #: the launch phase: the example's steps, save cadence and injected crash
 LAUNCH_STEPS, LAUNCH_SAVE, LAUNCH_CRASH = 12, 4, 10
 #: the launch took 57-84 s on the H100, the phases before it about
@@ -1952,17 +2217,22 @@ def main() -> int:
     del trainer, mb  # the card's memory goes back for the next phases
     phase_elastic()
     phase_eval()
+    gpt_launches = phase_families()
     phase_launch()
     phase_drain()
     line = []
-    for name, r in kernels.items():
-        line.append({
-            "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        })
+    # each shape's launches: its main path's run (the count reset just
+    # before it), the Llama step of "slice" and the GPT step of "families"
+    for shape, counts in (("llama_1b", launches), ("gpt2_xl", gpt_launches)):
+        for name, r in kernels[shape].items():
+            line.append({
+                "name": name if shape == "llama_1b" else f"{name}@{shape}",
+                "shape": shape, "route": "cuda", "source": SOURCES[name],
+                "replaces": REPLACES[name], "launches": counts[name],
+                "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            })
     emit({"kernels": line})
     print(nvidia_smi_line(), flush=True)
     # count: the cards this run used -- every phase runs on cuda:0

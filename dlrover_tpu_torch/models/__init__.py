@@ -1,13 +1,14 @@
 """Model families of the port. Counterpart of ``dlrover_tpu/models``:
 each family module exposes a config dataclass, the model, its loss,
 ``param_count`` and ``flops_per_token``, and the trainer layer
-dispatches by config type. Only Llama (dense) is ported so far."""
+dispatches by config type. Llama (dense), GPT, the CNN and DLRM are
+ported. A config of the JAX package routes by its class name too."""
 
-#: families of the JAX package that the port has not reached yet
-_NOT_PORTED = {
-    "GPTConfig": "GPT (ROADMAP.md, queue A, 'Other families')",
-    "CNNConfig": "the CNN (ROADMAP.md, queue A, 'Other families')",
-    "DLRMConfig": "DLRM (ROADMAP.md, queue A, 'Other families')",
+_FAMILIES = {
+    "LlamaConfig": "llama",
+    "GPTConfig": "gpt",
+    "CNNConfig": "cnn",
+    "DLRMConfig": "dlrm",
 }
 
 
@@ -15,27 +16,29 @@ def model_module_for(cfg):
     """The family module owning ``cfg``; raises on unknown config types
     rather than misrouting them."""
     name = type(cfg).__name__
-    if name == "LlamaConfig":
-        from dlrover_tpu_torch.models import llama
-
-        return llama
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{name}: {_NOT_PORTED[name]} is not ported yet"
+    if name not in _FAMILIES:
+        raise TypeError(
+            f"unknown model family config {name!r}; register it in "
+            "models.model_module_for"
         )
-    raise TypeError(
-        f"unknown model family config {name!r}; register it in "
-        "models.model_module_for"
-    )
+    import importlib
+
+    return importlib.import_module(
+        f"dlrover_tpu_torch.models.{_FAMILIES[name]}")
 
 
-def make_trainer_for(cfg, device=None, strategy: str = "ddp",
+def example_batch(cfg, global_batch: int, seq_len: int = 1):
+    """Zero-filled batch of the family's shape: LMs take (tokens,
+    targets) int64 [batch, seq], the CNN (images, labels), DLRM (dense,
+    cat_ids, labels)."""
+    return model_module_for(cfg).example_batch(cfg, global_batch, seq_len)
+
+
+def make_trainer_for(cfg, device=None, strategy=None,
                      accum_steps: int = 1, optimizer=None, attn_fn=None):
-    """Family-dispatched trainer constructor."""
-    model_module_for(cfg)
-    from dlrover_tpu_torch.trainer.sharded import make_trainer_for_llama
-
-    return make_trainer_for_llama(
-        cfg, device=device, strategy=strategy, accum_steps=accum_steps,
-        optimizer=optimizer, attn_fn=attn_fn,
-    )
+    """Family-dispatched trainer constructor; ``strategy=None`` takes the
+    family's own default ("rowwise" for DLRM, else "ddp")."""
+    kw = {} if strategy is None else {"strategy": strategy}
+    return model_module_for(cfg).make_trainer(
+        cfg, device=device, accum_steps=accum_steps, optimizer=optimizer,
+        attn_fn=attn_fn, **kw)

@@ -180,6 +180,21 @@ _save_dots = partial(checkpoint, use_reentrant=False,
 _save_nothing = partial(checkpoint, use_reentrant=False)
 
 
+def remat_block(block: nn.Module, remat: str, x, attn_fn, *args):
+    """``block(x, *args, attn_fn)`` under the remat policy ``remat``;
+    ``"dots_attn_out"`` runs its two segments, ``block._pre_attn(x,
+    *args) -> (q, k, v)`` and ``block._post_attn(x, attn)``, each saving
+    its matmul outputs, with the attention call between them."""
+    if remat == "dots_attn_out":
+        q, k, v = _save_dots(block._pre_attn, x, *args)
+        return _save_dots(block._post_attn, x, attn_fn(q, k, v))
+    if remat == "dots":
+        return _save_dots(block, x, *args, attn_fn)
+    if remat == "minimal":
+        return _save_nothing(block, x, *args, attn_fn)
+    return block(x, *args, attn_fn)
+
+
 class Block(nn.Module):
     """One dense decoder block: RMSNorm, q/k/v projections, RoPE,
     attention, output projection, RMSNorm, SwiGLU."""
@@ -231,15 +246,7 @@ class Block(nn.Module):
 
     def run(self, x, cos, sin, attn_fn):
         """The block under the config's remat policy."""
-        remat = self.cfg.remat
-        if remat == "dots_attn_out":
-            q, k, v = _save_dots(self._pre_attn, x, cos, sin)
-            return _save_dots(self._post_attn, x, attn_fn(q, k, v))
-        if remat == "dots":
-            return _save_dots(self, x, cos, sin, attn_fn)
-        if remat == "minimal":
-            return _save_nothing(self, x, cos, sin, attn_fn)
-        return self(x, cos, sin, attn_fn)
+        return remat_block(self, self.cfg.remat, x, attn_fn, cos, sin)
 
 
 class Llama(nn.Module):
@@ -357,6 +364,22 @@ def next_token_loss(model: Llama, batch: Tuple[torch.Tensor, torch.Tensor],
     else:
         nll_sum, cnt = _masked_nll(model.lm_head(x).float(), targets)
     return nll_sum / cnt.clamp(min=1.0)
+
+
+def make_trainer(cfg: LlamaConfig, device=None, strategy: str = "ddp",
+                 accum_steps: int = 1, optimizer=None, attn_fn=None):
+    """Trainer for the Llama model; ``device=None`` is the GPU."""
+    from dlrover_tpu_torch.trainer.sharded import make_trainer_for_llama
+
+    return make_trainer_for_llama(
+        cfg, device=device, strategy=strategy, accum_steps=accum_steps,
+        optimizer=optimizer, attn_fn=attn_fn)
+
+
+def example_batch(cfg, global_batch: int, seq_len: int = 1):
+    """Zero-filled (tokens, targets), int64 [batch, seq]; GPT's too."""
+    tokens = np.zeros((global_batch, seq_len), dtype=np.int64)
+    return tokens, tokens
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,16 @@
-"""The train step on one GPU: loss, backward, AdamW, in place.
+"""The train step on one GPU: loss, backward, the optimizer, in place.
 
 Counterpart of ``dlrover_tpu/trainer/sharded.py``. The class keeps its
-name so that readers find the counterpart, but the port runs only the
-``"ddp"`` strategy on one device so far; the rule-table strategies
-(ZeRO, FSDP, TP, sequence) are later work (ROADMAP.md, queue A,
+name so that readers find the counterpart, but the port runs on one
+device only: ``"ddp"``, and ``"rowwise"``, which on one device is the
+same step (the JAX rule table shards a table's rows over an ``fsdp``
+axis of size 1 there). The other rule-table strategies (ZeRO, FSDP, TP,
+sequence) and a sharded table are later work (ROADMAP.md, queue A,
 "Parallelism"). Where the JAX step donates its buffers, this one updates
-the parameters and optimizer state in place. Gradient accumulation sums
-the microbatches' gradients in fp32 buffers and hands their fp32 mean to
-AdamW, as the JAX step hands it to optax.
+the parameters and optimizer state in place. Three of optax's optimizers
+are carried: ``adamw``, ``adam`` (AdamW without decay) and ``adagrad``.
+Gradient accumulation sums the microbatches' gradients in fp32 buffers
+and hands their fp32 mean to AdamW, as the JAX step hands it to optax.
 """
 
 from dataclasses import dataclass
@@ -19,6 +22,9 @@ import torch.nn as nn
 
 from dlrover_tpu_torch.auto.device_context import resolve_device
 from dlrover_tpu_torch.common.log import default_logger as logger
+
+#: the strategies of one device; "rowwise" equals "ddp" there
+STRATEGIES = ("ddp", "rowwise")
 
 OptimizerFactory = Callable[[Iterable[nn.Parameter]], torch.optim.Optimizer]
 
@@ -47,6 +53,80 @@ def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
     weight decay of 1e-4 on every parameter, norms and embedding
     included (``torch.optim.AdamW`` would default to 1e-2)."""
     return AdamW(learning_rate, b1, b2, eps, weight_decay)
+
+
+def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8) -> AdamW:
+    """``optax.adam``: :func:`adamw` without weight decay (optax's adamw
+    is adam plus the decay term), so its state and checkpoint layout are
+    AdamW's."""
+    return AdamW(learning_rate, b1, b2, eps, weight_decay=0.0)
+
+
+@dataclass(frozen=True)
+class Adagrad:
+    """``optax.adagrad``'s hyperparameters; called on parameters, the
+    :class:`RssAdagrad` that runs them. Made by :func:`adagrad`, which
+    holds optax's defaults."""
+
+    learning_rate: float
+    initial_accumulator_value: float
+    eps: float
+
+    def __call__(self, params) -> "RssAdagrad":
+        return RssAdagrad(params, self)
+
+
+def adagrad(learning_rate: float, initial_accumulator_value: float = 0.1,
+            eps: float = 1e-7) -> Adagrad:
+    """``optax.adagrad`` with its own defaults. ``torch.optim.Adagrad``
+    is another optimizer: its accumulator starts at 0, its eps is added
+    after the square root, and it decays the learning rate."""
+    return Adagrad(learning_rate, initial_accumulator_value, eps)
+
+
+class RssAdagrad:
+    """``optax.adagrad`` to optax's formula (``scale_by_rss``, then the
+    learning rate): ``acc += g * g``, then ``p -= lr * g * rsqrt(acc +
+    eps)`` where ``acc > 0`` (else no step). The accumulators
+    (``sum_of_squares``, in parameter order) start at
+    ``initial_accumulator_value`` in each parameter's dtype, as optax's
+    do. A plain object with ``step`` and ``zero_grad``: a
+    ``torch.optim.Optimizer`` would load ``torch._dynamo`` at its first
+    construction, seconds of every worker's start."""
+
+    def __init__(self, params: Iterable[nn.Parameter], hp: Adagrad):
+        self.params = [p for p in params if p.requires_grad]
+        self.hp = hp
+        self.sum_of_squares = [
+            torch.full_like(p, hp.initial_accumulator_value)
+            for p in self.params]
+
+    @torch.no_grad()
+    def step(self) -> None:
+        """One update from the parameters' ``.grad`` (those without one
+        are left alone)."""
+        live = [(p, a) for p, a in zip(self.params, self.sum_of_squares)
+                if p.grad is not None]
+        if not live:
+            return
+        params = [p for p, _ in live]
+        acc = [a for _, a in live]
+        grads = [p.grad for p in params]
+        torch._foreach_add_(acc, torch._foreach_mul(grads, grads))
+        scale = torch._foreach_add(acc, self.hp.eps)
+        torch._foreach_rsqrt_(scale)
+        for s, a in zip(scale, acc):
+            s.masked_fill_(a <= 0, 0.0)
+        torch._foreach_mul_(scale, grads)
+        torch._foreach_add_(params, scale, alpha=-self.hp.learning_rate)
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        for p in self.params:
+            if set_to_none:
+                p.grad = None
+            elif p.grad is not None:
+                p.grad.zero_()
 
 
 class Fp32GradAdamW:
@@ -114,9 +194,10 @@ class ShardedTrainer:
       loss_fn: ``loss_fn(model, batch) -> scalar``.
       init_fn: ``init_fn(seed, device) -> nn.Module``.
       device: where to train; ``None`` is the GPU.
-      strategy: only ``"ddp"`` (one device).
+      strategy: ``"ddp"`` or ``"rowwise"`` (the same on one device).
       optimizer: a factory from parameters to an optimizer (default
-        ``adamw(3e-4)``, the JAX trainer's default).
+        ``adamw(3e-4)``, the JAX trainer's default); :meth:`train_state`
+        carries :func:`adamw`, :func:`adam` and :func:`adagrad`.
       accum_steps: microbatches per optimizer update. Above 1 the
         optimizer must be an :func:`adamw`, whose update then runs as
         :class:`Fp32GradAdamW` on the fp32 mean of the gradients.
@@ -131,11 +212,18 @@ class ShardedTrainer:
         optimizer: Optional[OptimizerFactory] = None,
         accum_steps: int = 1,
     ):
-        if strategy != "ddp":
+        if strategy not in STRATEGIES:
             raise NotImplementedError(
-                f"strategy {strategy!r} is not ported yet; only 'ddp' on "
-                "one device (ROADMAP.md, queue A, 'Parallelism')"
+                f"strategy {strategy!r} is not ported yet; only {STRATEGIES}"
+                " on one device (ROADMAP.md, queue A, 'Parallelism')"
             )
+        if (strategy == "rowwise" and torch.distributed.is_available()
+                and torch.distributed.is_initialized()
+                and torch.distributed.get_world_size() > 1):
+            raise NotImplementedError(
+                "strategy 'rowwise' over more than one device shards the "
+                "table rows, which is not ported yet (ROADMAP.md, queue A, "
+                "item 6, 'Parallelism')")
         optimizer = optimizer or adamw(3e-4)
         if accum_steps > 1 and not isinstance(optimizer, AdamW):
             raise ValueError(
@@ -185,7 +273,8 @@ class ShardedTrainer:
         if not isinstance(opt, torch.optim.AdamW):
             raise TypeError(
                 f"train state of a {type(opt).__name__}: only AdamW "
-                "(torch.optim.AdamW or Fp32GradAdamW) is carried")
+                "(torch.optim.AdamW or Fp32GradAdamW) and RssAdagrad are "
+                "carried")
         states = [opt.state[p] for p in self._trained()]
         count = int(states[0]["step"]) if states else 0
         return ([s["exp_avg"] for s in states],
@@ -193,15 +282,22 @@ class ShardedTrainer:
 
     def train_state(self) -> Dict[str, Any]:
         """The live training state, without copies: ``{"model": {name:
-        parameter}, "optimizer": {"mu": {name: moment}, "nu": {name:
-        moment}, "count": updates}}``, the layout a checkpoint saves."""
-        names = [n for n, _ in self._named_trained()]
-        mu, nu, count = self._moments()
-        return {
-            "model": {n: p.detach() for n, p in self._named_trained()},
-            "optimizer": {"mu": dict(zip(names, mu)),
-                          "nu": dict(zip(names, nu)), "count": count},
-        }
+        parameter}, "optimizer": ...}``, the layout a checkpoint saves.
+        The optimizer's part is optax's state by parameter name:
+        ``{"mu": {name: moment}, "nu": {name: moment}, "count": updates}``
+        for AdamW and Adam, ``{"sum_of_squares": {name: accumulator}}``
+        for Adagrad."""
+        named = self._named_trained()
+        names = [n for n, _ in named]
+        if isinstance(self.optimizer, RssAdagrad):
+            opt = {"sum_of_squares": dict(
+                zip(names, self.optimizer.sum_of_squares))}
+        else:
+            mu, nu, count = self._moments()
+            opt = {"mu": dict(zip(names, mu)), "nu": dict(zip(names, nu)),
+                   "count": count}
+        return {"model": {n: p.detach() for n, p in named},
+                "optimizer": opt}
 
     @torch.no_grad()
     def load_train_state(self, state: Dict[str, Any]) -> None:
@@ -216,6 +312,14 @@ class ShardedTrainer:
         for n, p in named:
             p.copy_(state["model"][n])
         opt = state["optimizer"]
+        if "sum_of_squares" in opt:
+            if not isinstance(self.optimizer, RssAdagrad):
+                raise ValueError(
+                    "an Adagrad state for a trainer whose optimizer is a "
+                    f"{type(self.optimizer).__name__}")
+            for (n, _), acc in zip(named, self.optimizer.sum_of_squares):
+                acc.copy_(opt["sum_of_squares"][n])
+            return
         mu = [opt["mu"][n] for n, _ in named]
         nu = [opt["nu"][n] for n, _ in named]
         self._set_optimizer(mu, nu, int(opt["count"]))
@@ -311,6 +415,25 @@ class ShardedTrainer:
         )
 
 
+def family_trainer(cfg, loss_fn: Callable, init_fn: Callable,
+                   param_count: int, device=None, strategy: str = "ddp",
+                   accum_steps: int = 1,
+                   optimizer: Optional[OptimizerFactory] = None
+                   ) -> ShardedTrainer:
+    """A family's trainer (each family's ``make_trainer``), logged with
+    its config and size."""
+    trainer = ShardedTrainer(
+        loss_fn, init_fn, device=device, strategy=strategy,
+        optimizer=optimizer, accum_steps=accum_steps,
+    )
+    logger.info(
+        "ShardedTrainer: %s params=%.1fM device=%s strategy=%s accum=%d",
+        type(cfg).__name__, param_count / 1e6, trainer.device, strategy,
+        accum_steps,
+    )
+    return trainer
+
+
 def make_trainer_for_llama(
     cfg,
     device=None,
@@ -328,13 +451,6 @@ def make_trainer_for_llama(
     def init(seed, dev):
         return llama.init_params(cfg, seed=seed, device=dev)
 
-    trainer = ShardedTrainer(
-        loss, init, device=device, strategy=strategy, optimizer=optimizer,
-        accum_steps=accum_steps,
-    )
-    logger.info(
-        "ShardedTrainer: %s params=%.1fM device=%s strategy=%s accum=%d",
-        type(cfg).__name__, llama.param_count(cfg) / 1e6, trainer.device,
-        strategy, accum_steps,
-    )
-    return trainer
+    return family_trainer(cfg, loss, init, llama.param_count(cfg),
+                          device=device, strategy=strategy,
+                          accum_steps=accum_steps, optimizer=optimizer)

@@ -54,6 +54,8 @@ SHAPES = {
     "s384-odd-tiles-d128": (1, 384, 8, 2, 128),
     "b3-kvh4-g8-s1024": (3, 1024, 32, 4, 64),
     "b3-kvh4-g8-s1024-d128": (3, 1024, 32, 4, 128),
+    # GPT-2 XL's attention: 25 heads, group 1, 50 (batch, head) pairs
+    "gpt2-xl-h25-g1-s1024": (2, 1024, 25, 25, 64),
 }
 
 

@@ -48,6 +48,14 @@ def test_the_data_plane_is_under_the_rule():
             "synth.py", "__init__.py"} <= data
 
 
+def test_the_model_families_are_under_the_rule():
+    ported = {str(p.relative_to(PORT)) for p in FILES if p.is_relative_to(PORT)}
+    assert {"models/llama.py", "models/gpt.py", "models/cnn.py",
+            "models/dlrm.py", "parallel/embedding.py",
+            "examples/cnn_train.py", "examples/dlrm_train.py",
+            "examples/shard_loop.py"} <= ported
+
+
 @pytest.mark.parametrize(
     "path", FILES, ids=[str(p.relative_to(REPO)) for p in FILES])
 def test_no_jax_imports(path):
