@@ -72,7 +72,8 @@ Phases, each of which raises on failure:
    batch 4096 under adagrad(0.05), bench.py's fields, its first 3 steps
    against the port's on the CPU. The MNIST CNN at batch 64, 5
    adam(1e-3) steps against the CPU's, under torch's TF32 defaults;
-10. launch: the same llama_1b loop as a user runs it, under the elastic
+10. launch: the llama_1b loop as a user runs it (at full width, cut to
+   ``LAUNCHER_LAYERS`` = 4 layers, as are phases 11 and 12), under the elastic
    launcher (``python -m dlrover_tpu_torch.trainer.elastic_run
    --standalone``: the local master, the agent and the worker in
    processes of their own) with ``DLROVER_FAULT_INJECT=crash@10``: the
@@ -102,7 +103,26 @@ Phases, each of which raises on failure:
     drain must fit its budget, and the replay of both launches must book
     ``preempt`` and ``rollback`` badput and recover the rollback's
     window;
-12. the kernels line (one JSON object; each kernel at both train steps'
+12. world: several processes. One master service of its own and two
+    launchers (``--nnodes 2:2 --node_rank {0,1} --network-check``), each
+    supervising one worker; both workers run on ``cuda:0`` in one gloo
+    group (``--dist-backend gloo``: NCCL refuses two ranks on one
+    device) with ``DLROVER_TPU_DIST_HEARTBEAT_TIMEOUT=10``. The same
+    llama_1b (4 layers), batch 3 x 2048 per rank,
+    flash saves every 4 steps on both tiers (each persisted before the
+    loop goes on), ``crash@10:host=1``, node 1's RAM tier deleted
+    before its worker comes back. Gates: both network-check rounds
+    passed for both nodes and the master's verdict says so; 4 launches
+    of each kernel per rank per step; the state's checksums equal on
+    both ranks at steps 4, 8 and 12; the ranks' losses equal at every
+    step; in step 8's committed manifest each tensor written by exactly
+    the rank that owns it, the owned bytes summing to the state's, and
+    COMMIT with both index pieces, after both; both ranks restore step
+    8 by consensus with the checksums saved, rank 1 over rank 0's
+    ``/ckpt/shard``; steps 9-10 replayed bitwise; both launchers exit 0
+    with ``FINAL step=12``. Printed: step and reduction ms, save stalls
+    and bytes, restore seconds and peer bytes, ``recovery_s``;
+13. the kernels line (one JSON object; each kernel at both train steps'
     shapes), then the card's name and power limit, then the device
     line, last.
 
@@ -791,28 +811,6 @@ ELASTIC_STEPS, SAVE_INTERVAL, ELASTIC_ROWS = 8, 4, 48
 RESUME_LOSS_RTOL = 1e-3
 
 
-def state_checksums(tree) -> dict:
-    """Key path -> a position-weighted integer checksum of each tensor's
-    bits, computed on the card (other leaves as they are): equal
-    checksums mean equal bits, wherever the tensor was restored from."""
-    import torch
-
-    from dlrover_tpu_torch.trainer import ckpt_store
-
-    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
-    out = {}
-    for path, leaf in ckpt_store.flatten_with_path(tree):
-        key = "/".join(str(c.get("k", c.get("i"))) for c in path)
-        if not isinstance(leaf, torch.Tensor):
-            out[key] = leaf
-            continue
-        bits = leaf.detach().reshape(-1).view(
-            ints[leaf.element_size()]).long()
-        weight = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
-        out[key] = int((bits * weight).sum())
-    return out
-
-
 def _state_bytes(cfg) -> int:
     """The checkpointed state: bf16 parameters but the fp32 norm weights,
     and AdamW's two moments in the parameters' dtypes."""
@@ -891,7 +889,7 @@ def _elastic_run(cfg, seed: int, ram_dir: str, persist_dir: str,
             raise AssertionError("the master refused the shard checkpoint")
         out["start_step"] = int(restored["step"])
         out["restore"] = dict(ckpt.last_restore_stats)
-        out["restored_checksums"] = state_checksums(
+        out["restored_checksums"] = ckpt_store.state_checksums(
             {**trainer.train_state(), "step": restored["step"],
              "data": restored["data"]})
         del restored
@@ -918,7 +916,7 @@ def _elastic_run(cfg, seed: int, ram_dir: str, persist_dir: str,
         sharding.report_batch_done()
         out["shards"][step] = (shard.start, shard.end)
         if save and elastic.checkpoint_due(step):
-            out.setdefault("checksums", {})[step] = state_checksums(
+            out.setdefault("checksums", {})[step] = ckpt_store.state_checksums(
                 checkpoint_state(trainer, step, sharding))
         stall = elastic.maybe_checkpoint(
             lambda: checkpoint_state(trainer, step, sharding))
@@ -986,7 +984,7 @@ def phase_elastic() -> dict:
         ckpt = FlashCheckpointer(persist_dir, ram_dir=ram_dir)
         restored, step = ckpt.restore(target=target, step=SAVE_INTERVAL)
         persist = dict(ckpt.last_restore_stats or {})
-        persist_checksums = state_checksums(restored)
+        persist_checksums = ckpt_store.state_checksums(restored)
         del restored, target, target_trainer
         gc.collect()
         torch.cuda.empty_cache()
@@ -1688,17 +1686,35 @@ def phase_families() -> dict:
 
 #: the launch phase: the example's steps, save cadence and injected crash
 LAUNCH_STEPS, LAUNCH_SAVE, LAUNCH_CRASH = 12, 4, 10
+#: the phases under the launcher ("launch", "drain", "world") run
+#: llama_1b's widths at this depth: each restart starts a process that
+#: builds the model and writes, reads and persists its state, and at 22
+#: layers (6.6 GB of state) they took the whole script past its 480 s.
+#: Phase "elastic" saves and persists the whole 22-layer state
+LAUNCHER_LAYERS = 4
 #: the launch took 57-84 s on the H100, the phases before it about
 #: 170 s: a hung launch is stopped, and its output read, well inside
 #: a 600 s limit on the whole script
 LAUNCH_TIMEOUT_S = 240
 
 
+def _launcher_cfg():
+    """The config the launcher phases' workers train (``--model llama_1b
+    --num-layers LAUNCHER_LAYERS``)."""
+    import dataclasses
+
+    from dlrover_tpu_torch.models import llama
+
+    return dataclasses.replace(llama.llama_1b(remat="dots_attn_out"),
+                               num_layers=LAUNCHER_LAYERS)
+
+
 def _incarnations(stdout: str):
     """The example's ``step k loss x`` lines, one dict per incarnation
     (a new one starts where the step number does not grow)."""
     runs, last = [], None
-    for k, x in re.findall(r"^step (\d+) loss (\S+)$", stdout, re.M):
+    for k, x in re.findall(r"^step (\d+) loss (\S+)(?: world \d+)?$",
+                           stdout, re.M):
         k = int(k)
         if last is None or k <= last:
             runs.append({})
@@ -1732,7 +1748,8 @@ def _launch(ckpt_dir: str, journal: str, out_file: str, env: dict):
         sys.executable, "-m", "dlrover_tpu_torch.trainer.elastic_run",
         "--standalone", "--nnodes", "1:1", "--monitor_interval", "0.3",
         "--max_restarts", "2", "dlrover_tpu_torch/examples/llama_train.py",
-        "--", "--model", "llama_1b", "--batch-size", str(SLICE["b"]),
+        "--", "--model", "llama_1b", "--num-layers", str(LAUNCHER_LAYERS),
+        "--batch-size", str(SLICE["b"]),
         "--seq-len", str(SLICE["s"]), "--steps", str(LAUNCH_STEPS),
         "--save-interval", str(LAUNCH_SAVE), "--ckpt-dir", ckpt_dir,
         "--out", out_file,
@@ -1866,13 +1883,12 @@ def phase_launch() -> dict:
     before the crash."""
     import torch
 
-    from dlrover_tpu_torch.models import llama
     from dlrover_tpu_torch.telemetry import read_journal
 
     # the worker needs the card's memory the earlier phases cached here
     gc.collect()
     torch.cuda.empty_cache()
-    state_bytes = _state_bytes(llama.llama_1b(remat="dots_attn_out"))
+    state_bytes = _state_bytes(_launcher_cfg())
     ram_dir, _, placed = _elastic_dirs(state_bytes)
     ckpt_dir = placed["tmp_dir"]
     if ram_dir != os.path.join(ckpt_dir, "ram"):
@@ -1928,7 +1944,7 @@ def phase_launch() -> dict:
     devices, launches = _workers(events)
     if devices != ["cuda:0", "cuda:0"]:
         failed.append(f"workers ran on {devices}")
-    layers = llama.llama_1b().num_layers
+    layers = LAUNCHER_LAYERS
     if len(launches) != 2 or any(
             set(per_step.values()) != {layers} for per_step in launches):
         failed.append(f"kernel launches per step {launches}, "
@@ -1991,7 +2007,8 @@ def phase_launch() -> dict:
         "profiles": profiles,
     }
     emit({
-        "phase": "launch", "model": "llama_1b", "batch": SLICE["b"],
+        "phase": "launch", "model": "llama_1b",
+        "layers": LAUNCHER_LAYERS, "batch": SLICE["b"],
         "seq": SLICE["s"], "steps": LAUNCH_STEPS,
         "save_interval": LAUNCH_SAVE, "crash_step": LAUNCH_CRASH,
         "launcher_rc": proc.returncode, "launch_s": launch_s,
@@ -2023,12 +2040,11 @@ def phase_drain() -> dict:
     the emergency save from the persist tier and rolls back a NaN."""
     import torch
 
-    from dlrover_tpu_torch.models import llama
     from dlrover_tpu_torch.telemetry import read_journal
 
     gc.collect()
     torch.cuda.empty_cache()
-    state_bytes = _state_bytes(llama.llama_1b(remat="dots_attn_out"))
+    state_bytes = _state_bytes(_launcher_cfg())
     ram_dir, _, placed = _elastic_dirs(state_bytes)
     ckpt_dir = placed["tmp_dir"]
     if ram_dir != os.path.join(ckpt_dir, "ram"):
@@ -2069,7 +2085,7 @@ def phase_drain() -> dict:
         shutil.rmtree(ram_dir, ignore_errors=True)
 
     failed = []
-    layers = llama.llama_1b().num_layers
+    layers = LAUNCHER_LAYERS
     for name, (proc, _, _, events) in zip("AB", runs):
         devices, launches = _workers(events)
         if devices != ["cuda:0"]:
@@ -2182,7 +2198,8 @@ def phase_drain() -> dict:
                 first_b["ts"] - notice["ts"],
         }
     emit({
-        "phase": "drain", "model": "llama_1b", "batch": SLICE["b"],
+        "phase": "drain", "model": "llama_1b",
+        "layers": LAUNCHER_LAYERS, "batch": SLICE["b"],
         "seq": SLICE["s"], "steps": LAUNCH_STEPS,
         "save_interval": LAUNCH_SAVE, "preempt_step": DRAIN_PREEMPT,
         "notice_s": DRAIN_NOTICE, "budget_s": DRAIN_BUDGET,
@@ -2195,6 +2212,264 @@ def phase_drain() -> dict:
         for proc, stdout, stderr, _ in runs:
             print(stdout[-3000:], stderr[-6000:], sep="\n", file=sys.stderr)
         raise AssertionError("drain: " + "; ".join(failed))
+    return readings
+
+
+#: phase "world": two nodes of one worker each, both on cuda:0 in one
+#: gloo group (NCCL refuses two ranks on one device), llama_1b at full
+#: width cut to LAUNCHER_LAYERS layers, each rank at batch 3 x 2048;
+#: flash saves every WORLD_SAVE steps on both tiers, node 1's worker crashes
+#: after step WORLD_CRASH and its RAM tier is deleted before it comes
+#: back; both ranks restore by consensus and train to WORLD_STEPS
+WORLD_STEPS, WORLD_SAVE, WORLD_CRASH = 12, 4, 10
+#: collectives on a dead peer give up after this many seconds
+WORLD_HEARTBEAT_S = 10
+WORLD_TIMEOUT_S = 300
+
+
+def phase_world() -> dict:
+    """Two ranks on one card under two launchers against one master: the
+    pre-flight network check, the ddp step with its gradients reduced
+    over the ranks, flash checkpoints each rank persists only its owned
+    part of, a crash of node 1 whose RAM tier is lost, and the consensus
+    restore with node 1 fetching over rank 0's peer tier."""
+    import threading
+
+    import torch
+
+    from dlrover_tpu_torch.agent.master_client import MasterClient
+    from dlrover_tpu_torch.checkpoint import manifest as mf
+    from dlrover_tpu_torch.telemetry import read_journal
+    from dlrover_tpu_torch.trainer import ckpt_store
+    from dlrover_tpu_torch.trainer.elastic_run import launch_local_master
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="dlrover_world_")
+    journal = os.path.join(tmp, "journal.jsonl")
+    ckpt_dir = os.path.join(tmp, "ckpt")
+    ram_dirs = [os.path.join(tmp, f"ram{r}") for r in range(2)]
+    outs, lost = [[], []], []
+    t_phase = time.time()
+    master = None
+    try:
+        master, master_addr = launch_local_master(2)
+        env = dict(os.environ, DLROVER_TPU_JOURNAL=journal,
+                   DLROVER_FAULT_INJECT=f"crash@{WORLD_CRASH}:host=1",
+                   DLROVER_TPU_DIST_HEARTBEAT_TIMEOUT=str(WORLD_HEARTBEAT_S))
+        procs = []
+        for rank in range(2):
+            cmd = [
+                sys.executable, "-m", "dlrover_tpu_torch.trainer.elastic_run",
+                "--master_addr", master_addr, "--nnodes", "2:2",
+                "--node_rank", str(rank), "--network-check",
+                "--monitor_interval", "0.3", "--max_restarts", "2",
+                "dlrover_tpu_torch/examples/llama_train.py", "--",
+                "--model", "llama_1b", "--num-layers", str(LAUNCHER_LAYERS),
+                "--batch-size", str(SLICE["b"]), "--seq-len", str(SLICE["s"]),
+                "--steps", str(WORLD_STEPS), "--save-interval",
+                str(WORLD_SAVE), "--persist-interval", str(WORLD_SAVE),
+                "--ckpt-dir", ckpt_dir,
+                "--ram-dir", ram_dirs[rank], "--dist-backend", "gloo",
+                "--checksums",
+            ]
+            procs.append(subprocess.Popen(
+                cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True, start_new_session=True))
+
+        def read(rank):
+            for line in procs[rank].stdout:
+                outs[rank].append(line)
+                if rank == 1 and line.startswith("INJECTED CRASH"):
+                    # a replaced host comes back without its tmpfs
+                    shutil.rmtree(ram_dirs[1], ignore_errors=True)
+                    lost.append(time.time())
+
+        readers = [threading.Thread(target=read, args=(r,), daemon=True)
+                   for r in range(2)]
+        for t in readers:
+            t.start()
+        deadline = time.time() + WORLD_TIMEOUT_S
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.time()))
+            except subprocess.TimeoutExpired:
+                _stop_launch(journal)
+                p.wait(timeout=30)
+        for t in readers:
+            t.join(timeout=30)
+        world_s = time.time() - t_phase
+        verdict = MasterClient(master_addr, node_id=0,
+                               node_type="worker").network_check_success()
+        store = ckpt_store.get_store(os.path.join(ckpt_dir, "persist"))
+        committed = ckpt_store.committed_steps(store)
+        man8 = (ckpt_store.step_manifest(store, 2 * WORLD_SAVE)
+                if 2 * WORLD_SAVE in committed else None)
+        keys8 = set(store.list(f"step-{2 * WORLD_SAVE}/"))
+        events = read_journal(journal) if os.path.exists(journal) else []
+    finally:
+        _stop_launch(journal)
+        if master is not None:
+            master.kill()
+            master.wait(timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    stdout = ["".join(o) for o in outs]
+
+    failed = []
+    rcs = [p.returncode for p in procs]
+    if rcs != [0, 0]:
+        failed.append(f"launcher exits {rcs}")
+    for rank in range(2):
+        if f"FINAL step={WORLD_STEPS} " not in stdout[rank]:
+            failed.append(f"node {rank}: no 'FINAL step={WORLD_STEPS}'")
+    if not lost:
+        failed.append("node 1 did not crash")
+    # the pre-flight check: both rounds passed for both nodes
+    rounds = [e["data"] for e in events if e["kind"] == "network_check.round"]
+    if (sorted((d["node_rank"], d["round"]) for d in rounds)
+            != [(0, 0), (0, 1), (1, 0), (1, 1)]
+            or not all(d["normal"] and d["success"] for d in rounds)
+            or tuple(verdict) != (True, "")):
+        failed.append(f"network check {rounds}, verdict {verdict}")
+    # the ddp step: 4 launches of each kernel per rank per step, every
+    # step's loss equal on both ranks, steps 9-10 bitwise on replay
+    steps = [e for e in events if e["kind"] == "train.step"]
+    per_pid = {}
+    for e in steps:
+        per_pid.setdefault(e["pid"], []).append(e["data"])
+    launches = [{k: n / len(v) for k, n in v[-1]["launches"].items()}
+                for v in per_pid.values()]
+    # each worker journals its launches since it started: the phase's
+    # total over both ranks and both incarnations
+    world_launches = {k: sum(v[-1]["launches"][k] for v in per_pid.values())
+                      for k in REPLACES}
+    if len(launches) != 4 or any(set(per.values()) != {LAUNCHER_LAYERS}
+                                 for per in launches):
+        failed.append(f"kernel launches per step {launches}, "
+                      f"{LAUNCHER_LAYERS} of each per rank expected")
+    runs = [_incarnations(out) for out in stdout]
+    if [len(r) for r in runs] != [2, 2]:
+        failed.append(f"incarnations {[len(r) for r in runs]}, 2 expected")
+    else:
+        for i in range(2):
+            common = set(runs[0][i]) & set(runs[1][i])
+            differ = sorted(k for k in common
+                            if runs[0][i][k] != runs[1][i][k])
+            if differ or not common:
+                failed.append(f"incarnation {i}: the ranks' losses differ "
+                              f"at steps {differ} of {sorted(common)}")
+        restart = 2 * WORLD_SAVE
+        for rank in range(2):
+            again = {k: runs[rank][1].get(k) for k in
+                     range(restart + 1, WORLD_CRASH + 1)}
+            first = {k: runs[rank][0].get(k) for k in again}
+            if rank == 1:  # it crashed inside step WORLD_CRASH's report
+                first.pop(WORLD_CRASH)
+                again.pop(WORLD_CRASH)
+            if again != first or None in again.values():
+                failed.append(f"rank {rank}: replayed {again}, first {first}")
+    # the saves: equal state checksums on both ranks at every save
+    sums = {}
+    for e in events:
+        if e["kind"] == "train.checksums":
+            sums.setdefault(e["data"]["step"], {}).setdefault(
+                e["data"]["rank"], []).append(e["data"]["sums"])
+    for s in range(WORLD_SAVE, WORLD_STEPS + 1, WORLD_SAVE):
+        got = sums.get(s, {})
+        flat = [x for r in (0, 1) for x in got.get(r, [])]
+        if sorted(got) != [0, 1] or any(x != flat[0] for x in flat):
+            failed.append(f"step {s}: checksums not equal on both ranks")
+    # step 8's commit: every leaf written by exactly one rank, the ranks'
+    # owned bytes summing to the state's, COMMIT only with both pieces
+    step8 = 2 * WORLD_SAVE
+    dedup8 = {e["data"]["process_index"]: e["data"] for e in events
+              if e["kind"] == "ckpt.dedup" and e["data"]["step"] == step8}
+    if man8 is None:
+        failed.append(f"step {step8} not committed ({committed})")
+    else:
+        tensors = [leaf for leaf in man8["leaves"]
+                   if leaf["kind"] == "shards"]
+        writers = [man8["locations"].get(mf.shard_key(
+            mf.path_key(leaf["path"]), leaf["domains"][0]["idx"]),
+            {}).get("proc") for leaf in tensors]
+        owners = [leaf["domains"][0]["owner"] for leaf in tensors]
+        if writers != owners or len(man8["locations"]) != len(tensors):
+            failed.append(f"step {step8}: writers {writers} != owners")
+        if (sorted(dedup8) != [0, 1]
+                or sum(d["bytes_owned"] for d in dedup8.values())
+                != dedup8[0]["bytes_full"]):
+            failed.append(f"step {step8}: owned bytes {dedup8}")
+        pieces = {f"step-{step8}/xidx-{p}.a{man8['attempt']}.json"
+                  for p in range(2)}
+        if not pieces <= keys8:
+            failed.append(f"step {step8}: COMMIT without {pieces - keys8}")
+    i_commit = next((i for i, e in enumerate(events)
+                     if e["kind"] == "ckpt.manifest_committed"
+                     and e["data"]["step"] == step8), None)
+    i_pieces = [i for i, e in enumerate(events) if e["kind"] == "ckpt.dedup"
+                and e["data"]["step"] == step8]
+    if i_commit is None or len(i_pieces) != 2 or max(i_pieces) > i_commit:
+        failed.append(f"step {step8}: commit event {i_commit} before both "
+                      f"pieces {i_pieces}")
+    # the restore: both ranks step 8 by consensus, checksums those saved,
+    # rank 1 over rank 0's /ckpt/shard
+    restores = {e["data"]["rank"]: e["data"] for e in events
+                if e["kind"] == "train.restored"}
+    want = sums.get(step8, {}).get(0, [None])[0]
+    for rank in range(2):
+        r = restores.get(rank)
+        if r is None or r["step"] != step8 or r["checksums"] != want:
+            failed.append(f"rank {rank} restored {r and r['step']} "
+                          f"(checksums equal: {r and r['checksums'] == want})")
+    if not (restores.get(1, {}).get("peer_bytes", 0) > 0
+            and restores[1]["tier"] == "peer"):
+        failed.append(f"rank 1's restore did not come over the peer tier "
+                      f"({restores.get(1)})")
+    readings = {}
+    crash = next((e for e in events if e["kind"] == "fault.injected"), None)
+    after = [e for e in steps if crash and e["ts"] > crash["ts"]
+             and e["data"]["step"] == step8 + 1]
+    if crash is None or len(after) != 2:
+        failed.append("the journal lacks the crash or the first steps "
+                      "after the restore")
+    else:
+        readings["recovery_s"] = max(e["ts"] for e in after) - crash["ts"]
+    timed = [d for d in (e["data"] for e in steps)
+             if d["step"] not in (1, step8 + 1)]  # first steps warm up
+    readings.update({
+        "launches": world_launches,
+        "step_ms_median": statistics.median(d["step_s"] for d in timed) * 1e3
+        if timed else None,
+        "reduce_ms_median":
+            statistics.median(d["reduce_s"] for d in timed) * 1e3
+            if timed else None,
+        "saves": [{k: e["data"][k] for k in (
+            "rank", "step", "stall_ms", "persist_wait_ms", "archive_bytes",
+            "owned_bytes")}
+                  for e in events if e["kind"] == "train.saved"],
+        "persisted": {p: {k: d[k] for k in ("bytes_full", "bytes_owned",
+                                             "members_owned")}
+                      for p, d in dedup8.items()},
+        "restores": {r: {k: d[k] for k in ("tier", "seconds", "bytes",
+                                           "peer_bytes")}
+                     for r, d in restores.items()},
+        "network_check_s": {f"{d['node_rank']}/{d['round']}": d["elapsed_s"]
+                            for d in rounds},
+    })
+    emit({
+        "phase": "world", "model": "llama_1b", "layers": LAUNCHER_LAYERS,
+        "ranks": 2, "backend": "gloo", "batch_per_rank": SLICE["b"],
+        "seq": SLICE["s"], "steps": WORLD_STEPS, "save_interval": WORLD_SAVE,
+        "crash": f"crash@{WORLD_CRASH}:host=1",
+        "heartbeat_s": WORLD_HEARTBEAT_S, "launcher_rc": rcs,
+        "phase_s": world_s, "committed": committed,
+        "launches_per_step": launches, "losses": runs, **readings,
+        "nvidia_smi": nvidia_smi_line(),
+    })
+    if failed:
+        for out in stdout:
+            print(out[-6000:], file=sys.stderr)
+        raise AssertionError("world: " + "; ".join(failed))
     return readings
 
 
@@ -2220,6 +2495,7 @@ def main() -> int:
     gpt_launches = phase_families()
     phase_launch()
     phase_drain()
+    world = phase_world()
     line = []
     # each shape's launches: its main path's run (the count reset just
     # before it), the Llama step of "slice" and the GPT step of "families"
@@ -2233,12 +2509,15 @@ def main() -> int:
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             })
+            if shape == "llama_1b":
+                # the same shape's launches in phase "world" (two ranks,
+                # 4 layers, both incarnations)
+                line[-1]["world_launches"] = world["launches"][name]
     emit({"kernels": line})
     print(nvidia_smi_line(), flush=True)
-    # count: the cards this run used -- every phase runs on cuda:0
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1}})
+        "count": torch.cuda.device_count()}})
     return 0
 
 

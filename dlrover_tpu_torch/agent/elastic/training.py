@@ -5,31 +5,41 @@ Parity reference: dlrover/python/elastic_agent/torch/training.py:215
 _membership_changed:446, launch_agent:465).
 
 Counterpart of ``dlrover_tpu/agent/elastic/training.py``. The agent
-  1. joins the master rendezvous (one node == one worker process, as in
-     the JAX package),
-  2. derives the process group's bootstrap (coordinator address,
-     num_processes, process_id) from the sorted comm world — the
-     lowest-rank node elects a coordinator address and publishes it via
-     the master KV store; the training process meets there with
+  1. joins the master rendezvous,
+  2. derives the process group's bootstrap (coordinator address, the
+     host's index and the number of hosts) from the sorted comm world —
+     the lowest-rank node elects a coordinator address and publishes it
+     via the master KV store; the training processes meet there with
      ``torch.distributed`` (``trainer/distributed.init_from_env``),
-  3. spawns the training process with the bootstrap in env vars
-     (the ``NodeEnv`` set, plus ``LOCAL_RANK=0`` and
-     ``LOCAL_WORLD_SIZE=1``),
-  4. monitors it, and on membership change (a waiting node appears),
-     process failure or the master's restart action (a reported hang)
-     restarts the process, which restores from the flash checkpoint.
-     A worker that drained after a preemption notice (exit code
-     ``DRAIN_EXIT_CODE``, 21) is reported PREEMPTED and not restarted:
-     the host is being reclaimed, and the restart budget is not
-     charged. The master's DRAIN action sends the worker group SIGTERM.
+  3. spawns ``nproc_per_node`` training processes with the bootstrap in
+     env vars (the ``NodeEnv`` set, with ``DLROVER_TPU_PROCESS_ID`` the
+     host's index, plus ``LOCAL_RANK`` and ``LOCAL_WORLD_SIZE``, so that
+     a process's global rank is ``process_id x local_world +
+     local_rank``). The JAX agent runs one process per host, which
+     drives all of the host's chips; the torch way is one process per
+     GPU, and ``init_from_env`` gives each its ``LOCAL_RANK`` card (a
+     rank without one raises, never sharing a card unasked),
+  4. monitors them, and on membership change (a waiting node appears),
+     the exit of any one of them, or the master's restart action (a
+     reported hang) kills the whole local group and restarts it; the
+     new processes restore from the flash checkpoint. A worker that
+     drained after a preemption notice (exit code ``DRAIN_EXIT_CODE``,
+     21) is reported PREEMPTED and not restarted: the host is being
+     reclaimed, and the restart budget is not charged. The master's
+     DRAIN action sends every worker's group SIGTERM.
+
+With ``network_check`` set, :func:`launch_agent` first runs the
+pre-flight check (``network_check.py``): two probe rounds through the
+master's network-check rendezvous; a node that fails them reports
+BREAKDOWN and the launch ends with rc 1. A replacement node (relaunched,
+``DLROVER_TPU_RESTART_COUNT`` above 0) skips it.
 
 The agent serves its host's ``/metrics``, ``/goodput`` and ``/healthz``
 (telemetry/http.py; an ephemeral port unless
 ``DLROVER_TPU_METRICS_PORT`` pins or disables it) and arms its own
 goodput ledger, whose phases follow the events it journals.
-Not ported yet (ROADMAP.md, queue A): the pre-flight network check
-(``--network-check`` raises), the relay tier's report lane and the
-persistent compile cache.
+Not ported yet (ROADMAP.md, queue A): the relay tier's report lane and
+the persistent compile cache.
 """
 
 import os
@@ -208,13 +218,10 @@ class ElasticTrainingAgent:
     def __init__(self, config: ElasticLaunchConfig,
                  master_client: MasterClient,
                  start_method: str = "subprocess"):
-        if config.nproc_per_node != 1:
+        if config.nproc_per_node < 1:
             raise ValueError(
-                f"nproc_per_node={config.nproc_per_node}: the agent "
-                "runs one worker per node (LOCAL_WORLD_SIZE=1); several "
-                "GPUs per node wait for the parallel strategies "
-                "(ROADMAP.md, queue A)"
-            )
+                f"nproc_per_node={config.nproc_per_node}: at least one "
+                "worker per node")
         self._config = config
         self._client = master_client
         self._rdzv_handler = MasterRendezvousHandler(
@@ -225,7 +232,8 @@ class ElasticTrainingAgent:
             ),
         )
         self._restart_count = 0
-        self._proc: Optional[subprocess.Popen] = None
+        #: the node's workers, LOCAL_RANK order
+        self._procs: List[subprocess.Popen] = []
         self._stopped = False
         self._remaining_restarts = config.max_restarts
         self._status_reporter = None
@@ -238,6 +246,15 @@ class ElasticTrainingAgent:
         # rendezvous.joined, agent.master_lost/_reconnected) via the
         # journal tap — no extra calls needed here
         self._goodput = goodput.install()
+
+    @property
+    def _proc(self) -> Optional[subprocess.Popen]:
+        """The first worker (LOCAL_RANK 0), None before any start: the
+        JAX agent's one worker process, which the JAX package's agent
+        tests read (tests/test_torch_master_service.py runs them against
+        this agent)."""
+        return self._procs[0] if self._procs else None
+
     def _handle_master_action(self, action: str):
         """Act on the directive the master piggybacks on the report ack
         (parity: the reference agent's DiagnosisAction handling). A
@@ -438,21 +455,27 @@ class ElasticTrainingAgent:
             process_id=process_id, num_processes=num_processes,
             restart_count=self._restart_count,
         )
+        nproc = self._config.nproc_per_node
+        if any(n != nproc for n in world.values()):
+            raise ValueError(
+                f"workers per node differ across the world {world}: the "
+                "global rank process_id x local_world + local_rank needs "
+                "one count")
         env = dict(os.environ)
         env.update(self._config.env)
         env[NodeEnv.COORDINATOR_ADDR] = coordinator
-        env[NodeEnv.PROCESS_ID] = str(process_id)
-        env[NodeEnv.NUM_PROCESSES] = str(num_processes)
+        # the host's index among the world's hosts; its workers tell
+        # themselves apart by LOCAL_RANK
+        env[NodeEnv.PROCESS_ID] = str(process_id // nproc)
+        env[NodeEnv.NUM_PROCESSES] = str(num_processes // nproc)
         env[NodeEnv.NODE_RANK] = str(self._config.node_rank)
         env[NodeEnv.NODE_ID] = str(self._config.node_rank)
         env[NodeEnv.NODE_NUM] = str(len(world))
         env[NodeEnv.RESTART_COUNT] = str(self._restart_count)
         env[NodeEnv.RDZV_ROUND] = str(rdzv_round)
         env[NodeEnv.MASTER_ADDR] = self._client.master_addr
-        # one worker per node: its process group rank is process_id
-        # (torchrun's names, read by trainer/distributed.read_dist_env)
-        env["LOCAL_RANK"] = "0"
-        env["LOCAL_WORLD_SIZE"] = "1"
+        # torchrun's names, read by trainer/distributed.read_dist_env
+        env["LOCAL_WORLD_SIZE"] = str(nproc)
         # Make the framework importable in the spawned process even when it
         # is not pip-installed and the entrypoint lives in another directory
         # (``python script.py`` puts the script's dir on sys.path, not cwd).
@@ -466,27 +489,35 @@ class ElasticTrainingAgent:
         cmd = [self._config.entrypoint] + list(self._config.args)
         if cmd[0].endswith(".py"):
             cmd = [sys.executable] + cmd
-        # own session: the trainer and its children form one process
-        # group, so group-wide signals hit the whole training tree
-        # without touching the agent or launcher above it
-        self._proc = subprocess.Popen(
-            cmd, env=env, start_new_session=True
-        )
+        # own session per worker: each trainer and its children form one
+        # process group, so group-wide signals hit its whole training
+        # tree without touching the agent or launcher above it
+        self._procs = [
+            subprocess.Popen(cmd, env={**env, "LOCAL_RANK": str(local)},
+                             start_new_session=True)
+            for local in range(nproc)
+        ]
         self._restart_count += 1
 
     def _monitor_workers(self) -> RunResult:
-        if self._proc is None:
+        """HEALTHY while every worker runs (or some finished with 0 and
+        the others run), SUCCEEDED once all exited 0, and FAILED with
+        the first non-zero code as soon as any worker exits with one:
+        the whole local group is then ended."""
+        if not self._procs:
             return RunResult(WorkerState.FAILED, 1)
-        rc = self._proc.poll()
-        if rc is None:
+        rcs = [p.poll() for p in self._procs]
+        failed = [rc for rc in rcs if rc not in (None, 0)]
+        if not failed and None in rcs:
             return RunResult(WorkerState.HEALTHY)
-        # the worker is gone, crashed or drained: its coworkers are not
-        # (os._exit leaves daemon children running) -- end them, and
-        # unlink its rings, before anything reports or relaunches
+        # a worker is gone, crashed or drained: its peers and its
+        # coworkers are not (os._exit leaves daemon children running)
+        # -- end them, and unlink its rings, before anything reports or
+        # relaunches
         self._kill_workers()
-        if rc == 0:
+        if not failed:
             return RunResult(WorkerState.SUCCEEDED, 0)
-        return RunResult(WorkerState.FAILED, rc)
+        return RunResult(WorkerState.FAILED, failed[0])
 
     def _membership_changed(self) -> bool:
         """A node is waiting for a new round -> re-rendezvous
@@ -507,59 +538,37 @@ class ElasticTrainingAgent:
         self._initialize_workers()
 
     def _kill_workers(self, grace: float = 10.0):
-        """End the worker's whole session group, leader first, and
-        unlink the shm rings the leader left. The group outlives its
+        """End every worker's whole session group, leaders first, and
+        unlink the shm rings each leader left. A group outlives its
         leader: a crash (``os._exit``) or a drain (rc 21) leaves the
         coworker producers alive under a dead trainer, fetching shards
         for it and blocked on a ring nobody reads. The JAX agent returns
         once the leader has exited
         (``dlrover_tpu/agent/elastic/training.py:505-507``) and never
-        signals them; this one does, and waits for the group to be gone
-        before a successor starts."""
-        if self._proc is None:
+        signals them; this one does, and waits for every group to be
+        gone before a successor starts."""
+        if not self._procs:
             return
-        if self._proc.poll() is None:
-            self._signal_worker_group(signal.SIGTERM)
+        running = [p for p in self._procs if p.poll() is None]
+        for proc in running:
+            _signal_group(proc, signal.SIGTERM)
+        deadline = time.monotonic() + grace
+        for proc in running:
             try:
-                self._proc.wait(timeout=grace)
+                proc.wait(timeout=max(0.0, deadline - time.monotonic()))
             except subprocess.TimeoutExpired:
-                self._signal_worker_group(signal.SIGKILL)
-                self._proc.wait()
-        pgid = self._proc.pid
-        left = _group_members(pgid)
-        if left:
-            logger.info("Ending %d processes left in the worker's group "
-                        "%d: %s", len(left), pgid, left)
-            self._signal_worker_group(signal.SIGTERM)
-            deadline = time.monotonic() + grace
-            while left and time.monotonic() < deadline:
-                time.sleep(0.05)
-                left = _group_members(pgid)
-            if left:
-                self._signal_worker_group(signal.SIGKILL)
-                deadline = time.monotonic() + grace
-                while (_group_members(pgid)
-                       and time.monotonic() < deadline):
-                    time.sleep(0.05)
-        from dlrover_tpu_torch.data.shm_ring import unlink_segments_of
-
-        unlinked = unlink_segments_of(pgid)
-        if unlinked:
-            logger.info("Unlinked the rings of worker %d: %s", pgid, unlinked)
+                _signal_group(proc, signal.SIGKILL)
+                proc.wait()
+        for proc in self._procs:
+            _end_group(proc, grace)
 
     def _signal_worker_group(self, sig):
-        """Signal the worker's own session group (start_new_session at
+        """Signal each worker's own session group (start_new_session at
         spawn: its id is the leader's pid, and stays valid while any
         member lives, the leader gone or not) so coworker children die
-        with the trainer; fall back to the single pid if the group is
-        already gone."""
-        try:
-            os.killpg(self._proc.pid, sig)
-        except (ProcessLookupError, PermissionError, OSError):
-            try:
-                self._proc.send_signal(sig)
-            except (ProcessLookupError, OSError):
-                pass
+        with the trainer."""
+        for proc in self._procs:
+            _signal_group(proc, sig)
 
     def _report_failure(self, result: RunResult):
         self._client.report_failure(
@@ -576,6 +585,43 @@ class ElasticTrainingAgent:
         if self._metrics_server is not None:
             self._metrics_server.stop()
             self._metrics_server = None
+
+
+def _signal_group(proc: subprocess.Popen, sig) -> None:
+    """Signal ``proc``'s session group; fall back to the single pid if
+    the group is already gone."""
+    try:
+        os.killpg(proc.pid, sig)
+    except (ProcessLookupError, PermissionError, OSError):
+        try:
+            proc.send_signal(sig)
+        except (ProcessLookupError, OSError):
+            pass
+
+
+def _end_group(proc: subprocess.Popen, grace: float) -> None:
+    """End what is left of an exited worker's session group (its
+    coworkers), then unlink the shm rings the worker left."""
+    pgid = proc.pid
+    left = _group_members(pgid)
+    if left:
+        logger.info("Ending %d processes left in the worker's group "
+                    "%d: %s", len(left), pgid, left)
+        _signal_group(proc, signal.SIGTERM)
+        deadline = time.monotonic() + grace
+        while left and time.monotonic() < deadline:
+            time.sleep(0.05)
+            left = _group_members(pgid)
+        if left:
+            _signal_group(proc, signal.SIGKILL)
+            deadline = time.monotonic() + grace
+            while _group_members(pgid) and time.monotonic() < deadline:
+                time.sleep(0.05)
+    from dlrover_tpu_torch.data.shm_ring import unlink_segments_of
+
+    unlinked = unlink_segments_of(pgid)
+    if unlinked:
+        logger.info("Unlinked the rings of worker %d: %s", pgid, unlinked)
 
 
 def _group_members(pgid: int) -> List[int]:
@@ -605,13 +651,25 @@ def _group_members(pgid: int) -> List[int]:
 
 def launch_agent(config: ElasticLaunchConfig,
                  master_client: MasterClient) -> RunResult:
-    """Run the elastic agent (parity: launch_agent training.py:465)."""
-    if config.network_check:
-        raise NotImplementedError(
-            "--network-check: the probe (dlrover_tpu/agent/elastic/"
-            "network_check.py) is a JAX collective; its torch "
-            "counterpart comes with the parallel strategies "
-            "(ROADMAP.md, queue A)"
+    """Run the network check (optional), then the elastic agent
+    (parity: launch_agent training.py:465)."""
+    relaunched = int(os.getenv(NodeEnv.RESTART_COUNT, "0") or 0) > 0
+    if config.network_check and relaunched:
+        # a REPLACEMENT node joining a running job skips the pre-flight
+        # check: its rendezvous needs min_nodes checkers at once, and
+        # the healthy survivors, who passed it already, never re-join
+        logger.info(
+            "Replacement node (relaunch %s): skipping the pre-flight "
+            "network check", os.getenv(NodeEnv.RESTART_COUNT, "0"))
+    elif config.network_check:
+        from dlrover_tpu_torch.agent.elastic.network_check import (
+            NetworkCheckElasticAgent,
         )
+
+        if not NetworkCheckElasticAgent(config, master_client).run():
+            logger.error("Network check failed; node unhealthy")
+            master_client.update_node_status(
+                NodeStatus.BREAKDOWN, "network check failed")
+            return RunResult(WorkerState.FAILED, 1)
     agent = ElasticTrainingAgent(config, master_client)
     return agent.run()

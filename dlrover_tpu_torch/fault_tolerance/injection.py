@@ -9,6 +9,9 @@ Two triggers:
 * env ``DLROVER_FAULT_INJECT`` — comma-separated ``kind@step[:arg]``:
 
   - ``crash@15`` / ``crash@15:3``   os._exit at step 15 (default rc 17)
+  - ``crash@15:host=1``             only on node rank 1 (``rc=3,host=1``
+                                    sets the code too): a multi-node
+                                    drill loses exactly one host
   - ``hang@8`` / ``hang@8:120``     stop stepping after step 8 (sleep
                                     forever / for 120 s)
   - ``oom@5``                       raise MemoryError at step 5
@@ -206,11 +209,11 @@ class FaultInjector:
         self._poll_every = max(1, poll_every)
 
     def _host_filter(self, faults: List[Fault]) -> List[Fault]:
-        """Corruption kinds honor ``host=H``, so one shared spec poisons
-        exactly one node rank."""
+        """Corruption kinds and ``crash`` honor ``host=H``, so one shared
+        spec hits exactly one node rank."""
         kept = []
         for f in faults:
-            if f.kind in CORRUPTION_KINDS:
+            if f.kind in CORRUPTION_KINDS or f.kind == "crash":
                 host = _arg_kv(f.arg, "host")
                 if host is not None and int(host) != self._node_rank:
                     continue
@@ -309,7 +312,8 @@ class FaultInjector:
             arg=fault.arg, node_rank=self._node_rank,
         )
         if fault.kind == "crash":
-            rc = int(fault.arg) if fault.arg else 17
+            rc = int(fault.arg if fault.arg.strip().isdigit()
+                     else _arg_kv(fault.arg, "rc") or 17)
             print(f"INJECTED CRASH rc={rc} at step {step}", flush=True)
             os._exit(rc)
         elif fault.kind == "hang":

@@ -120,11 +120,16 @@ def init_params(cfg: CNNConfig, seed: int = 0, device=None) -> CNN:
     return model
 
 
-def loss(model: CNN, batch) -> torch.Tensor:
-    """batch = (images [b, H, W, C], labels int [b]) -> the mean
-    cross-entropy over labels >= 0."""
+def loss_sums(model: CNN, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+    """batch = (images [b, H, W, C], labels int [b]) -> (the summed
+    cross-entropy over labels >= 0, their count)."""
     images, labels = batch
-    nll_sum, cnt = _masked_nll(model(images), labels)
+    return _masked_nll(model(images), labels)
+
+
+def loss(model: CNN, batch) -> torch.Tensor:
+    """The mean cross-entropy over labels >= 0 (see :func:`loss_sums`)."""
+    nll_sum, cnt = loss_sums(model, batch)
     return nll_sum / cnt.clamp(min=1.0)
 
 
@@ -138,7 +143,8 @@ def make_trainer(cfg: CNNConfig, device=None, strategy: str = "ddp",
     from dlrover_tpu_torch.trainer.sharded import family_trainer
 
     return family_trainer(
-        cfg, loss, lambda seed, dev: init_params(cfg, seed=seed, device=dev),
+        cfg, loss_sums,
+        lambda seed, dev: init_params(cfg, seed=seed, device=dev),
         param_count(cfg), device=device, strategy=strategy,
         accum_steps=accum_steps, optimizer=optimizer)
 

@@ -244,10 +244,10 @@ def init_params(cfg: DLRMConfig, seed: int = 0, device=None) -> DLRM:
     return model
 
 
-def loss(model: DLRM, batch) -> torch.Tensor:
-    """batch = (dense [b, 13], cat_ids [b, 26], labels [b]) -> the mean
-    sigmoid cross-entropy over labels >= 0 (1 click, 0 none, -1
-    padding), in its stable form."""
+def loss_sums(model: DLRM, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+    """batch = (dense [b, 13], cat_ids [b, 26], labels [b]) -> (the
+    summed sigmoid cross-entropy over labels >= 0 (1 click, 0 none, -1
+    padding), in its stable form; their count)."""
     dense, cat_ids, labels = batch
     logits = model(dense, cat_ids)
     labels = labels.float()
@@ -255,7 +255,14 @@ def loss(model: DLRM, batch) -> torch.Tensor:
     y = labels.clamp(min=0.0)
     per = logits.clamp(min=0) - logits * y + torch.log1p(
         torch.exp(-logits.abs()))
-    return (per * valid).sum() / valid.sum().clamp(min=1.0)
+    return (per * valid).sum(), valid.sum()
+
+
+def loss(model: DLRM, batch) -> torch.Tensor:
+    """The mean sigmoid cross-entropy over labels >= 0 (see
+    :func:`loss_sums`)."""
+    total, cnt = loss_sums(model, batch)
+    return total / cnt.clamp(min=1.0)
 
 
 #: the models contract's name (its "token" is one example)
@@ -270,7 +277,8 @@ def make_trainer(cfg: DLRMConfig, device=None, strategy: str = "rowwise",
     from dlrover_tpu_torch.trainer.sharded import adagrad, family_trainer
 
     return family_trainer(
-        cfg, loss, lambda seed, dev: init_params(cfg, seed=seed, device=dev),
+        cfg, loss_sums,
+        lambda seed, dev: init_params(cfg, seed=seed, device=dev),
         param_count(cfg), device=device, strategy=strategy,
         accum_steps=accum_steps, optimizer=optimizer or adagrad(0.05))
 

@@ -257,17 +257,24 @@ def init_params(cfg: GPTConfig, seed: int = 0, device=None) -> GPT:
     return model
 
 
-def next_token_loss(model: GPT, batch: Tuple[torch.Tensor, torch.Tensor],
-                    attn_fn: Optional[Callable] = None) -> torch.Tensor:
-    """Mean next-token cross entropy. batch = (tokens, targets), int
-    [batch, seq]; a target < 0 masks its position out."""
+def next_token_sums(model: GPT, batch: Tuple[torch.Tensor, torch.Tensor],
+                    attn_fn: Optional[Callable] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(summed next-token cross entropy, count of unmasked targets).
+    batch = (tokens, targets), int [batch, seq]; a target < 0 masks its
+    position out."""
     tokens, targets = batch
     x = model.hidden_states(tokens, attn_fn=attn_fn)
     head = model.head_weight()
     if model.cfg.loss_chunk > 0:
-        nll_sum, cnt = _chunked_ce(x, head, targets, model.cfg.loss_chunk)
-    else:
-        nll_sum, cnt = _masked_nll(F.linear(x, head).float(), targets)
+        return _chunked_ce(x, head, targets, model.cfg.loss_chunk)
+    return _masked_nll(F.linear(x, head).float(), targets)
+
+
+def next_token_loss(model: GPT, batch: Tuple[torch.Tensor, torch.Tensor],
+                    attn_fn: Optional[Callable] = None) -> torch.Tensor:
+    """Mean next-token cross entropy (see :func:`next_token_sums`)."""
+    nll_sum, cnt = next_token_sums(model, batch, attn_fn=attn_fn)
     return nll_sum / cnt.clamp(min=1.0)
 
 
@@ -277,7 +284,7 @@ def make_trainer(cfg: GPTConfig, device=None, strategy: str = "ddp",
     from dlrover_tpu_torch.trainer.sharded import family_trainer
 
     return family_trainer(
-        cfg, lambda model, batch: next_token_loss(model, batch, attn_fn),
+        cfg, lambda model, batch: next_token_sums(model, batch, attn_fn),
         lambda seed, dev: init_params(cfg, seed=seed, device=dev),
         param_count(cfg), device=device, strategy=strategy,
         accum_steps=accum_steps, optimizer=optimizer)

@@ -352,17 +352,24 @@ def _chunked_ce(x: torch.Tensor, lm_head: torch.Tensor,
     return nll_sum, cnt
 
 
-def next_token_loss(model: Llama, batch: Tuple[torch.Tensor, torch.Tensor],
-                    attn_fn: Optional[Callable] = None) -> torch.Tensor:
-    """Mean next-token cross entropy. batch = (tokens, targets), int
-    [batch, seq]; a target < 0 masks its position out."""
+def next_token_sums(model: Llama, batch: Tuple[torch.Tensor, torch.Tensor],
+                    attn_fn: Optional[Callable] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(summed next-token cross entropy, count of unmasked targets).
+    batch = (tokens, targets), int [batch, seq]; a target < 0 masks its
+    position out."""
     tokens, targets = batch
     x = model.hidden_states(tokens, attn_fn=attn_fn)
     if model.cfg.loss_chunk > 0:
-        nll_sum, cnt = _chunked_ce(
+        return _chunked_ce(
             x, model.lm_head.weight, targets, model.cfg.loss_chunk)
-    else:
-        nll_sum, cnt = _masked_nll(model.lm_head(x).float(), targets)
+    return _masked_nll(model.lm_head(x).float(), targets)
+
+
+def next_token_loss(model: Llama, batch: Tuple[torch.Tensor, torch.Tensor],
+                    attn_fn: Optional[Callable] = None) -> torch.Tensor:
+    """Mean next-token cross entropy (see :func:`next_token_sums`)."""
+    nll_sum, cnt = next_token_sums(model, batch, attn_fn=attn_fn)
     return nll_sum / cnt.clamp(min=1.0)
 
 

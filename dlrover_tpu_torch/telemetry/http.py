@@ -1,8 +1,8 @@
 """Tiny stdlib HTTP endpoint serving the telemetry surface.
 
-A copy of ``dlrover_tpu/telemetry/http.py`` without the peer checkpoint
-tier's ``/ckpt/shard`` route, which comes with that tier (ROADMAP.md,
-queue A). Runs on the master and on each agent (a scraper federates the fleet by
+A copy of ``dlrover_tpu/telemetry/http.py``. Runs on the master, on
+each agent and, for the peer checkpoint tier, in each training process
+(a scraper federates the fleet by
 hitting every host). Routes:
 
   * ``GET /metrics``  — Prometheus text exposition of the registry;
@@ -31,7 +31,13 @@ hitting every host). Routes:
   * ``GET /debug/stacks`` — live all-thread Python stacks (the flight
     recorder's view, on demand);
   * ``GET /debug/trace`` — the span ring as Chrome trace-event JSON
-    (``?n=500`` bounds it); load it in Perfetto / chrome://tracing.
+    (``?n=500`` bounds it); load it in Perfetto / chrome://tracing;
+  * ``GET /ckpt/shard`` — the peer checkpoint tier (format v2,
+    ``checkpoint/peer.py``): serves this process's RAM-tier archives to
+    restoring peers (``?step=N&what=manifest`` for the archive
+    manifest, ``?step=N&path=...&idx=...`` for one raw member). 404
+    until a provider is attached (:func:`set_shard_provider` or the
+    ``shard_provider`` constructor arg).
 
 stdlib ``ThreadingHTTPServer`` on a daemon thread: no dependency, no
 lifecycle coupling — the process exiting takes the server with it, and
@@ -60,6 +66,7 @@ __all__ = [
     "start_metrics_server",
     "attach_hang_detector",
     "set_health_check",
+    "set_shard_provider",
     "set_fleet_provider",
 ]
 
@@ -101,6 +108,33 @@ def attach_hang_detector(detector) -> None:
         }
 
     set_health_check(check)
+
+
+# The checkpoint peer tier uses the same attach pattern: the
+# FlashCheckpointer lives in the trainer, the server wherever the
+# process started one. Per-server overrides (MetricsServer's
+# ``shard_provider`` arg) exist for tests that run several virtual
+# hosts in one process.
+
+_shard_lock = threading.Lock()
+_shard_provider = None  # (step: int) -> Optional[path to RAM archive]
+
+
+def set_shard_provider(fn) -> None:
+    """Install the process-wide checkpoint shard provider backing
+    ``/ckpt/shard``: a callable mapping a step to this host's RAM-tier
+    archive path (None when not held). None clears it."""
+    global _shard_provider
+    with _shard_lock:
+        _shard_provider = fn
+
+
+def _current_shard_provider(server):
+    override = getattr(server, "shard_provider", None)
+    if override is not None:
+        return override
+    with _shard_lock:
+        return _shard_provider
 
 
 # The fleet plane attaches the same way: the FleetAggregator lives on
@@ -369,6 +403,20 @@ class _Handler(BaseHTTPRequestHandler):
                 tracing.chrome_trace(tracing.tail(n)), default=str
             ).encode()
             self._send(200, body, "application/json")
+        elif url.path == "/ckpt/shard":
+            provider = _current_shard_provider(self.server)
+            if provider is None:
+                self._send(
+                    404, b'{"error": "no shard provider"}\n',
+                    "application/json",
+                )
+            else:
+                from dlrover_tpu_torch.checkpoint import peer as peer_mod
+
+                code, body, ctype = peer_mod.handle_shard_request(
+                    url.query, provider
+                )
+                self._send(code, body, ctype)
         else:
             self._send(404, b"not found\n", "text/plain")
 
@@ -386,11 +434,13 @@ class MetricsServer:
         journal: Optional[journal_mod.EventJournal] = None,
         host: str = "0.0.0.0",
         port: int = 0,
+        shard_provider=None,
     ):
         self._registry = registry or registry_mod.default_registry()
         self._journal = journal or journal_mod.default_journal()
         self._host = host
         self._requested_port = port
+        self._shard_provider = shard_provider
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
 
@@ -410,6 +460,10 @@ class MetricsServer:
         self._httpd.daemon_threads = True
         self._httpd.registry = self._registry  # type: ignore[attr-defined]
         self._httpd.journal = self._journal  # type: ignore[attr-defined]
+        if self._shard_provider is not None:
+            self._httpd.shard_provider = (  # type: ignore[attr-defined]
+                self._shard_provider
+            )
         self._thread = threading.Thread(
             target=self._httpd.serve_forever,
             daemon=True,

@@ -1,7 +1,7 @@
 """Flash checkpoint: async two-tier save for fast failover restore.
 
-Counterpart of ``dlrover_tpu/trainer/checkpoint.py`` for one process
-that trains on one GPU. Training state is staged to host RAM first (a
+Counterpart of ``dlrover_tpu/trainer/checkpoint.py`` for processes that
+train on one GPU each. Training state is staged to host RAM first (a
 tmpfs such as ``/dev/shm``) so a restarted process restores in seconds,
 while a background worker persists the same archive to durable storage
 at a lower cadence.
@@ -49,14 +49,26 @@ a copy that fails on the device raises at the next ``save()``,
 synchronous copy. A restore that finds checkpoints but can read none of
 them raises.
 
-Waiting for the multi-process slice (ROADMAP.md, queue A): the
-cross-process restore consensus and agreement, the peer tier
-(``checkpoint/peer.py``), owner election across processes and the
-owned-only subsets, and the format-v2 catalog restore
-(``checkpoint/loader.py``) that assembles a multi-process save. A
-single-process archive is complete and is read whole. The Orbax
-branches of the JAX checkpointer belong to a JAX library and have no
-counterpart.
+Several processes (the ranks of a process group, or ``process_index``
+and ``n_processes`` given): every rank writes its whole state to its
+own RAM-tier file (``step-{s}-proc-{i}``), advertises it to the peer
+registry and serves it over ``/ckpt/shard`` (``checkpoint/peer.py``).
+The state is replicated over the ranks, so each tensor's one domain
+has every rank as a replica, and ``manifest.elect_owner`` picks the
+rank that persists it: the persist tier gets each rank's owned-only
+subset and index piece (``checkpoint/saver.py``), and rank 0 merges the
+pieces and writes COMMIT only when every rank's objects have landed.
+An automatic restore is agreed: the ranks all-gather their newest 16
+restorable steps (RAM, store and the peers' advertisements) and take
+the newest step every rank holds, then all-gather whether each one
+restored it; a failed collective or a failed rank means a fresh start
+everywhere, never a rank on its own latest. These two collectives run
+on the gloo group of ``trainer/distributed.host_group`` (NCCL cannot
+take host tensors). A multi-process step restores through the
+format-v2 catalog (``checkpoint/loader.py``) in the order RAM, peer,
+store, each shard held to its digest. A single-process archive is
+complete and is read whole. The Orbax branches of the JAX checkpointer
+belong to a JAX library and have no counterpart.
 
 The sentinel's verdict (:meth:`FlashCheckpointer.set_clean_fn`) tags
 each save ``last_good`` in its archive and COMMIT doc; a restore that
@@ -74,6 +86,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.telemetry import (
@@ -326,6 +339,24 @@ def _stage(state, pool: _PinnedPool, sync: bool, streams: Dict) -> _Staged:
     return staged
 
 
+def _complete(man) -> bool:
+    """Whether an archive holds every member of its state: not an
+    owned-only subset, and each tensor one shard covering the whole
+    tensor with its member (what every rank's RAM tier writes)."""
+    if man.get("subset"):
+        return False
+    for entry in man.get("leaves", []):
+        if entry.get("kind") == "shards":
+            shape = entry.get("shape", [])
+            shards = entry.get("shards") or []
+            if len(shards) != 1 or "a" not in shards[0] or shards[0].get(
+                    "idx") != [[0, int(n)] for n in shape]:
+                return False
+        elif entry.get("kind") == "array" and "a" not in entry:
+            return False
+    return True
+
+
 def _owned(tree):
     """``tree`` with every tensor copied out of the pinned buffers."""
     flat = ckpt_store.flatten_with_path(tree)
@@ -547,8 +578,7 @@ class _PersistQueue:
 
 
 class FlashCheckpointer:
-    """Two-tier async checkpointer with a zero-stall save path, for one
-    process.
+    """Two-tier async checkpointer with a zero-stall save path.
 
     save(step, state): enqueues the device-to-host copies of the state
     tree and returns; the serializer lane waits for them and streams the
@@ -560,7 +590,12 @@ class FlashCheckpointer:
     ENV_QUEUE_DEPTH); ``stage`` picks async (default) or sync staging
     (env ENV_STAGE). The state is a tree of nested dicts, lists and
     tuples whose leaves are tensors (on one GPU, or the CPU), numpy
-    arrays or JSON primitives.
+    arrays or JSON primitives. ``process_index`` and ``n_processes``
+    default to the process group's rank and size (0 and 1 without a
+    group); given, they make virtual processes that share one real one.
+    ``peer_registry`` (``checkpoint.peer.PeerRegistry``) advertises the
+    RAM-tier steps and finds the peers at restore. ``commit_timeout``
+    bounds rank 0's wait for the other ranks' persist objects.
     """
 
     def __init__(
@@ -572,6 +607,10 @@ class FlashCheckpointer:
         max_persist_keep: int = 3,
         queue_depth: Optional[int] = None,
         stage: Optional[str] = None,
+        commit_timeout: float = 300.0,
+        process_index: Optional[int] = None,
+        n_processes: Optional[int] = None,
+        peer_registry=None,
     ):
         self.persist_dir = (
             persist_dir if ckpt_store.is_url(persist_dir)
@@ -583,16 +622,17 @@ class FlashCheckpointer:
         self.persist_interval = persist_interval
         self.max_ram_keep = max_ram_keep
         self.max_persist_keep = max_persist_keep
-        if (torch.distributed.is_available()
-                and torch.distributed.is_initialized()
-                and torch.distributed.get_world_size() > 1):
-            raise NotImplementedError(
-                "FlashCheckpointer saves one process's state: the "
-                "multi-process consensus, peer tier and owned-only "
-                "subsets are not ported yet (ROADMAP.md, queue A)"
-            )
-        self._process_index = 0
-        self._n_processes = 1
+        self.commit_timeout = commit_timeout
+        grouped = dist.is_available() and dist.is_initialized()
+        self._process_index = (
+            int(process_index) if process_index is not None
+            else dist.get_rank() if grouped else 0)
+        self._n_processes = (
+            int(n_processes) if n_processes is not None
+            else dist.get_world_size() if grouped else 1)
+        #: checkpoint.peer.PeerRegistry advertising this process's
+        #: RAM-tier steps and resolving peers at restore (optional)
+        self._peer_registry = peer_registry
         # the save-attempt id in the archive's key: the rendezvous
         # round, else "0"
         from dlrover_tpu_torch.common.constants import NodeEnv
@@ -642,6 +682,17 @@ class FlashCheckpointer:
             "n_processes": self._n_processes,
             "process_index": self._process_index,
         }
+
+    def shard_provider(self) -> Callable[[int], Optional[str]]:
+        """The ``/ckpt/shard`` backing for this process: step -> its
+        RAM-tier archive path when held. Wire it with
+        ``telemetry.http.set_shard_provider(ckpt.shard_provider())``."""
+
+        def provide(step: int) -> Optional[str]:
+            path = self._ram_path(int(step))
+            return path if os.path.exists(path) else None
+
+        return provide
 
     @property
     def pinned_allocations(self) -> int:
@@ -830,6 +881,10 @@ class FlashCheckpointer:
             )
             _observe_ckpt("save", "ram", job.step, t_ram - t0,
                           bytes=nbytes)
+            if self._peer_registry is not None:
+                # the archive is servable over /ckpt/shard now: tell the
+                # master KV so that restoring peers find it
+                self._peer_registry.advertise(job.step)
             stats = self.save_stats.get(job.step)
             if stats is not None:
                 if staged.start is not None:
@@ -900,13 +955,16 @@ class FlashCheckpointer:
         records = self._list_ram()
         with self._pin_lock:
             pinned = set(self._pinned)
-        for _, path in records[: -self.max_ram_keep]:
+        for step, path in records[: -self.max_ram_keep]:
             if path in pinned:
                 continue  # a persist upload still streams from it
             try:
                 os.remove(path)
             except OSError:
                 continue
+            if self._peer_registry is not None:
+                # stop advertising what is no longer held
+                self._peer_registry.withdraw(step)
 
     def _list_ram(self):
         # let queued saves land first so listings see every save already
@@ -951,6 +1009,42 @@ class FlashCheckpointer:
                               last_good=last_good)
         self._persistq.submit(job)
 
+    def _put_owned_subset(self, step: int, src) -> None:
+        """The persist upload of a multi-process save: the OWNED subset
+        of the full archive (each replicated tensor goes up once, from
+        its elected owner) plus this process's index piece (the subset
+        manifest) for rank 0's merge."""
+        import json
+
+        from dlrover_tpu_torch.checkpoint import saver as ckpt_saver
+
+        if isinstance(src, str):
+            with open(src, "rb") as f:
+                sub_bytes, sub_man, stats = ckpt_saver.subset_archive(
+                    f, self._process_index)
+        else:
+            sub_bytes, sub_man, stats = ckpt_saver.subset_archive(
+                src, self._process_index)
+        ckpt_store.put_shard_stream(
+            self._store, step, self._process_index,
+            io.BytesIO(sub_bytes), attempt=self._attempt,
+            size=len(sub_bytes),
+        )
+        self._store.put(
+            ckpt_store.index_key(step, self._process_index, self._attempt),
+            json.dumps(sub_man, separators=(",", ":")).encode("utf-8"),
+        )
+        counter(
+            "dlrover_ckpt_shard_bytes_total",
+            "Checkpoint shard bytes moved, by tier", ["tier"],
+        ).labels(tier="persistent").inc(len(sub_bytes))
+        record("ckpt.dedup", step=step,
+               process_index=self._process_index, **stats)
+        if step in self.save_stats:
+            self.save_stats[step].update(
+                owned_bytes=stats["bytes_owned"],
+                full_bytes=stats["bytes_full"])
+
     def _skip_persist(self, job: _PersistJob, reason: str) -> None:
         job.abandon()
         counter(
@@ -977,16 +1071,20 @@ class FlashCheckpointer:
         t0 = time.time()
         step = job.step
         kind, payload = job.payload
+        sharded = self._n_processes > 1
         try:
             extra = {}
             if kind == "store":
                 try:
-                    with open(payload, "rb") as f:
-                        size = os.fstat(f.fileno()).st_size
-                        ckpt_store.put_shard_stream(
-                            self._store, step, self._process_index, f,
-                            attempt=self._attempt, size=size,
-                        )
+                    if sharded:
+                        self._put_owned_subset(step, payload)
+                    else:
+                        with open(payload, "rb") as f:
+                            size = os.fstat(f.fileno()).st_size
+                            ckpt_store.put_shard_stream(
+                                self._store, step, self._process_index, f,
+                                attempt=self._attempt, size=size,
+                            )
                 finally:
                     job.abandon()  # upload done/failed: unpin RAM file
             else:  # "snapshot": RAM tier failed -- archive from memory
@@ -996,15 +1094,45 @@ class FlashCheckpointer:
                     topology=self._save_topology(),
                 )
                 buf.seek(0)
-                ckpt_store.put_shard_stream(
-                    self._store, step, self._process_index, buf,
-                    attempt=self._attempt, size=size,
-                )
+                if sharded:
+                    self._put_owned_subset(step, buf)
+                else:
+                    ckpt_store.put_shard_stream(
+                        self._store, step, self._process_index, buf,
+                        attempt=self._attempt, size=size,
+                    )
                 extra = {"source": "memory"}
-            ckpt_store.commit_step(self._store, step, attempt=self._attempt,
-                                   last_good=job.last_good)
-            ckpt_store.gc_steps(self._store, self.max_persist_keep)
+            if self._process_index != 0:
+                # only rank 0 knows whether the step commits
+                logger.info("Persistent save step %d: shard uploaded "
+                            "(awaiting rank-0 commit)", step)
+                if step in self.save_stats:
+                    self.save_stats[step]["persist_s"] = time.time() - t0
+                return
+            if sharded:
+                committed = ckpt_store.commit_step_sharded(
+                    self._store, step, self._n_processes,
+                    attempt=self._attempt, timeout=self.commit_timeout,
+                    last_good=job.last_good,
+                )
+                if committed:
+                    record("ckpt.manifest_committed", step=step,
+                           n_processes=self._n_processes,
+                           attempt=self._attempt)
+            else:
+                committed = ckpt_store.commit_step(
+                    self._store, step, attempt=self._attempt,
+                    last_good=job.last_good,
+                )
             dt = time.time() - t0
+            if not committed:
+                logger.error(
+                    "Persistent save step %d NOT committed: peer objects "
+                    "missing after %.0fs", step, self.commit_timeout)
+                _observe_ckpt("save", "persistent", step, dt, ok=False,
+                              reason="commit_timeout")
+                return
+            ckpt_store.gc_steps(self._store, self.max_persist_keep)
             logger.info("Persistent save step %d done", step)
             _observe_ckpt(
                 "save", "persistent", step, dt, backend="store", **extra,
@@ -1059,11 +1187,127 @@ class FlashCheckpointer:
         explicit step is restored as asked and never falls back. Raises
         :class:`RestoreError` when checkpoints exist but none could be
         restored. ``last_restore_stats`` then holds the tier, the step,
-        the seconds the restore took and the archive's bytes.
+        the seconds the restore took and the bytes it read (and, for a
+        multi-process step, the shards and bytes each tier served).
+
+        With several processes and ``step=None`` the outcome is agreed:
+        every process restores the newest step all of them hold, or
+        every process starts fresh, never a mix. The ranks run the same
+        two collectives whatever fails locally: the consensus gather,
+        then the agreement gather.
         """
         self._drain_saves()
         self.last_restore_stats = None
-        return self._restore_once(target, step)
+        if self._peer_registry is not None:
+            self._advertise_held()
+        if not (step is None and self._n_processes > 1):
+            return self._restore_once(target, step)
+        step = self._consensus_step(self._local_candidate_steps())
+        state, got = None, None
+        if step is not None:
+            try:
+                state, got = self._restore_once(target, step)
+            except Exception as e:
+                logger.warning("restore attempt failed: %s", e)
+                state, got = None, None
+        if not self._agree_restored(state is not None):
+            if state is not None:
+                logger.warning(
+                    "A peer failed to restore step %s; starting fresh "
+                    "everywhere for a consistent world", got)
+            self.last_restore_stats = None
+            return None, None
+        return state, got
+
+    def _advertise_held(self) -> None:
+        """Advertise every RAM-tier step this process holds, under its
+        current URL: a restarted survivor serves its archives to the
+        peers that restore with it."""
+        try:
+            for held, _ in self._list_ram():
+                self._peer_registry.advertise(held)
+        except Exception as e:
+            logger.warning("peer re-advertise failed: %s", e)
+
+    def _gather_ints(self, values: List[int], k: int) -> List[List[int]]:
+        """Every process's ``values`` (at most ``k``), over the gloo
+        group of ``trainer/distributed.host_group``. Without a process
+        group (virtual processes in one real one) the gather is over
+        this process alone, as the JAX package's gather is over one
+        process."""
+        from dlrover_tpu_torch.trainer.distributed import host_group
+
+        mine = torch.full((k,), -1, dtype=torch.int64)
+        mine[:len(values)] = torch.tensor(values[:k], dtype=torch.int64)
+        group = host_group()
+        if group is None:
+            rows = [mine]
+        else:
+            rows = [torch.empty_like(mine)
+                    for _ in range(dist.get_world_size(group))]
+            dist.all_gather(rows, mine, group=group)
+        return [[int(v) for v in row if v >= 0] for row in rows]
+
+    def _consensus_step(self, local_steps) -> Optional[int]:
+        """The newest step EVERY process can restore: the ranks
+        all-gather their newest 16 candidates and take the newest one
+        all of them hold. After a world change the ranks' RAM tiers can
+        hold different histories; each restoring its own latest would
+        mix training states without an error. A failed gather votes for
+        a fresh start, never for the local latest: if it failed on only
+        some ranks, their local answers could differ while every rank
+        still agrees afterwards."""
+        local_steps = set(local_steps or ())
+        if self._n_processes <= 1:
+            return max(local_steps) if local_steps else None
+        try:
+            rows = self._gather_ints(sorted(local_steps)[-16:], 16)
+            common = set.intersection(*(set(r) for r in rows))
+            return max(common) if common else None
+        except Exception as e:
+            logger.error(
+                "cross-process checkpoint consensus failed (%s); voting "
+                "for a fresh start -- a partial collective failure must "
+                "not produce a mixed-step restore", e)
+            return None
+
+    def _agree_restored(self, ok: bool) -> bool:
+        """True only when EVERY process restored: one rank dropping to
+        scratch (or an older step) while the others restore is a mixed
+        world."""
+        if self._n_processes <= 1:
+            return ok
+        try:
+            rows = self._gather_ints([1 if ok else 0], 1)
+            return all(r == [1] for r in rows)
+        except Exception as e:
+            logger.warning("restore agreement check failed: %s", e)
+            return ok
+
+    def _local_candidate_steps(self) -> set:
+        """This process's restorable steps: its RAM tier, the store's
+        steps and the peers' advertisements. A listing error gives an
+        empty part instead of raising, so that every rank reaches the
+        consensus collective."""
+        steps: set = set()
+        try:
+            steps |= set(dict(self._list_ram()))
+        except Exception as e:
+            logger.warning("RAM-tier listing failed: %s", e)
+        try:
+            steps |= set(ckpt_store.available_steps(
+                self._store, self._process_index))
+        except Exception as e:
+            logger.warning("persist-tier listing failed: %s", e)
+        if self._peer_registry is not None:
+            # steps the survivors hold in RAM: the catalog restore
+            # assembles them over /ckpt/shard even with this process's
+            # tmpfs gone and the store down
+            try:
+                steps |= set(self._peer_registry.advertised_steps())
+            except Exception as e:
+                logger.warning("peer step listing failed: %s", e)
+        return steps
 
     def _restore_once(self, target: Any = None,
                       step: Optional[int] = None):
@@ -1072,8 +1316,13 @@ class FlashCheckpointer:
         auto_step = step is None
         avail: List[int] = []
         if auto_step:
-            avail = ckpt_store.available_steps(
-                self._store, self._process_index)
+            # an unreachable store must not end the attempt: the RAM
+            # tier can still restore
+            try:
+                avail = ckpt_store.available_steps(
+                    self._store, self._process_index)
+            except Exception as e:
+                logger.warning("persist-tier listing failed: %s", e)
             local = set(ram) | set(avail)
             step = max(local) if local else None
         if step is None:
@@ -1090,10 +1339,12 @@ class FlashCheckpointer:
                     # explicit step is the caller's (master's) choice.
                     tainted = auto_step and man.get("last_good") is False
                     if not tainted:
-                        state = self._restore_local_archive(f, man, target)
-                        self._restored("ram", step, t0, f)
+                        state = self._restore_local_archive(
+                            f, man, step, target, t0)
+                        if self.last_restore_stats is None:
+                            self._restored("ram", step, t0, f)
                         return state, step
-            except (ckpt_store.ArchiveError, OSError) as e:
+            except (ckpt_store.ArchiveError, OSError, KeyError) as e:
                 failures.append(f"RAM tier step {step}: {e}")
                 logger.warning(
                     "RAM restore failed (%s); trying persistent", e)
@@ -1101,21 +1352,40 @@ class FlashCheckpointer:
                 self._note_tainted(step, step, tier="ram")
         # auto-selection may land on a step whose persist shard is gone
         # (a RAM-tier step never persisted): walk down the restorable
-        # persist steps. An explicit step never falls back.
+        # persist steps. An explicit step never falls back, and neither
+        # does a multi-process world: a rank quietly restoring an older
+        # step than its peers is the mixed state the consensus prevents.
         candidates = [step]
-        if auto_step:
+        if auto_step and self._n_processes <= 1:
             candidates += [s for s in reversed(avail) if s < step]
         for cand in candidates:
             if (auto_step and
                     ckpt_store.step_last_good(self._store, cand) is False):
                 self._note_tainted(cand, step, tier="persistent")
                 continue
+            # format v2 first: the catalog from the peers and the
+            # store's step manifest, each shard from any tier
+            try:
+                state, stats = self._restore_v2(cand, target)
+            except Exception as e:
+                state, stats = None, None
+                logger.info("step %d not v2-restorable (%s); trying the "
+                            "one-process archive", cand, e)
+                if self._n_processes > 1:
+                    failures.append(f"step {cand} over the catalog: {e}")
+            if state is not None:
+                tier = ("peer" if stats.get("peer") and not stats.get(
+                    "store") and not stats.get("local") else "persistent")
+                self._restored(tier, cand, t0, int(stats.get("bytes", 0)),
+                               requested_step=step, shards=stats)
+                return state, cand
             try:
                 with ckpt_store.open_step(
                     self._store, cand, self._process_index
                 ) as f:
                     man = ckpt_store.read_manifest(f)
-                    state = self._restore_local_archive(f, man, target)
+                    state = self._restore_local_archive(
+                        f, man, cand, target, t0)
                     nbytes = f.seek(0, os.SEEK_END)
             except (KeyError, ckpt_store.ArchiveError) as e:
                 # missing OR corrupt: keep walking down
@@ -1175,6 +1445,7 @@ class FlashCheckpointer:
         )
 
     def _restored(self, tier: str, step: int, t0: float, archive,
+                  shards: Optional[Dict[str, int]] = None,
                   **extra) -> None:
         if torch.cuda.is_available() and torch.cuda.is_initialized():
             torch.cuda.synchronize()  # the state is on its device
@@ -1187,24 +1458,124 @@ class FlashCheckpointer:
         self.last_restore_stats = {
             "tier": tier, "step": step, "seconds": total,
             "archive_bytes": nbytes}
+        if shards is not None:
+            # shards and bytes each tier served (format-v2 catalog)
+            self.last_restore_stats.update(shards)
 
-    def _restore_local_archive(self, f, man, target):
-        """One process's archive, read whole. A multi-process format-v2
-        archive holds only its process's shards: assembling the rest
-        from peers and the store (``_restore_v2`` in the JAX package)
-        comes with the multi-process slice."""
+    def _restore_local_archive(self, f, man, step: int, target,
+                               t0: float):
+        """The RAM tier's (or a one-process persist) archive. A complete
+        archive -- one process's, or a rank's RAM tier, which holds the
+        whole replicated state -- is read whole, each tensor streamed to
+        its target's card; a subset, or a rank's archive with a member
+        that fails its digest, is assembled through the format-v2
+        catalog, this archive first, then the peers and the store."""
         version = int(man.get("version", 1))
         topo_n = int((man.get("topology") or {}).get("n_processes", 1))
         if version < 2:
             record("checkpoint.legacy_format", step=man.get("step"),
                    version=version)
-        if version >= 2 and (topo_n > 1 or man.get("subset")):
-            raise ckpt_store.ArchiveError(
-                f"a {topo_n}-process archive: the format-v2 catalog "
-                "restore is not ported yet (ROADMAP.md, queue A)"
-            )
-        state, _ = ckpt_store.snapshot_from_file(f, target)
+        if version < 2 or (topo_n <= 1 and not man.get("subset")):
+            state, _ = ckpt_store.snapshot_from_file(f, target)
+            return state
+        if _complete(man):
+            try:
+                state, _ = ckpt_store.snapshot_from_file(f, target)
+                return state
+            except ckpt_store.DigestMismatchError as e:
+                # the catalog takes each bad shard from the next tier
+                logger.warning("RAM-tier step %d: %s; assembling it "
+                               "shard by shard", step, e)
+        state, stats = self._restore_v2(step, target, local_file=f)
+        self._restored("ram", step, t0, int(stats.get("bytes", 0)),
+                       shards=stats)
         return state
+
+    def _restore_v2(self, step: int, target, local_file=None):
+        """The format-v2 catalog restore: the widest catalog the
+        surviving metadata allows (this process's archive manifest, the
+        peers' manifests, the store's step manifest), then every leaf
+        through the sources local -> peer -> store, each shard held to
+        its digest. Returns ``(state, stats)``; raises when the step has
+        no v2 metadata or cannot be assembled whole."""
+        from dlrover_tpu_torch.checkpoint import loader as ckpt_loader
+        from dlrover_tpu_torch.checkpoint import peer as ckpt_peer
+
+        catalog = None
+        sources: List[Any] = []
+        if local_file is not None:
+            man = ckpt_store.read_manifest(local_file)
+            catalog = ckpt_loader.StepCatalog.from_archive_manifest(man)
+            sources.append(ckpt_loader.LocalArchiveSource(local_file))
+        peers: Dict[int, str] = {}
+        if self._peer_registry is not None:
+            try:
+                peers = {p: u for p, u in
+                         self._peer_registry.peers(step).items()
+                         if p != self._process_index}
+            except Exception as e:
+                logger.warning("peer lookup failed: %s", e)
+            for p in sorted(peers):
+                try:
+                    man = ckpt_peer.fetch_manifest(peers[p], step)
+                except Exception as e:
+                    logger.warning(
+                        "peer manifest from proc %d failed: %s", p, e)
+                    continue
+                if man is None:
+                    continue
+                if catalog is None:
+                    catalog = ckpt_loader.StepCatalog.from_archive_manifest(
+                        man)
+                else:
+                    catalog.absorb(man)
+            if peers:
+                sources.append(ckpt_loader.PeerSource(
+                    peers, step, process_index=self._process_index))
+        man2 = None
+        try:
+            man2 = ckpt_store.step_manifest(self._store, step)
+        except Exception as e:
+            logger.info("no step manifest for step %d in the store: %s",
+                        step, e)
+        if man2 is not None:
+            store_cat = ckpt_loader.StepCatalog.from_step_manifest(man2)
+            if catalog is None:
+                catalog = store_cat
+            else:
+                for k, loc in store_cat.locations.items():
+                    catalog.locations.setdefault(k, loc)
+                for k, v in store_cat.digests.items():
+                    catalog.digests.setdefault(k, v)
+                for k, v in store_cat.encodings.items():
+                    catalog.encodings.setdefault(k, v)
+            sources.append(ckpt_loader.StoreSource(
+                self._store, step, str(man2.get("attempt", "0")),
+                store_cat.locations))
+        if catalog is None:
+            raise KeyError(f"step {step}: no format-v2 metadata reachable")
+        try:
+            state, _, stats = ckpt_loader.restore_from_catalog(
+                catalog, target, sources)
+        finally:
+            for s in sources:
+                close = getattr(s, "close", None)
+                if close is not None:
+                    try:
+                        close()
+                    except Exception:
+                        pass
+        record(
+            "ckpt.topology_restore", step=step,
+            saved_processes=int(
+                (catalog.topology or {}).get("n_processes", 1)),
+            restore_processes=self._n_processes,
+            local=stats.get("local", 0), peer=stats.get("peer", 0),
+            store=stats.get("store", 0),
+            digest_mismatch=stats.get("digest_mismatch", 0),
+            bytes=stats.get("bytes", 0),
+        )
+        return state, dict(stats)
 
     def close(self):
         """Flush every in-flight save, stop the pipeline threads and free

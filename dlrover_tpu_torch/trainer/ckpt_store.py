@@ -26,15 +26,19 @@ checkpointer (``trainer/checkpoint.py``) delegates two concerns to:
    tier's atomicity comes from a COMMIT marker written *after* the data
    object:
 
-       <prefix>/step-<N>/proc-<P>.a<attempt>.ckpt   the process's archive
+       <prefix>/step-<N>/proc-<P>.a<attempt>.ckpt   a process's archive
+       <prefix>/step-<N>/xidx-<P>.a<attempt>.json   its index piece (v2)
+       <prefix>/step-<N>/MANIFEST.a<attempt>.json   merged manifest (v2)
        <prefix>/step-<N>/COMMIT          JSON {"step": N, "attempt": ..}
 
-   A step without its COMMIT object is invisible to readers.
-   `LocalFsStore` keeps the same layout on a directory (a shared mount).
-   The JAX package's ``GcsStore`` needs ``google-cloud-storage``, and
-   its multi-process commit (a barrier on every process's shard, a
-   merged step manifest) comes with the multi-process slice; neither is
-   ported yet (ROADMAP.md, queue A).
+   A step without its COMMIT object is invisible to readers. Under
+   several processes the store is the barrier: rank 0 waits until every
+   process's same-attempt objects are listed, merges the index pieces
+   into the step manifest (:func:`commit_step_sharded`) and only then
+   writes COMMIT. `LocalFsStore` keeps the same layout on a directory (a
+   shared mount); keys and JSON are the JAX package's, byte for byte.
+   The JAX package's ``GcsStore`` needs ``google-cloud-storage`` and is
+   not ported (ROADMAP.md, queue A).
 """
 
 import contextlib
@@ -150,6 +154,24 @@ def unflatten_like(target, leaves: List[Any]):
         return next(it)
 
     return build(target)
+
+
+def state_checksums(tree) -> Dict[str, Any]:
+    """Key path -> a position-weighted integer checksum of each tensor's
+    bits, computed on the tensor's device (other leaves as they are):
+    equal checksums mean equal bits, wherever the tensor came from."""
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out: Dict[str, Any] = {}
+    for path, leaf in flatten_with_path(tree):
+        key = "/".join(str(c.get("k", c.get("i"))) for c in path)
+        if not isinstance(leaf, torch.Tensor):
+            out[key] = leaf
+            continue
+        bits = leaf.detach().reshape(-1).view(
+            ints[leaf.element_size()]).long()
+        weight = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        out[key] = int((bits * weight).sum())
+    return out
 
 
 def _path_json(comps) -> str:
@@ -293,9 +315,12 @@ def snapshot_to_file(snapshot: Any, step: int, fileobj: BinaryIO,
     are written from the leaves' memory without a copy. ``last_good``
     is the sentinel's verdict at save time, written to the manifest when
     not None (False: saved inside an anomaly window). ``topology``
-    (``{"n_processes": 1, "process_index": 0}``) stamps the save
-    topology into the manifest; the owned-only subsets of a
-    multi-process save come with the distributed slice.
+    (``{"n_processes": N, "process_index": p}``) stamps the save
+    topology into the manifest. Every tensor is replicated over the
+    ``N`` processes (data parallelism, the one layout the port trains
+    with): its one domain names them all as replicas and the owner
+    ``manifest.elect_owner`` picks among them, which the persist tier's
+    owned-only subset (``checkpoint/saver.py``) keeps.
     """
     me = int(topology["process_index"]) if topology else 0
     manifest: Dict[str, Any] = {
@@ -338,18 +363,17 @@ def snapshot_to_file(snapshot: Any, step: int, fileobj: BinaryIO,
             name = dtype_name(leaf.dtype)
             idx_doc = [[0, int(n)] for n in shape]
             owner = ckpt_manifest.elect_owner(
-                ckpt_manifest.shard_key(pkey, idx_doc), [me]
+                ckpt_manifest.shard_key(pkey, idx_doc), all_procs
             )
             encoding = (
                 {"dtype": name, "shape": shape} if name in _RAW else None
             )
             entry.update({
                 "kind": "shards", "shape": shape, "dtype": name,
-                "domains": [
-                    {"idx": idx_doc, "replicas": [me], "owner": owner}
-                ],
+                "domains": [{"idx": idx_doc, "replicas": all_procs,
+                             "owner": owner}],
                 "shards": [{
-                    "idx": idx_doc, "replicas": [me], "owner": owner,
+                    "idx": idx_doc, "replicas": all_procs, "owner": owner,
                     "a": add_array(host_bytes(leaf), encoding),
                 }],
             })
@@ -666,7 +690,7 @@ def _onto(leaf, tgt, path):
 
 def _device_dest(entry, tgt, path) -> Optional[torch.Tensor]:
     """An empty tensor on the card for a target tensor there whose entry
-    is one shard covering the whole array (what one process writes), so
+    is one shard covering the whole array (what the port writes), so
     its member can be streamed into it; None for any other leaf."""
     if not (isinstance(tgt, torch.Tensor) and tgt.is_cuda
             and entry.get("kind") == "shards"):
@@ -924,15 +948,52 @@ def step_key(step: int, process_index: int, attempt: str = "0") -> str:
     return f"step-{step}/proc-{process_index}.a{attempt}.ckpt"
 
 
+def index_key(step: int, process_index: int, attempt: str = "0") -> str:
+    """One process's index piece (its archive manifest as standalone
+    JSON): what rank 0 merges into the step manifest. The ``x`` prefix
+    keeps it out of the ``proc-`` shard namespace."""
+    return f"step-{step}/xidx-{process_index}.a{attempt}.json"
+
+
+def manifest_key(step: int, attempt: str = "0") -> str:
+    """The merged step manifest (format v2): logical leaves, global
+    domain maps, and the shard-key -> (process file, member, sha256)
+    location table. Published before the COMMIT marker."""
+    return f"step-{step}/MANIFEST.a{attempt}.json"
+
+
 def commit_key(step: int) -> str:
     return f"step-{step}/COMMIT"
+
+
+def write_step(store: ObjectStore, step: int, process_index: int,
+               data: bytes, n_processes: int = 1,
+               commit_timeout: float = 600.0,
+               attempt: str = "0") -> None:
+    """Data object first, COMMIT last: readers never see a torn step.
+    Every process writes its own shard object; process 0 then waits
+    until all ``n_processes`` same-attempt shard objects are listed
+    before it writes COMMIT, and writes none if they do not show up
+    within ``commit_timeout``. ``attempt`` (the rendezvous round) keeps
+    an earlier crashed attempt's orphans out of the barrier."""
+    put_shard(store, step, process_index, data, attempt)
+    if process_index != 0:
+        return
+    commit_step(store, step, n_processes, attempt, commit_timeout)
+
+
+def put_shard(store: ObjectStore, step: int, process_index: int,
+              data: bytes, attempt: str = "0") -> None:
+    """The fast half of :func:`write_step`: upload this process's
+    shard."""
+    store.put(step_key(step, process_index, attempt), data)
 
 
 def put_shard_stream(store: ObjectStore, step: int, process_index: int,
                      fileobj: BinaryIO, attempt: str = "0",
                      size: Optional[int] = None) -> None:
-    """Upload this process's archive from a file object (the RAM-tier
-    tmpfs archive) -- chunked, never a full in-memory copy."""
+    """:func:`put_shard` from a file object (the RAM-tier tmpfs
+    archive) -- chunked, never a full in-memory copy."""
     store.put_stream(
         step_key(step, process_index, attempt), fileobj, size=size
     )
@@ -948,18 +1009,96 @@ def open_step(store: ObjectStore, step: int,
     )
 
 
-def commit_step(store: ObjectStore, step: int, attempt: str = "0",
-                last_good: Optional[bool] = None) -> None:
-    """Publish the COMMIT marker of a one-process save, after its data
-    object: a step without it is invisible to readers. ``last_good``
-    (tri-state) carries the saver's sentinel verdict into the COMMIT doc
-    so :func:`step_last_good` can read it without opening an archive.
-    The barrier that waits for every process's shard first comes with
-    the multi-process slice (ROADMAP.md, queue A)."""
-    doc = {"step": step, "n_processes": 1, "attempt": attempt}
+def commit_step(store: ObjectStore, step: int, n_processes: int = 1,
+                attempt: str = "0", timeout: float = 600.0,
+                last_good: Optional[bool] = None) -> bool:
+    """The slow half: wait for the other processes' same-attempt shards,
+    then publish COMMIT. ``last_good`` (tri-state) carries the saver's
+    sentinel verdict into the COMMIT doc so :func:`step_last_good` reads
+    it without opening an archive. False when the shards did not all
+    land within ``timeout`` (no COMMIT is written)."""
+    if n_processes > 1 and not _await_shards(
+        store, step, n_processes, timeout, attempt
+    ):
+        return False
+    doc = {"step": step, "n_processes": n_processes, "attempt": attempt}
     if last_good is not None:
         doc["last_good"] = bool(last_good)
     store.put(commit_key(step), json.dumps(doc).encode("utf-8"))
+    return True
+
+
+def commit_step_sharded(store: ObjectStore, step: int, n_processes: int,
+                        attempt: str = "0", timeout: float = 600.0,
+                        last_good: Optional[bool] = None) -> bool:
+    """Rank 0's commit of a format-v2 save: wait for every process's
+    shard file AND index piece, merge the pieces into the step manifest,
+    publish it, then the COMMIT marker (tagged ``format: 2``). A merge
+    that finds a shard with no persisted member raises instead of
+    publishing a torn step; False when the objects did not all land
+    within ``timeout``."""
+    want = {step_key(step, p, attempt) for p in range(n_processes)}
+    want |= {index_key(step, p, attempt) for p in range(n_processes)}
+    if not _await_keys(store, step, want, timeout):
+        return False
+    pieces = []
+    for p in range(n_processes):
+        try:
+            pieces.append(json.loads(
+                store.get(index_key(step, p, attempt)).decode("utf-8")))
+        except (KeyError, ValueError) as e:
+            raise ArchiveError(
+                f"step {step}: index piece for proc {p} unreadable: {e}"
+            )
+    doc = ckpt_manifest.merge_index_pieces(
+        pieces, step, attempt=attempt, last_good=last_good
+    )
+    store.put(
+        manifest_key(step, attempt),
+        json.dumps(doc, separators=(",", ":")).encode("utf-8"),
+    )
+    commit_doc: Dict[str, Any] = {
+        "step": step, "n_processes": n_processes, "attempt": attempt,
+        "format": 2,
+    }
+    if last_good is not None:
+        commit_doc["last_good"] = bool(last_good)
+    store.put(commit_key(step), json.dumps(commit_doc).encode("utf-8"))
+    return True
+
+
+def step_manifest(store: ObjectStore, step: int) -> Optional[Dict[str, Any]]:
+    """The merged v2 manifest of a COMMITTED step, or None for a step
+    committed without one (one process). KeyError when the step is
+    uncommitted or a v2 step lost its manifest object."""
+    doc = _commit_manifest(store, step)  # KeyError if uncommitted
+    if doc.get("format") != 2:
+        return None
+    raw = store.get(manifest_key(step, str(doc.get("attempt", "0"))))
+    try:
+        man = json.loads(raw.decode("utf-8"))
+    except ValueError as e:
+        raise KeyError(f"step {step} manifest unreadable: {e}")
+    if not isinstance(man, dict) or man.get("format") != 2:
+        raise KeyError(f"step {step} manifest malformed")
+    return man
+
+
+def _await_shards(store: ObjectStore, step: int, n_processes: int,
+                  timeout: float, attempt: str) -> bool:
+    want = {step_key(step, p, attempt) for p in range(n_processes)}
+    return _await_keys(store, step, want, timeout)
+
+
+def _await_keys(store: ObjectStore, step: int, want, timeout: float) -> bool:
+    deadline = time.time() + timeout
+    while True:
+        have = set(store.list(f"step-{step}/"))
+        if want <= have:
+            return True
+        if time.time() >= deadline:
+            return False
+        time.sleep(min(1.0, max(0.05, timeout / 100)))
 
 
 def committed_steps(store: ObjectStore) -> List[int]:
@@ -1000,7 +1139,10 @@ def step_last_good(store: ObjectStore, step: int) -> Optional[bool]:
 
 def available_steps(store: ObjectStore, process_index: int) -> List[int]:
     """Committed steps this process can actually restore (a committed
-    step can still lose an object; readers must not select it)."""
+    step can still lose an object; readers must not select it). A
+    format-v2 step is restorable by any process, whichever wrote it,
+    once its step manifest exists; a one-process step needs this
+    process's shard."""
     out = []
     for s in committed_steps(store):
         try:
@@ -1008,9 +1150,21 @@ def available_steps(store: ObjectStore, process_index: int) -> List[int]:
         except KeyError:
             continue
         attempt = str(manifest.get("attempt", "0"))
+        if manifest.get("format") == 2:
+            if store.exists(manifest_key(s, attempt)):
+                out.append(s)
+            continue
         if store.exists(step_key(s, process_index, attempt)):
             out.append(s)
     return out
+
+
+def read_step(store: ObjectStore, step: int, process_index: int) -> bytes:
+    """This process's whole shard object of a COMMITTED step."""
+    manifest = _commit_manifest(store, step)  # KeyError if uncommitted
+    return store.get(
+        step_key(step, process_index, str(manifest.get("attempt", "0")))
+    )
 
 
 def gc_steps(store: ObjectStore, keep: int) -> None:

@@ -15,11 +15,13 @@ training process::
         --nnodes 1:1 dlrover_tpu_torch/examples/llama_train.py -- \
         --steps 20 --ckpt-dir /tmp/ckpt
 
-Exit code: 0 when the worker succeeded, else its last exit code (a
-signal death as ``128 + signal``), 1 for a configuration error. Not
-ported yet (ROADMAP.md, queue A): the relay tier (``--relay_fanout``
-above 0 raises), the pre-flight network check (``--network-check``
-raises) and the compile cache.
+``--nproc_per_node N`` starts N workers on the node, one per GPU
+(``LOCAL_RANK`` 0..N-1); ``--network-check`` runs the pre-flight probe
+rounds first (agent/elastic/network_check.py). Exit code: 0 when the
+workers succeeded, else the last failing exit code (a signal death as
+``128 + signal``), 1 for a configuration error or a failed network
+check. Not ported yet (ROADMAP.md, queue A): the relay tier
+(``--relay_fanout`` above 0 raises) and the compile cache.
 """
 
 import argparse
@@ -51,8 +53,8 @@ def parse_args(argv=None):
     parser.add_argument("--nnodes", type=str, default="1:1",
                         help="MIN:MAX nodes, e.g. 2:4")
     parser.add_argument("--nproc_per_node", type=int, default=1,
-                        help="training processes per node (only 1 is "
-                             "ported)")
+                        help="training processes per node, one per GPU "
+                             "(LOCAL_RANK 0..N-1)")
     parser.add_argument("--node_rank", type=int,
                         default=int(os.getenv(NodeEnv.NODE_RANK, "0")))
     parser.add_argument("--max_restarts", type=int, default=3)
@@ -66,8 +68,8 @@ def parse_args(argv=None):
                         help="world sizes stay multiples of this")
     parser.add_argument("--network-check", action="store_true",
                         dest="network_check",
-                        help="pre-flight host health check (not "
-                             "ported: raises)")
+                        help="pre-flight check: a matmul on the card and "
+                             "an all-gather between nodes, two rounds")
     parser.add_argument("--standalone", action="store_true",
                         help="self-host a local master subprocess")
     parser.add_argument("--master_addr", type=str,

@@ -1,12 +1,21 @@
-"""The train step on one GPU: loss, backward, the optimizer, in place.
+"""The train step: loss, backward, the optimizer, in place.
 
 Counterpart of ``dlrover_tpu/trainer/sharded.py``. The class keeps its
-name so that readers find the counterpart, but the port runs on one
-device only: ``"ddp"``, and ``"rowwise"``, which on one device is the
-same step (the JAX rule table shards a table's rows over an ``fsdp``
-axis of size 1 there). The other rule-table strategies (ZeRO, FSDP, TP,
-sequence) and a sharded table are later work (ROADMAP.md, queue A,
-"Parallelism"). Where the JAX step donates its buffers, this one updates
+name so that readers find the counterpart. Two strategies are ported:
+``"ddp"``, and ``"rowwise"``, which on one device is the same step (the
+JAX rule table shards a table's rows over an ``fsdp`` axis of size 1
+there). Under a process group of several ranks, ``"ddp"`` is the JAX
+step with the parameters replicated and the batch sharded over the data
+axis: every rank holds the same parameters and steps on its part of the
+global batch. The JAX loss is the masked mean over the global batch, so
+a loss function returns its masked sum and the count it averages over,
+and above one rank each rank divides its sum by the count summed over
+the ranks; between ``backward`` and the update the gradients and losses
+are summed over the ranks (one ``all_reduce`` per dtype bucket), where
+XLA sums them (psum) in the JAX step. ``"rowwise"`` above one
+rank, the other rule-table strategies (ZeRO, FSDP, TP, sequence) and a
+sharded table are later work (ROADMAP.md, queue A, "Parallelism").
+Where the JAX step donates its buffers, this one updates
 the parameters and optimizer state in place. Three of optax's optimizers
 are carried: ``adamw``, ``adam`` (AdamW without decay) and ``adagrad``.
 Gradient accumulation sums the microbatches' gradients in fp32 buffers
@@ -16,15 +25,44 @@ and hands their fp32 mean to AdamW, as the JAX step hands it to optax.
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
+import time
+
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from dlrover_tpu_torch.auto.device_context import resolve_device
 from dlrover_tpu_torch.common.log import default_logger as logger
 
-#: the strategies of one device; "rowwise" equals "ddp" there
+#: "rowwise" equals "ddp" on one device, and raises above one rank
 STRATEGIES = ("ddp", "rowwise")
+
+
+def world_size() -> int:
+    """The ranks of the initialized process group (1 without one)."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def allreduce_sum_(tensors: List[torch.Tensor]) -> None:
+    """Sum ``tensors`` over the ranks in place: one ``all_reduce`` per
+    dtype on a flattened bucket, so every rank ends with the same
+    bits."""
+    if world_size() == 1 or not tensors:
+        return
+    by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for dtype in sorted(by_dtype, key=str):
+        group = by_dtype[dtype]
+        flat = _flatten_dense_tensors(group)
+        dist.all_reduce(flat)
+        for t, r in zip(group, _unflatten_dense_tensors(flat, group)):
+            t.copy_(r)
+
 
 OptimizerFactory = Callable[[Iterable[nn.Parameter]], torch.optim.Optimizer]
 
@@ -191,10 +229,16 @@ class ShardedTrainer:
     """Owns the model and its optimizer; ``train_step`` runs one update.
 
     Args:
-      loss_fn: ``loss_fn(model, batch) -> scalar``.
+      loss_fn: ``loss_fn(model, batch) -> (sum, count)``: the masked
+        loss summed over the batch, and the count of unmasked targets it
+        is a mean over (``next_token_sums`` of the LMs, ``loss_sums`` of
+        the CNN and DLRM); the step's loss is
+        their quotient, over the global batch above one rank.
       init_fn: ``init_fn(seed, device) -> nn.Module``.
       device: where to train; ``None`` is the GPU.
-      strategy: ``"ddp"`` or ``"rowwise"`` (the same on one device).
+      strategy: ``"ddp"`` (the gradients reduced over the ranks of an
+        initialized process group) or ``"rowwise"`` (the same on one
+        device; raises above one rank).
       optimizer: a factory from parameters to an optimizer (default
         ``adamw(3e-4)``, the JAX trainer's default); :meth:`train_state`
         carries :func:`adamw`, :func:`adam` and :func:`adagrad`.
@@ -215,7 +259,7 @@ class ShardedTrainer:
         if strategy not in STRATEGIES:
             raise NotImplementedError(
                 f"strategy {strategy!r} is not ported yet; only {STRATEGIES}"
-                " on one device (ROADMAP.md, queue A, 'Parallelism')"
+                " (ROADMAP.md, queue A, 'Parallelism')"
             )
         if (strategy == "rowwise" and torch.distributed.is_available()
                 and torch.distributed.is_initialized()
@@ -225,6 +269,10 @@ class ShardedTrainer:
                 "table rows, which is not ported yet (ROADMAP.md, queue A, "
                 "item 6, 'Parallelism')")
         optimizer = optimizer or adamw(3e-4)
+        #: seconds the newest step spent reducing its gradients and loss
+        #: over the ranks, the device synchronized on both sides (0 at
+        #: one rank)
+        self.reduce_seconds = 0.0
         if accum_steps > 1 and not isinstance(optimizer, AdamW):
             raise ValueError(
                 "accum_steps > 1 takes an adamw(...) optimizer: the fp32 "
@@ -361,42 +409,85 @@ class ShardedTrainer:
     def train_step(self, batch) -> torch.Tensor:
         """One update on ``batch``, whose leaves have a leading microbatch
         axis of length ``accum_steps`` (see :meth:`microbatch`). Returns
-        the mean loss, detached, without waiting for the device."""
+        the mean loss (over the microbatches, and over the global batch
+        of a process group), detached, without waiting for the device."""
         accum = self.accum_steps
+        reduced = world_size() > 1
         if not isinstance(self.optimizer, Fp32GradAdamW):
-            loss = self._loss_fn(self.model, tuple(x[0] for x in batch))
+            loss = self._mean_loss(tuple(x[0] for x in batch))
             loss.backward()
+            loss = loss.detach()
+            if reduced:
+                params = self._trained()
+                for p in params:
+                    if p.grad is None:  # one layout on every rank
+                        p.grad = torch.zeros_like(p)
+                loss = self._reduce([p.grad for p in params], loss)
             if self.before_update is not None:
                 self.before_update()
             self.optimizer.step()
             self.optimizer.zero_grad(set_to_none=True)
-            return loss.detach()
+            return loss
         params = self._trained()
         sums = [torch.zeros_like(p, dtype=torch.float32) for p in params]
         loss = torch.zeros((), device=self.device)
         for i in range(accum):
-            micro = self._loss_fn(self.model, tuple(x[i] for x in batch))
+            micro = self._mean_loss(tuple(x[i] for x in batch))
             micro.backward()
             for acc, p in zip(sums, params):
                 if p.grad is not None:
                     acc.add_(p.grad.float())
                     p.grad = None
             loss += micro.detach()
+        grads = [acc.div_(accum) for acc in sums]
+        loss = loss / accum
+        if reduced:
+            loss = self._reduce(grads, loss)
         if self.before_update is not None:
             self.before_update()
-        self.optimizer.step([acc.div_(accum) for acc in sums])
-        return loss / accum
+        self.optimizer.step(grads)
+        return loss
+
+    def _mean_loss(self, batch) -> torch.Tensor:
+        """The loss's masked sum over its count (at least 1), as the JAX
+        loss; above one rank the count is the global batch's, so the
+        ranks' quotients sum to the JAX loss on the global batch."""
+        total, count = self._loss_fn(self.model, batch)
+        if world_size() > 1:
+            count = count.detach().clone()
+            dist.all_reduce(count)
+        return total / count.clamp(min=1.0)
+
+    def _reduce(self, grads: List[torch.Tensor],
+                loss: torch.Tensor) -> torch.Tensor:
+        """The ddp step's reduction: ``grads`` summed over the ranks in
+        place, and the summed loss returned. It runs before
+        ``before_update``, so a checkpoint's copies, ordered there, see
+        the reduced and updated state of one step."""
+        self._sync()
+        t0 = time.perf_counter()
+        loss = loss.clone()
+        allreduce_sum_(grads + [loss])
+        self._sync()
+        self.reduce_seconds = time.perf_counter() - t0
+        return loss
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def forward_backward(self, batch) -> None:
         """The step's forward and backward on ``batch`` (the layout of
         :meth:`train_step`) without its update: the gradients come from
         ``torch.autograd.grad`` and are dropped, so neither ``.grad``
-        nor the optimizer is touched (the step profile,
-        trainer/profiler.py)."""
+        nor the optimizer is touched, and nothing is reduced over the
+        ranks (the step profile, trainer/profiler.py)."""
         params = self._trained()
         for i in range(self.accum_steps):
-            loss = self._loss_fn(self.model, tuple(x[i] for x in batch))
-            torch.autograd.grad(loss, params, allow_unused=True)
+            total, count = self._loss_fn(
+                self.model, tuple(x[i] for x in batch))
+            torch.autograd.grad(total / count.clamp(min=1.0), params,
+                                allow_unused=True)
 
     def microbatch(self, batch):
         """[global_batch, ...] -> [accum, global_batch / accum, ...]."""
@@ -446,7 +537,7 @@ def make_trainer_for_llama(
     from dlrover_tpu_torch.models import llama
 
     def loss(model, batch):
-        return llama.next_token_loss(model, batch, attn_fn=attn_fn)
+        return llama.next_token_sums(model, batch, attn_fn=attn_fn)
 
     def init(seed, dev):
         return llama.init_params(cfg, seed=seed, device=dev)

@@ -470,8 +470,8 @@ def _agent(master, code):
 
     def initialize():
         starts.append(time.time())
-        agent._proc = subprocess.Popen(
-            [sys.executable, "-c", code], start_new_session=True)
+        agent._procs = [subprocess.Popen(
+            [sys.executable, "-c", code], start_new_session=True)]
 
     agent._initialize_workers = initialize
     return agent, starts
@@ -495,10 +495,10 @@ def test_agent_drain_action_sends_the_worker_group_sigterm():
     agent._initialize_workers()
     try:
         agent._handle_master_action(NodeAction.DRAIN)
-        assert agent._proc.wait(timeout=10) == -signal.SIGTERM
+        assert agent._procs[0].wait(timeout=10) == -signal.SIGTERM
     finally:
-        if agent._proc.poll() is None:
-            agent._proc.kill()
+        if agent._procs[0].poll() is None:
+            agent._procs[0].kill()
     assert telemetry.default_journal().events("preempt.drain_action")
 
 

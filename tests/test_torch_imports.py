@@ -56,6 +56,14 @@ def test_the_model_families_are_under_the_rule():
             "examples/shard_loop.py"} <= ported
 
 
+def test_the_multi_process_modules_are_under_the_rule():
+    ported = {str(p.relative_to(PORT)) for p in FILES if p.is_relative_to(PORT)}
+    assert {"checkpoint/saver.py", "checkpoint/loader.py",
+            "checkpoint/peer.py", "agent/elastic/network_check.py",
+            "trainer/distributed.py", "trainer/ckpt_store.py",
+            "telemetry/http.py"} <= ported
+
+
 @pytest.mark.parametrize(
     "path", FILES, ids=[str(p.relative_to(REPO)) for p in FILES])
 def test_no_jax_imports(path):
@@ -126,7 +134,10 @@ TORCH_FREE = (
     "dlrover_tpu_torch.master.main",
     "dlrover_tpu_torch.master.local_master",
     "dlrover_tpu_torch.agent.elastic.training",
+    "dlrover_tpu_torch.agent.elastic.network_check",
     "dlrover_tpu_torch.trainer.elastic_run",
+    # the peer tier's endpoint, which the telemetry server loads
+    "dlrover_tpu_torch.checkpoint.peer",
     # the shm data plane's producer side: what a coworker process loads
     # to run an ElasticShmDataLoader's producer on a synth batch_fn
     "dlrover_tpu_torch.data.shm_ring",

@@ -132,14 +132,12 @@ def test_launcher_refuses_what_is_not_ported():
     args = elastic_run.parse_args(["--relay_fanout", "4", EXAMPLE])
     with pytest.raises(NotImplementedError, match="relay tier"):
         elastic_run.run(args)
-    config = ElasticLaunchConfig(nproc_per_node=2, entrypoint=EXAMPLE)
-    with pytest.raises(ValueError, match="one worker per node"):
+    # several workers per node and the network check are ported
+    # (test_torch_launcher_nproc.py, test_torch_network_check.py); a
+    # node without a worker is refused
+    config = ElasticLaunchConfig(nproc_per_node=0, entrypoint=EXAMPLE)
+    with pytest.raises(ValueError, match="at least one worker"):
         ElasticTrainingAgent(config, LocalMasterClient())
-    from dlrover_tpu_torch.agent.elastic.training import launch_agent
-
-    with pytest.raises(NotImplementedError, match="network"):
-        launch_agent(ElasticLaunchConfig(network_check=True),
-                     LocalMasterClient())
 
 
 # ------------------------------------------------ fault injection grammar

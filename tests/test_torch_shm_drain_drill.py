@@ -57,12 +57,13 @@ def test_kill_workers_ends_the_group_after_its_leader_exited():
     )
     agent = ElasticTrainingAgent(
         ElasticLaunchConfig(monitor_interval=0.05), LocalMasterClient())
-    agent._proc = subprocess.Popen(
+    proc = subprocess.Popen(
         [sys.executable, "-c", script, shm_ring.SEGMENT_PREFIX],
         stdout=subprocess.PIPE, text=True, start_new_session=True)
-    child = int(agent._proc.stdout.readline())
-    agent._proc.wait(timeout=30)
-    leader = agent._proc.pid
+    agent._procs = [proc]
+    child = int(proc.stdout.readline())
+    proc.wait(timeout=30)
+    leader = proc.pid
     assert _alive(child) and os.getpgid(child) == leader
     assert shm_ring.segments_of(leader)
     t0 = time.monotonic()
