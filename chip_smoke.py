@@ -10,7 +10,8 @@ Phases, each of which raises on failure:
    each kernel's registers, spills and dynamic shared memory;
 3. kernels: each kernel against its plain PyTorch version on the card,
    at the Llama-1.1B train step's attention shape (GQA group 8), at
-   GPT-2 XL's (25 heads over 25 kv heads, group 1) and at one small
+   GPT-2 XL's (25 heads over 25 kv heads, group 1), at the Llama step's
+   heads split over two tensor ranks (16 over 2) and at one small
    non-causal shape, element by element; planted faults that the same
    rule must reject; each kernel launched twice at the two train steps'
    shapes, which must give the same bits; times there beside the
@@ -76,7 +77,8 @@ Phases, each of which raises on failure:
    ``LAUNCHER_LAYERS`` = 4 layers, as are phases 11 and 12), under the elastic
    launcher (``python -m dlrover_tpu_torch.trainer.elastic_run
    --standalone``: the local master, the agent and the worker in
-   processes of their own) with ``DLROVER_FAULT_INJECT=crash@10``: the
+   processes of their own; the example's ``--strategy ddp``, as in
+   phases 11 and 12) with ``DLROVER_FAULT_INJECT=crash@10``: the
    worker dies after step 10, the agent restarts it, it restores the
    newest checkpoint committed before the crash and trains to step 12;
    the launcher's exit, the restore, the worker's card and the losses of
@@ -107,7 +109,8 @@ Phases, each of which raises on failure:
     launchers (``--nnodes 2:2 --node_rank {0,1} --network-check``), each
     supervising one worker; both workers run on ``cuda:0`` in one gloo
     group (``--dist-backend gloo``: NCCL refuses two ranks on one
-    device) with ``DLROVER_TPU_DIST_HEARTBEAT_TIMEOUT=10``. The same
+    device) with ``DLROVER_TPU_DIST_HEARTBEAT_TIMEOUT=10``, the
+    example's ``--strategy ddp``. The same
     llama_1b (4 layers), batch 3 x 2048 per rank,
     flash saves every 4 steps on both tiers (each persisted before the
     loop goes on), ``crash@10:host=1``, node 1's RAM tier deleted
@@ -122,9 +125,34 @@ Phases, each of which raises on failure:
     ``/ckpt/shard``; steps 9-10 replayed bitwise; both launchers exit 0
     with ``FINAL step=12``. Printed: step and reduction ms, save stalls
     and bytes, restore seconds and peer bytes, ``recovery_s``;
-13. the kernels line (one JSON object; each kernel at both train steps'
-    shapes), then the card's name and power limit, then the device
-    line, last.
+13. mesh: the sharding strategies across ranks (``trainer/sharded.py``),
+    the same llama_1b cut to 4 layers, batch 3 x 2048 per data-parallel
+    rank, AdamW(1e-4, 0.9, 0.95), 1 warm-up and 3 timed steps each (2
+    for tp_fsdp, for the script's time limit). Two gloo ranks on
+    ``cuda:0`` run zero1, zero2 and fsdp on (fsdp 2) and tp on (tensor
+    2), in the same processes; four run tp_fsdp on (fsdp 2, tensor 2).
+    The reference is the port's one-process step on the card from the
+    same weights on each global batch. Gates: each step's loss within
+    MESH_LOSS_RTOL (1e-3) relative of the reference's; at least
+    MESH_WITHIN_SHARE (99.9%) of every rank's kept parameter elements
+    within 2 lr and one bf16 storage ulp of the reference's same
+    element after as many steps, and every element within 2 lr and one
+    ulp per step taken (a zero1 step without the data-parallel sum and
+    an fsdp step without the update fail the first, PERF.md;
+    ``tests/test_torch_mesh_gpu.py`` plants them); per rank,
+    optimizer-state bytes equal
+    to the bytes of the domains the rank holds, and to the layout's
+    share (half at fsdp 2 or tensor 2, a quarter at 2 x 2), parameter
+    bytes halved under fsdp and tp; 4 launches of each kernel per rank
+    per step, every rank on ``cuda:0``; the fsdp save at step 2 restored
+    into fresh ranks bitwise (the checksums of every shard) and whole
+    into this process. Printed per strategy: step and collective ms,
+    peak memory, bytes per rank, the parameters' share within 2 lr and
+    their update's relative error; the collective route of the layer;
+14. the wall seconds of each phase, then the kernels line (one JSON
+    object; each kernel at both train steps' shapes and at the tp shape
+    of "mesh", with ``mesh_launches``), then the card's name and power
+    limit, then the device line, last.
 
 Exits non-zero, and prints no result, when there is no CUDA device or
 when the package is not beside this file.
@@ -526,8 +554,9 @@ def check_kernels(shape, timed: bool):
 
 
 def phase_kernels():
-    """{shape name: check_kernels' dicts} at the Llama-1.1B step's shape
-    and GPT-2 XL's, both timed."""
+    """{shape name: check_kernels' dicts} at the Llama-1.1B step's shape,
+    at its heads split over 2 tensor ranks (phase "mesh"'s tp and
+    tp_fsdp) and at GPT-2 XL's, all timed."""
     import torch
 
     # the plain versions' fp32 products must not drop to TF32
@@ -535,8 +564,12 @@ def phase_kernels():
     torch.backends.cudnn.allow_tf32 = False
     check_kernels(SMALL, timed=False)
     results = {}
-    for name, shape in (("llama_1b", SLICE), ("gpt2_xl", GPT)):
+    for name, shape in (("llama_1b", SLICE), ("llama_1b_tp", SLICE_TP),
+                        ("gpt2_xl", GPT)):
+        t0 = time.perf_counter()
         results[name] = check_kernels(shape, timed=True)
+        emit({"phase": "kernels", "shape": shape,
+              "seconds": time.perf_counter() - t0})
         for r in results[name].values():
             emit({"phase": "kernels", "shape": shape, "timing": {
                 key: r[key] for key in (
@@ -1752,7 +1785,7 @@ def _launch(ckpt_dir: str, journal: str, out_file: str, env: dict):
         "--batch-size", str(SLICE["b"]),
         "--seq-len", str(SLICE["s"]), "--steps", str(LAUNCH_STEPS),
         "--save-interval", str(LAUNCH_SAVE), "--ckpt-dir", ckpt_dir,
-        "--out", out_file,
+        "--out", out_file, "--strategy", "ddp",
     ]
     proc = subprocess.Popen(cmd, cwd=ROOT,
                             env=dict(os.environ, DLROVER_TPU_JOURNAL=journal,
@@ -2271,7 +2304,7 @@ def phase_world() -> dict:
                 str(WORLD_SAVE), "--persist-interval", str(WORLD_SAVE),
                 "--ckpt-dir", ckpt_dir,
                 "--ram-dir", ram_dirs[rank], "--dist-backend", "gloo",
-                "--checksums",
+                "--checksums", "--strategy", "ddp",
             ]
             procs.append(subprocess.Popen(
                 cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
@@ -2473,6 +2506,530 @@ def phase_world() -> dict:
     return readings
 
 
+# ----------------------------------------------------------- phase mesh
+
+#: llama_1b at full width cut to MESH_LAYERS layers, batch 3 x 2048 per
+#: data-parallel rank, AdamW(1e-4, 0.9, 0.95); MESH_WARMUP warm-up step
+#: and MESH_TIMED[strategy] timed steps (tp_fsdp cut to 2 for the
+#: script's time limit)
+MESH_LAYERS = LAUNCHER_LAYERS
+MESH_WARMUP = 1
+MESH_TIMED = {"zero1": 3, "zero2": 3, "fsdp": 3, "tp": 3, "tp_fsdp": 2}
+MESH_LR = 1e-4
+#: gates against the reference: every step's loss within MESH_LOSS_RTOL
+#: (relative; readings 3e-5), at least MESH_WITHIN_SHARE of every rank's
+#: kept parameter elements within 2 lr and one bf16 ulp of the
+#: reference's (readings 99.950-99.990%), and no element beyond 2 lr and
+#: one ulp per step taken (AdamW's sign effect, ROADMAP C). PERF.md has
+#: the readings of planted faults against them (``plants`` of run_mesh).
+MESH_LOSS_RTOL = 1e-3
+MESH_WITHIN_SHARE = 0.999
+#: the fsdp run's save: restored into fresh ranks, and into one rank
+MESH_SAVE_STEP = 2
+#: rank count -> [(strategy, mesh spec)], each group's ranks reused
+MESH_RUNS = {
+    2: [("zero1", [("fsdp", 2)]), ("zero2", [("fsdp", 2)]),
+        ("fsdp", [("fsdp", 2)]), ("tp", [("tensor", 2)])],
+    4: [("tp_fsdp", [("fsdp", 2), ("tensor", 2)])],
+}
+MESH_TIMEOUT_S = 300
+#: the tp shape of the flash kernels: the Llama step's heads split over 2
+SLICE_TP = dict(SLICE, h=SLICE["h"] // 2, kvh=SLICE["kvh"] // 2)
+
+
+def _mesh_cfg(layers: int, device=None):
+    """llama_1b cut to ``layers`` layers; on the CPU (a dry run of the
+    phase's logic) llama_tiny, whose widths the CPU can step."""
+    import dataclasses
+
+    from dlrover_tpu_torch.models import llama
+
+    cfg = (llama.llama_tiny() if device == "cpu"
+           else llama.llama_1b(remat="dots_attn_out"))
+    return dataclasses.replace(cfg, num_layers=layers)
+
+
+def _dp_size(spec) -> int:
+    return math.prod(k for a, k in spec if a in ("data", "fsdp"))
+
+
+def _mesh_steps(strategy: str) -> int:
+    return MESH_WARMUP + MESH_TIMED[strategy]
+
+
+def _owned_bytes(state, rank: int) -> int:
+    """The bytes of every optimizer-state domain ``rank`` holds, by the
+    domain maps of its own train state."""
+    from dlrover_tpu_torch.trainer import ckpt_store
+
+    total = 0
+    for _, leaf in ckpt_store.flatten_with_path(
+            {"mu": state["optimizer"]["mu"], "nu": state["optimizer"]["nu"]}):
+        for d in leaf.domains:
+            if rank in d["replicas"]:
+                total += math.prod(b - a for a, b in d["idx"]) * (
+                    leaf.dtype.itemsize)
+    return total
+
+
+def _plant(t, plant) -> None:
+    """A planted fault that the gates must catch: "no_step" skips every
+    update; "no_reduce" steps each rank on its own rows' gradients,
+    leaving out their sum over the data-parallel ranks (each rank keeps
+    its own chunk where the sum would be scattered)."""
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.parallel import mesh as mesh_lib
+
+    if plant == "no_step":
+        t.optimizer.step = lambda *args, **kwargs: None
+    elif plant == "no_reduce":
+        def local(grads):
+            out = []
+            for lay, g in zip(t._layouts, grads):
+                for d, a in lay.scatter:
+                    group = mesh_lib.axes_group(t.mesh, (a,))
+                    g = g.chunk(dist.get_world_size(group), d)[
+                        dist.get_rank(group)]
+                out.append(g)
+            return out
+
+        t._reduce_to_opt = local
+    elif plant is not None:
+        raise ValueError(f"no planted fault {plant!r}")
+
+
+def _against_reference(t, ref, init, steps: int) -> dict:
+    """This rank's kept shards against the same boxes of the reference's
+    parameters after as many steps, in units of the learning rate:
+    the worst element beyond one storage ulp per step (bf16: at most
+    2^-7 of the value), beyond one ulp, and as it is; the share of
+    elements within 2 lr and one ulp, and of elements equal to the bit;
+    and the sums of squares of the difference and of the reference's
+    own update (from ``init``), whose ratio is the update's relative
+    error."""
+    import torch
+
+    worst = {"per_step": 0.0, "one_ulp": 0.0, "raw": 0.0}
+    within = equal = total = 0
+    diff_sq = update_sq = 0.0
+    for name, box, shard in t.local_shards():
+        index = tuple(slice(a, b) for a, b in box)
+        want = ref[name][index].to(shard.device).float()
+        start = init[name][index].to(shard.device).float()
+        diff = (shard.float() - want).abs()
+        ulp = (want.abs() * 2.0 ** -7 if shard.dtype == torch.bfloat16
+               else torch.zeros_like(want))
+        for key, allow in (("per_step", steps * ulp), ("one_ulp", ulp),
+                           ("raw", 0.0)):
+            worst[key] = max(worst[key], float(
+                ((diff - allow) / MESH_LR).max()))
+        within += int((diff <= 2 * MESH_LR + ulp).sum())
+        equal += int((diff == 0).sum())
+        total += diff.numel()
+        diff_sq += float(diff.double().pow(2).sum())
+        update_sq += float((want - start).double().pow(2).sum())
+    return {"param_diff_lr": worst, "param_within_2lr_share": within / total,
+            "param_equal_share": equal / total,
+            "param_diff_sq": diff_sq, "reference_update_sq": update_sq}
+
+
+def mesh_rank(work: str, layers: int, device=None) -> None:
+    """One rank of phase "mesh" (``python -c``): every strategy of its
+    rank count (``runs.json``) on ``cuda:0`` in the gloo group, with the
+    planted faults of ``runs.json``; one JSON result file."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.ops.cuda import flash_attention as fa
+    from dlrover_tpu_torch.parallel.mesh import create_mesh
+    from dlrover_tpu_torch.trainer import ckpt_store
+    from dlrover_tpu_torch.trainer import distributed as coll
+    from dlrover_tpu_torch.trainer.checkpoint import FlashCheckpointer
+    from dlrover_tpu_torch.trainer.sharded import (
+        adamw, make_trainer_for_llama)
+
+    env = coll.init_from_env(timeout_s=120, backend="gloo", device=device)
+    cfg = _mesh_cfg(layers, device)
+    data = np.load(os.path.join(work, "batches.npz"))
+    with open(os.path.join(work, "runs.json")) as f:
+        plan = json.load(f)
+    opt = adamw(MESH_LR, b1=0.9, b2=0.95)
+    out = {"rank": env.rank, "route": coll.collective_route(
+        dist.group.WORLD), "runs": {}}
+    init = torch.load(os.path.join(work, "init.pt"), map_location="cpu")
+
+    def trainer_for(strategy, spec, seed):
+        t = make_trainer_for_llama(cfg, device=device, strategy=strategy,
+                                   optimizer=opt,
+                                   mesh=create_mesh(spec, device=device))
+        t.init(seed=seed)
+        return t
+
+    for strategy, spec in plan["runs"][str(env.world_size)]:
+        spec = [tuple(x) for x in spec]
+        # the global batch: 3 rows per data-parallel rank
+        n_rows = _dp_size(spec) * SLICE["b"]
+        steps = _mesh_steps(strategy)
+
+        def batch(t, step):
+            rows = t.split_batch((data["tokens"][step][:n_rows],
+                                  data["targets"][step][:n_rows]))
+            return t.shard_batch(t.microbatch(rows))
+
+        cuda = device != "cpu"
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t = trainer_for(strategy, spec, seed=0)
+        _plant(t, plan["plants"].get(strategy))
+        state = t.train_state()
+        run = {"bytes": t.state_bytes(),
+               "owned_opt_bytes": _owned_bytes(state, env.rank),
+               "device": str(t.local_shards()[0][2].device),
+               "losses": [], "step_ms": [], "collective_ms": []}
+        before = dict(fa.LAUNCHES)
+        for step in range(steps):
+            mb = batch(t, step)
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = t.train_step(mb)
+            if cuda:
+                torch.cuda.synchronize()
+            run["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            run["collective_ms"].append(t.reduce_seconds * 1e3)
+            run["losses"].append(loss.item())
+            if strategy == "fsdp" and step + 1 == MESH_SAVE_STEP:
+                ckpt = FlashCheckpointer(
+                    os.path.join(work, "store"),
+                    ram_dir=os.path.join(work, f"ram{env.rank}"),
+                    persist_interval=MESH_SAVE_STEP)
+                saved = {**t.train_state(), "step": MESH_SAVE_STEP,
+                         "data": ""}
+                run["saved_sums"] = ckpt_store.state_checksums(saved)
+                ckpt.save(MESH_SAVE_STEP, saved)
+                ckpt.close()  # persisted, and committed by rank 0
+                run["saved_whole_sums"] = ckpt_store.state_checksums(
+                    t.gathered_params())
+        run["launches"] = {k: fa.LAUNCHES[k] - before[k] for k in before}
+        run["peak_mem_gb"] = (torch.cuda.max_memory_allocated() / 2**30
+                              if cuda else None)
+        ref = torch.load(os.path.join(
+            work, f"reference{_dp_size(spec)}_{steps}.pt"),
+            map_location="cpu")
+        run.update(_against_reference(t, ref, init, steps))
+        del ref
+        if strategy == "fsdp":
+            # fresh ranks (another seed's weights) restore step 2
+            fresh = trainer_for(strategy, spec, seed=1)
+            reader = FlashCheckpointer(
+                os.path.join(work, "store"),
+                ram_dir=os.path.join(work, f"ram{env.rank}"))
+            got, at = reader.restore(
+                target={**fresh.train_state(), "step": 0, "data": ""})
+            reader.close()
+            fresh.load_train_state(got)
+            run["restored_step"] = at
+            run["restored_sums"] = ckpt_store.state_checksums(
+                {**fresh.train_state(), "step": at, "data": ""})
+            run["restore_tier"] = (reader.last_restore_stats or {}).get(
+                "tier")
+            del fresh, got
+        out["runs"][strategy] = run
+        del t, state
+        dist.barrier()
+    with open(os.path.join(work, f"rank{env.rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _mesh_reference(work: str, layers: int, runs, device=None) -> dict:
+    """The port's single-process step on the card from the same seed:
+    each global batch (the data-parallel ranks' rows) in one
+    microbatch -- at two the step would take Fp32GradAdamW, which the
+    ranks' one-microbatch steps do not. {dp: losses}; the initial
+    parameters go to ``init.pt``, those after each strategy's step
+    count to ``reference{dp}_{steps}.pt``."""
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.trainer.sharded import (
+        adamw, make_trainer_for_llama)
+
+    cfg = _mesh_cfg(layers, device)
+    data = np.load(os.path.join(work, "batches.npz"))
+    wanted = {}
+    for group in runs.values():
+        for strategy, spec in group:
+            wanted.setdefault(_dp_size(spec), set()).add(
+                _mesh_steps(strategy))
+    out = {}
+    for dp, counts in sorted(wanted.items()):
+        t = make_trainer_for_llama(
+            cfg, device=device, optimizer=adamw(MESH_LR, b1=0.9, b2=0.95))
+        t.init(seed=0)
+
+        def save(name):
+            torch.save({n: p.detach().cpu() for n, p in
+                        t.model.named_parameters()},
+                       os.path.join(work, name))
+
+        if not os.path.exists(os.path.join(work, "init.pt")):
+            save("init.pt")
+        rows = dp * SLICE["b"]
+        losses = []
+        for step in range(max(counts)):
+            mb = t.shard_batch(t.microbatch((data["tokens"][step][:rows],
+                                             data["targets"][step][:rows])))
+            losses.append(t.train_step(mb).item())
+            if step + 1 in counts:
+                save(f"reference{dp}_{step + 1}.pt")
+        out[dp] = losses
+        del t
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_ranks(work: str, n: int, layers: int, device=None):
+    """``n`` rank processes of :func:`mesh_rank` on the card; their
+    results, in rank order, and their combined output."""
+    port = _free_port()
+    code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+            f"import chip_smoke; chip_smoke.mesh_rank({work!r}, {layers}, "
+            f"{device!r})")
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith(("DLROVER_TPU_", "DLROVER_FAULT"))}
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code], cwd=ROOT,
+        env={**base, "DLROVER_TPU_COORDINATOR_ADDR": f"localhost:{port}",
+             "DLROVER_TPU_PROCESS_ID": str(r),
+             "DLROVER_TPU_NUM_PROCESSES": str(n),
+             "DLROVER_TPU_DIST_HEARTBEAT_TIMEOUT": "60",
+             "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1",
+             "DLROVER_TPU_LOG_LEVEL": "WARNING"},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True) for r in range(n)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=MESH_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait(timeout=30)
+    rcs = [p.returncode for p in procs]
+    if rcs != [0] * n:
+        raise AssertionError(f"mesh: {n} ranks exited {rcs}: "
+                             + logs[rcs.index(next(c for c in rcs if c))
+                                    ][-4000:])
+    results = []
+    for r in range(n):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results, "".join(logs)
+
+
+def run_mesh(layers: int = MESH_LAYERS, device=None, runs=None,
+             plants=None) -> dict:
+    """Phase "mesh"'s body at ``layers`` layers: the reference, each rank
+    group's strategies (``runs``, by default MESH_RUNS), the restore of
+    the fsdp save into one rank, the gates; returns the readings and the
+    failed gates. ``plants`` ({strategy: "no_step" or "no_reduce"})
+    plants a fault in a strategy's ranks, as a control of the gates.
+    ``device="cpu"`` runs llama_tiny on CPU ranks instead (the logic
+    alone: no kernel launches there)."""
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.trainer import ckpt_store
+    from dlrover_tpu_torch.trainer.checkpoint import FlashCheckpointer
+    from dlrover_tpu_torch.trainer.sharded import (
+        adamw, make_trainer_for_llama)
+
+    runs = MESH_RUNS if runs is None else runs
+    saves = any(s == "fsdp" for group in runs.values() for s, _ in group)
+    cfg = _mesh_cfg(layers, device)
+    steps = max(_mesh_steps(s) for group in runs.values() for s, _ in group)
+    work = tempfile.mkdtemp(prefix="dlrover_mesh_")
+    failed, readings = [], {}
+    try:
+        rows = 2 * SLICE["b"]  # the largest data-parallel world's batch
+        rng = np.random.default_rng(11)
+        tokens = rng.integers(0, cfg.vocab_size,
+                              (steps, rows, SLICE["s"] + 1))
+        np.savez(os.path.join(work, "batches.npz"),
+                 tokens=tokens[:, :, :-1], targets=tokens[:, :, 1:])
+        with open(os.path.join(work, "runs.json"), "w") as f:
+            json.dump({"runs": runs, "plants": plants or {}}, f)
+        t0 = time.time()
+        reference = _mesh_reference(work, layers, runs, device)
+        readings["reference_s"] = time.time() - t0
+        results = {}
+        for n in runs:
+            t0 = time.time()
+            results[n], _ = _mesh_ranks(work, n, layers, device)
+            readings[f"ranks{n}_s"] = time.time() - t0
+        if saves:
+            # the fsdp step restores whole into one rank
+            solo = make_trainer_for_llama(
+                cfg, device=device, strategy="fsdp",
+                optimizer=adamw(MESH_LR, 0.9, 0.95))
+            solo.init(seed=1)
+            reader = FlashCheckpointer(
+                os.path.join(work, "store"),
+                ram_dir=os.path.join(work, "ram-solo"))
+            got, at = reader.restore(
+                target={**solo.train_state(), "step": 0, "data": ""})
+            reader.close()
+            solo.load_train_state(got)
+            solo_sums = ckpt_store.state_checksums(solo.gathered_params())
+            del solo, got
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    whole = llama.param_count(cfg) * 2  # bf16 matrices ...
+    norms = 4 * cfg.hidden_size * (2 * layers + 1)  # ... fp32 norms
+    whole += norms - norms // 2
+    strategies = {}
+    for n, ranks in results.items():
+        for strategy, spec in runs[n]:
+            runs_ = [r["runs"][strategy] for r in ranks]
+            steps = _mesh_steps(strategy)
+            want = reference[_dp_size(spec)][:steps]
+            kept = {"zero1": 1, "zero2": 1}.get(strategy, math.prod(
+                k for _, k in spec))
+            opt_parts = math.prod(k for _, k in spec)
+            line = {
+                "ranks": n, "mesh": dict(spec), "steps": steps,
+                "plant": (plants or {}).get(strategy),
+                "step_ms": [statistics.median(r["step_ms"][MESH_WARMUP:])
+                            for r in runs_],
+                "collective_ms": [
+                    statistics.median(r["collective_ms"][MESH_WARMUP:])
+                    for r in runs_],
+                "peak_mem_gb": [r["peak_mem_gb"] for r in runs_],
+                "param_bytes": [r["bytes"]["params"] for r in runs_],
+                "opt_bytes": [r["bytes"]["optimizer"] for r in runs_],
+                "param_fraction": runs_[0]["bytes"]["params"] / whole,
+                "opt_fraction": runs_[0]["bytes"]["optimizer"] / (2 * whole),
+                "losses": runs_[0]["losses"], "reference_losses": want,
+                "loss_rel": max(abs(a - b) / abs(b) for r in runs_
+                                for a, b in zip(r["losses"], want)),
+                "param_diff_lr": {k: max(r["param_diff_lr"][k]
+                                         for r in runs_)
+                                  for k in runs_[0]["param_diff_lr"]},
+                "param_within_2lr_share": min(
+                    r["param_within_2lr_share"] for r in runs_),
+                "param_equal_share": min(
+                    r["param_equal_share"] for r in runs_),
+                "update_rel_err": math.sqrt(
+                    sum(r["param_diff_sq"] for r in runs_)
+                    / max(sum(r["reference_update_sq"] for r in runs_),
+                          1e-300)),
+                "launches_per_step": [
+                    {k: v / steps for k, v in r["launches"].items()}
+                    for r in runs_],
+            }
+            strategies[strategy] = line
+            for r, run in enumerate(runs_):
+                if any(abs(a - b) > MESH_LOSS_RTOL * abs(b)
+                       for a, b in zip(run["losses"], want)):
+                    failed.append(f"{strategy} rank {r}: losses "
+                                  f"{run['losses']} vs {want}")
+                if run["param_within_2lr_share"] < MESH_WITHIN_SHARE:
+                    failed.append(
+                        f"{strategy} rank {r}: parameters "
+                        f"{run['param_within_2lr_share']:.5%} of elements "
+                        "within 2 lr and one ulp of the reference, under "
+                        f"{MESH_WITHIN_SHARE:.1%}")
+                # each step, AdamW's sign effect (where a gradient is near
+                # zero, two runs' updates of an element differ by up to
+                # 2 lr; ROADMAP C), and each run's bf16 store of the
+                # update rounding to neighbouring values one ulp apart
+                if run["param_diff_lr"]["per_step"] > 2.0 * steps:
+                    failed.append(
+                        f"{strategy} rank {r}: parameters "
+                        f"{run['param_diff_lr']['per_step']:.3g} lr beyond "
+                        f"{steps} storage ulps from the reference, over "
+                        f"2 lr x {steps} steps")
+                if run["owned_opt_bytes"] != run["bytes"]["optimizer"]:
+                    failed.append(f"{strategy} rank {r}: optimizer bytes "
+                                  f"{run['bytes']['optimizer']} != owned "
+                                  f"{run['owned_opt_bytes']}")
+                if run["bytes"]["optimizer"] != 2 * (
+                        (whole - norms) // opt_parts + norms):
+                    failed.append(f"{strategy} rank {r}: optimizer bytes "
+                                  f"{run['bytes']['optimizer']}")
+                if run["bytes"]["params"] != (whole - norms) // kept + norms:
+                    failed.append(f"{strategy} rank {r}: parameter bytes "
+                                  f"{run['bytes']['params']}")
+                if device == "cpu":
+                    continue  # the kernels and the card: on the card
+                if set(run["launches"].values()) != {layers * steps}:
+                    failed.append(f"{strategy} rank {r}: launches "
+                                  f"{run['launches']}, {layers} of each "
+                                  "per step expected")
+                if run["device"] != "cuda:0":
+                    failed.append(f"{strategy} rank {r} on {run['device']}")
+    fsdp = [r["runs"]["fsdp"] for r in results[2]] if saves else []
+    for r, run in enumerate(fsdp):
+        if (run.get("restored_step") != MESH_SAVE_STEP
+                or run["restored_sums"] != run["saved_sums"]):
+            failed.append(f"fsdp rank {r}: restored step "
+                          f"{run.get('restored_step')} not bitwise")
+    if saves and (at != MESH_SAVE_STEP
+                  or solo_sums != fsdp[0]["saved_whole_sums"]):
+        failed.append(f"fsdp: one rank restored step {at}, whole "
+                      f"parameters equal: "
+                      f"{solo_sums == fsdp[0]['saved_whole_sums']}")
+    readings.update({
+        "strategies": strategies,
+        "route": sorted({r["route"] for ranks in results.values()
+                         for r in ranks}),
+        "restore_tiers": [run.get("restore_tier") for run in fsdp],
+        "launches": {
+            shape: {k: sum(r["runs"][s]["launches"][k]
+                           for n, ranks in results.items() for r in ranks
+                           for s, spec in runs[n]
+                           if (s in ("tp", "tp_fsdp")) == (shape == "tp"))
+                    for k in REPLACES}
+            for shape in ("dense", "tp")},
+    })
+    return {"readings": readings, "failed": failed}
+
+
+def phase_mesh() -> dict:
+    """The sharding strategies across ranks on the card: zero1, zero2 and
+    fsdp on (fsdp 2), tp on (tensor 2), two gloo ranks on ``cuda:0``;
+    tp_fsdp on (fsdp 2, tensor 2), four. Each against the port's
+    single-process step from the same weights on the same global
+    batches; an fsdp save at step 2 restored into fresh ranks and into
+    one rank."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    got = run_mesh(MESH_LAYERS)
+    emit({"phase": "mesh", "model": "llama_1b", "layers": MESH_LAYERS,
+          "batch_per_dp_rank": SLICE["b"], "seq": SLICE["s"],
+          "warmup": MESH_WARMUP, "timed": MESH_TIMED, "lr": MESH_LR,
+          "backend": "gloo", "phase_s": time.time() - t0,
+          **got["readings"], "nvidia_smi": nvidia_smi_line()})
+    if got["failed"]:
+        raise AssertionError("mesh: " + "; ".join(got["failed"]))
+    return got["readings"]
+
+
+
 def main() -> int:
     if not (ROOT / "dlrover_tpu_torch" / "__init__.py").exists():
         print("chip_smoke: dlrover_tpu_torch is not beside this script",
@@ -2484,22 +3041,38 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    phase_env()
-    phase_build()
-    kernels = phase_kernels()
-    launches, trainer, mb = phase_slice()
-    phase_data(trainer, mb)
+    seconds, t0 = {}, time.perf_counter()
+
+    def timed(name, fn, *args):
+        start = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            seconds[name] = time.perf_counter() - start
+
+    timed("env", phase_env)
+    timed("build", phase_build)
+    kernels = timed("kernels", phase_kernels)
+    launches, trainer, mb = timed("slice", phase_slice)
+    timed("data", phase_data, trainer, mb)
     del trainer, mb  # the card's memory goes back for the next phases
-    phase_elastic()
-    phase_eval()
-    gpt_launches = phase_families()
-    phase_launch()
-    phase_drain()
-    world = phase_world()
+    timed("elastic", phase_elastic)
+    timed("eval", phase_eval)
+    gpt_launches = timed("families", phase_families)
+    timed("launch", phase_launch)
+    timed("drain", phase_drain)
+    world = timed("world", phase_world)
+    mesh = timed("mesh", phase_mesh)
+    # wall seconds per phase, from main's start (the interpreter's start
+    # and torch's import before it are not counted)
+    emit({"phase_seconds": seconds, "total_s": time.perf_counter() - t0})
     line = []
     # each shape's launches: its main path's run (the count reset just
-    # before it), the Llama step of "slice" and the GPT step of "families"
-    for shape, counts in (("llama_1b", launches), ("gpt2_xl", gpt_launches)):
+    # before it), the Llama step of "slice", the tp ranks of "mesh" and
+    # the GPT step of "families"
+    for shape, counts in (("llama_1b", launches),
+                          ("llama_1b_tp", mesh["launches"]["tp"]),
+                          ("gpt2_xl", gpt_launches)):
         for name, r in kernels[shape].items():
             line.append({
                 "name": name if shape == "llama_1b" else f"{name}@{shape}",
@@ -2513,6 +3086,10 @@ def main() -> int:
                 # the same shape's launches in phase "world" (two ranks,
                 # 4 layers, both incarnations)
                 line[-1]["world_launches"] = world["launches"][name]
+            if shape.startswith("llama_1b"):
+                # and in phase "mesh", over every rank of its strategies
+                line[-1]["mesh_launches"] = mesh["launches"][
+                    "tp" if shape.endswith("_tp") else "dense"][name]
     emit({"kernels": line})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {

@@ -476,6 +476,10 @@ class ElasticTrainingAgent:
         env[NodeEnv.MASTER_ADDR] = self._client.master_addr
         # torchrun's names, read by trainer/distributed.read_dist_env
         env["LOCAL_WORLD_SIZE"] = str(nproc)
+        if nproc > 1:
+            # as torchrun does: several workers of one host would each
+            # start a thread per core, and their CPU collectives starve
+            env.setdefault("OMP_NUM_THREADS", "1")
         # Make the framework importable in the spawned process even when it
         # is not pip-installed and the entrypoint lives in another directory
         # (``python script.py`` puts the script's dir on sys.path, not cwd).

@@ -17,10 +17,11 @@ for that one shard, and the step fails (the caller walks down) only when
 no source has a clean copy (:class:`ShardUnavailableError`). Members
 decode to CPU tensors (bfloat16 from its raw bytes and recorded
 encoding, as ``ckpt_store`` reads it) and land on each target tensor's
-device after its shape and dtype were checked. The port's states are
-replicated over the ranks, so each needed domain is the whole tensor;
-the overlap assembly stays for archives of the JAX package, whose
-domains may be shards.
+device after its shape and dtype were checked. A replicated tensor's
+needed domain is the whole tensor; a sharded strategy's target leaf
+(``ckpt_store.ShardedLeaf``) names the boxes this process holds, and each
+is assembled from the saved domains that overlap it -- those of the
+same mesh, or of another (the JAX package's, or a resize to one rank).
 """
 
 import hashlib
@@ -384,6 +385,20 @@ def _leaf_value(fetcher: _Fetcher, leaf: Dict[str, Any], target=None,
     kind = leaf.get("kind")
     if kind == "py":
         return leaf.get("v")
+    if isinstance(target, ckpt_store.ShardedLeaf):
+        # only the boxes this process holds, each from whatever saved
+        # domains cover it
+        if kind != "shards" or leaf.get("dtype") != ckpt_store.dtype_name(
+                target.dtype) or [int(n) for n in leaf["shape"]] != list(
+                target.shape):
+            raise ckpt_store.ArchiveError(
+                f"{where}: archive leaf {leaf.get('dtype')}"
+                f"{leaf.get('shape')} does not match the target")
+        return target.with_tensors([
+            ckpt_store._onto(_gather_domain(
+                fetcher, leaf, pkey, mf.normalize_index(idx, leaf["shape"])),
+                t, where)
+            for idx, t in target.pieces])
     if kind == "array":
         value = fetcher.get(pkey, "full", leaf.get("replicas"))
     elif kind == "shards":

@@ -60,11 +60,14 @@ ElasticTrainer profiles the step (trainer/profiler.py) and reports it to
 the master's job metric collector; ``train.profile`` journals its FLOPs
 and seconds.
 
-At world > 1 (the launcher's ranks; ``--dist-backend gloo`` for ranks
-that share one card) the step is ``ShardedTrainer``'s ddp step: each
-rank fetches its own shards of ``--batch-size`` rows from the master,
-and the loss and its gradients are the masked mean over the global
-batch, reduced over the ranks. Each rank
+``--strategy`` (default ``fsdp``, the JAX example's) picks the
+``ShardedTrainer`` strategy on the JAX example's mesh, ``[(data, 1),
+(fsdp, world)]``: every rank is a data-parallel rank there, so ``tp``
+and ``tp_fsdp`` degrade to replication on it, as in JAX. At world > 1
+(the launcher's ranks; ``--dist-backend gloo`` for ranks that share one
+card) each rank fetches its own shards of ``--batch-size`` rows from the
+master, and the loss and its gradients are the masked mean over the
+global batch, reduced over the ranks. Each rank
 serves its RAM tier over ``/ckpt/shard`` from a telemetry server of its
 own and advertises it in the master KV (``PeerRegistry``), as the JAX
 ``examples/dist_train.py`` does, so a rank that lost its RAM tier
@@ -77,7 +80,9 @@ carry the world (``step k loss x world w``) above one rank, and the
 
 The checkpointed state is ``{"model": {name: parameter}, "optimizer":
 {"mu": ..., "nu": ..., "count": ...}, "step": N, "data": <the shard
-checkpoint JSON>}``.
+checkpoint JSON>}``; under a strategy other than ddp the names are the
+JAX parameter tree's and each rank saves its own shards
+(``ShardedTrainer.train_state``).
 """
 
 import argparse
@@ -97,12 +102,17 @@ from dlrover_tpu_torch.common.constants import NodeStatus
 from dlrover_tpu_torch.data import synth
 from dlrover_tpu_torch.models import llama
 from dlrover_tpu_torch.ops.cuda import flash_attention
+from dlrover_tpu_torch.parallel.mesh import create_mesh, data_parallel_size
 from dlrover_tpu_torch.telemetry import record
 from dlrover_tpu_torch.trainer.checkpoint import FlashCheckpointer
 from dlrover_tpu_torch.trainer.ckpt_store import state_checksums
 from dlrover_tpu_torch.trainer.distributed import host_group, init_from_env
 from dlrover_tpu_torch.trainer.elastic import ElasticTrainer
-from dlrover_tpu_torch.trainer.sharded import adamw, make_trainer_for_llama
+from dlrover_tpu_torch.trainer.sharded import (
+    STRATEGIES,
+    adamw,
+    make_trainer_for_llama,
+)
 
 DATASET = "llama-train"
 
@@ -229,7 +239,7 @@ def run(steps: int, ckpt_dir: str, batch_size: int = 8, seq_len: int = 128,
         seed: int = 0, model: str = "tiny", num_workers: int = 0,
         dataset_rows: int = 0, ram_dir: str = "",
         persist_interval: int = 0, num_layers: int = 0,
-        checksums: bool = False) -> Dict:
+        checksums: bool = False, strategy: str = "fsdp") -> Dict:
     """Train to ``steps``, resuming from ``ckpt_dir`` when it holds a
     checkpoint; ``num_workers`` > 0 feeds the steps through the shm data
     plane. ``dataset_rows`` (default ``steps * batch_size`` per rank) is
@@ -241,13 +251,16 @@ def run(steps: int, ckpt_dir: str, batch_size: int = 8, seq_len: int = 128,
     owns, so a rank lost before its part lands would leave the step out
     of the store for all. ``num_layers`` above 0 cuts the model's
     depth. ``checksums`` journals ``state_checksums`` of each saved and
-    each restored state. Returns what happened: the start step, each
-    step's (start, end) shard and loss, the final step and the world."""
+    each restored state. ``strategy`` is the ShardedTrainer's, on the
+    mesh ``[(data, 1), (fsdp, world)]``. Returns what happened: the start
+    step, each step's (start, end) shard and loss, the final step and
+    the world."""
     cfg, optimizer = model_config(model, num_layers)
     world = dist.get_world_size() if dist.is_initialized() else 1
     client = build_master_client()
-    trainer = make_trainer_for_llama(cfg, device=device,
-                                     optimizer=optimizer)
+    mesh = create_mesh([("data", 1), ("fsdp", -1)], device=device)
+    trainer = make_trainer_for_llama(cfg, device=device, strategy=strategy,
+                                     optimizer=optimizer, mesh=mesh)
     trainer.init(seed=seed)
     # the parameters' device carries its index (cuda:0)
     on = next(trainer.model.parameters()).device
@@ -255,9 +268,11 @@ def run(steps: int, ckpt_dir: str, batch_size: int = 8, seq_len: int = 128,
         torch.cuda.synchronize(on)
     record("train.model_ready", model=model, device=str(on))
     print(f"DEVICE {on}", flush=True)
-    elastic = ElasticTrainer(trainer, max_nodes=world, cur_nodes=world,
-                             master_client=client, report_interval=5)
-    dataset_rows = dataset_rows or steps * batch_size * world
+    # the fixed global batch counts the mesh's data-parallel ranks
+    elastic = ElasticTrainer(trainer, master_client=client,
+                             report_interval=5)
+    dataset_rows = dataset_rows or (
+        steps * batch_size * data_parallel_size(mesh))
     sharding = None
     if num_workers == 0:
         sharding = ShardingClient(
@@ -445,6 +460,9 @@ def main(argv=None) -> int:
                         help="the process group's backend above one rank "
                              "(default: nccl on cards, gloo on the CPU; "
                              "gloo for ranks that share one card)")
+    parser.add_argument("--strategy", choices=STRATEGIES, default="fsdp",
+                        help="the ShardedTrainer strategy (the JAX "
+                             "example's default: fsdp over all ranks)")
     parser.add_argument("--out", type=str, default="")
     args = parser.parse_args(argv)
 
@@ -456,7 +474,8 @@ def main(argv=None) -> int:
                  model=args.model, num_workers=args.num_workers,
                  dataset_rows=args.dataset_rows, ram_dir=args.ram_dir,
                  persist_interval=args.persist_interval,
-                 num_layers=args.num_layers, checksums=args.checksums)
+                 num_layers=args.num_layers, checksums=args.checksums,
+                 strategy=args.strategy)
     print(f"FINAL step={result['step']} loss={result['loss']:.6f} "
           f"world={result['world']}", flush=True)
     if args.out:

@@ -302,6 +302,22 @@ class TrainingSentinel:
     def pending_rollback(self) -> Optional[dict]:
         return self._pending_rollback
 
+    def agree_rollback(self, gather) -> Optional[dict]:
+        """Above one rank, at a step boundary every rank reaches: each
+        rank's pending order ``(id, step)`` (``(-1, -1)`` for none) goes
+        through ``gather`` (a collective over the ranks, returning every
+        rank's pair), and every rank adopts the newest order any rank
+        holds. Without it a rank that polled before the anomaly's report
+        landed adopts one step later than the rank that tripped, and the
+        ranks then step one apart (ROADMAP C.1). Returns the pending
+        order."""
+        mine = self._pending_rollback
+        rows = gather((mine["id"], mine["step"]) if mine else (-1, -1))
+        rollback_id, step = max(tuple(int(v) for v in r) for r in rows)
+        if rollback_id >= 0 and (mine is None or mine["id"] != rollback_id):
+            self._adopt_order(rollback_id, step)
+        return self._pending_rollback
+
     def note_restored(self, step: int, rollback_id: int = 0) -> None:
         """The rollback restore landed: journal it, close the anomaly
         window, and reset the spike baseline (pre-rollback losses are

@@ -11,6 +11,16 @@ bf16 product, targets < 0 masked out of the loss. Attention goes
 through ``ops.attention.flash_attention`` (the Hopper kernels on the
 GPU).
 
+Under tensor parallelism (``trainer/sharded.py``'s ``tp`` and
+``tp_fsdp``) each rank holds its shard of every matrix over the mesh's
+``tensor`` axis -- q/k/v, gate and up column-parallel, o and down
+row-parallel, the embedding and the lm_head over vocab -- and the
+trainer sets ``tp_group`` on the model and its blocks: the forward then
+runs on the rank's heads and MLP columns with the Megatron collectives
+of ``parallel/tensor_parallel.py``, and the loss is vocab-parallel.
+``param_axes`` gives each parameter its logical axes, and
+``jax_coordinates`` the JAX leaf, layer and dimension order it maps to.
+
 Activation checkpointing (``remat``), as in the JAX model:
 ``"dots_attn_out"`` checkpoints the segments before and after attention
 and saves their matmul outputs, with the attention call outside both so
@@ -36,6 +46,12 @@ from torch.utils.checkpoint import (
 
 from dlrover_tpu_torch.auto.device_context import resolve_device
 from dlrover_tpu_torch.ops.attention import flash_attention
+from dlrover_tpu_torch.parallel.tensor_parallel import (
+    copy_to_tensor,
+    reduce_from_tensor,
+    vocab_parallel_embedding,
+    vocab_parallel_nll,
+)
 
 _REMAT = ("off", "dots", "dots_attn_out", "minimal")
 
@@ -204,6 +220,9 @@ class Block(nn.Module):
         h, m = cfg.hidden_size, cfg.intermediate_size
         nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         self.cfg = cfg
+        #: the mesh's tensor group under tensor parallelism (None: the
+        #: block holds its matrices whole)
+        self.tp_group = None
 
         def linear(n_in, n_out):
             return nn.Linear(n_in, n_out, bias=False, device=device,
@@ -227,18 +246,23 @@ class Block(nn.Module):
         """Segment 1: attn-norm, q/k/v projections, RoPE."""
         cfg = self.cfg
         b, s, _ = x.shape
-        y = rms_norm(x, self.attn_norm, cfg.norm_eps)
-        q = self.wq(y).view(b, s, cfg.num_heads, cfg.head_dim)
-        k = self.wk(y).view(b, s, cfg.num_kv_heads, cfg.head_dim)
-        v = self.wv(y).view(b, s, cfg.num_kv_heads, cfg.head_dim)
+        y = copy_to_tensor(rms_norm(x, self.attn_norm, cfg.norm_eps),
+                           self.tp_group)
+        # this rank's heads: all of them, or its share under tp
+        q = self.wq(y).view(b, s, -1, cfg.head_dim)
+        k = self.wk(y).view(b, s, -1, cfg.head_dim)
+        v = self.wv(y).view(b, s, -1, cfg.head_dim)
         return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
     def _post_attn(self, x, attn):
         """Segment 2: output projection, residual, SwiGLU MLP."""
         b, s, _ = x.shape
-        x = x + self.wo(attn.reshape(b, s, -1))
-        y = rms_norm(x, self.mlp_norm, self.cfg.norm_eps)
-        return x + self.w_down(F.silu(self.w_gate(y)) * self.w_up(y))
+        tp = self.tp_group
+        x = x + reduce_from_tensor(self.wo(attn.reshape(b, s, -1)), tp)
+        y = copy_to_tensor(rms_norm(x, self.mlp_norm, self.cfg.norm_eps),
+                           tp)
+        return x + reduce_from_tensor(
+            self.w_down(F.silu(self.w_gate(y)) * self.w_up(y)), tp)
 
     def forward(self, x, cos, sin, attn_fn):
         q, k, v = self._pre_attn(x, cos, sin)
@@ -266,6 +290,10 @@ class Llama(nn.Module):
             torch.ones(h, device=device, dtype=torch.float32))
         self.lm_head = nn.Linear(h, cfg.vocab_size, bias=False,
                                  device=device, dtype=cfg.dtype)
+        #: under tensor parallelism: the tensor group, and the first
+        #: vocab row of this rank's embedding and lm_head shards
+        self.tp_group = None
+        self.vocab_start = 0
 
     def hidden_states(self, tokens: torch.Tensor,
                       attn_fn: Optional[Callable] = None) -> torch.Tensor:
@@ -276,7 +304,8 @@ class Llama(nn.Module):
         cfg = self.cfg
         cos, sin = rope_tables(tokens.shape[1], cfg.head_dim,
                                cfg.rope_theta, device=tokens.device)
-        x = F.embedding(tokens, self.embed)
+        x = vocab_parallel_embedding(tokens, self.embed, self.vocab_start,
+                                     self.tp_group)
         for block in self.blocks:
             x = block.run(x, cos, sin, attn_fn)
         return rms_norm(x, self.final_norm, cfg.norm_eps)
@@ -360,6 +389,10 @@ def next_token_sums(model: Llama, batch: Tuple[torch.Tensor, torch.Tensor],
     position out."""
     tokens, targets = batch
     x = model.hidden_states(tokens, attn_fn=attn_fn)
+    if model.tp_group is not None:
+        return vocab_parallel_nll(
+            x, model.lm_head.weight, targets, model.vocab_start,
+            model.tp_group, chunk=model.cfg.loss_chunk)
     if model.cfg.loss_chunk > 0:
         return _chunked_ce(
             x, model.lm_head.weight, targets, model.cfg.loss_chunk)
@@ -374,13 +407,14 @@ def next_token_loss(model: Llama, batch: Tuple[torch.Tensor, torch.Tensor],
 
 
 def make_trainer(cfg: LlamaConfig, device=None, strategy: str = "ddp",
-                 accum_steps: int = 1, optimizer=None, attn_fn=None):
+                 accum_steps: int = 1, optimizer=None, attn_fn=None,
+                 mesh=None):
     """Trainer for the Llama model; ``device=None`` is the GPU."""
     from dlrover_tpu_torch.trainer.sharded import make_trainer_for_llama
 
     return make_trainer_for_llama(
         cfg, device=device, strategy=strategy, accum_steps=accum_steps,
-        optimizer=optimizer, attn_fn=attn_fn)
+        optimizer=optimizer, attn_fn=attn_fn, mesh=mesh)
 
 
 def example_batch(cfg, global_batch: int, seq_len: int = 1):
@@ -428,3 +462,95 @@ def params_from_jax(np_tree: Dict, cfg: LlamaConfig, device=None) -> Llama:
     model = Llama(cfg, device)
     model.load_state_dict(state)
     return model
+
+
+# ---------------------------------------------------------------------------
+# logical axes, and the JAX coordinates of each parameter
+
+#: a block's matrices: (logical axes in the port's [out, in] order)
+_BLOCK_AXES = {
+    "attn_norm": ("norm",),
+    "wq.weight": ("heads", "embed"),
+    "wk.weight": ("kv_heads", "embed"),
+    "wv.weight": ("kv_heads", "embed"),
+    "wo.weight": ("embed", "heads"),
+    "mlp_norm": ("norm",),
+    "w_gate.weight": ("mlp", "embed"),
+    "w_up.weight": ("mlp", "embed"),
+    "w_down.weight": ("embed", "mlp"),
+}
+
+
+def param_axes(cfg: LlamaConfig) -> Dict[str, Tuple[str, ...]]:
+    """Logical axes of every parameter, keyed by the port's names and in
+    the port's dimension order: the JAX ``param_axes`` without the
+    stacked ``"layers"`` axis, reversed for every ``nn.Linear`` weight
+    (``[out, in]`` where JAX stores ``[in, out]``)."""
+    axes = {
+        "embed": ("vocab", "embed"),
+        "final_norm": ("norm",),
+        "lm_head.weight": ("vocab", "embed"),
+    }
+    for i in range(cfg.num_layers):
+        for name, ax in _BLOCK_AXES.items():
+            axes[f"blocks.{i}.{name}"] = ax
+    return axes
+
+
+@dataclasses.dataclass(frozen=True)
+class JaxLeaf:
+    """Where a port parameter lives in the JAX parameter tree: the leaf's
+    key path and global shape, the layer it is (None: not stacked), and
+    ``dims[d]``, the JAX dimension the port's dimension ``d`` is."""
+
+    path: Tuple[str, ...]
+    shape: Tuple[int, ...]
+    layer: Optional[int]
+    dims: Tuple[int, ...]
+
+    def index(self, port_idx) -> list:
+        """A ``[[start, end), ...]`` box of the port's tensor as the box
+        of the JAX leaf it is."""
+        out = [[0, n] for n in self.shape]
+        if self.layer is not None:
+            out[0] = [self.layer, self.layer + 1]
+        for d, (a, b) in enumerate(port_idx):
+            out[self.dims[d]] = [int(a), int(b)]
+        return out
+
+    def to_jax(self, t: torch.Tensor) -> torch.Tensor:
+        """The port's tensor (or a box of it) viewed in JAX order, with
+        the layer dim in front for a stacked leaf."""
+        order = sorted(range(t.dim()), key=lambda d: self.dims[d])
+        view = t.permute(order)
+        return view.unsqueeze(0) if self.layer is not None else view
+
+    def from_jax(self, t: torch.Tensor) -> torch.Tensor:
+        """The inverse of :meth:`to_jax`: a JAX-ordered box as the port's."""
+        if self.layer is not None:
+            t = t.squeeze(0)
+        ranks = sorted(range(t.dim()), key=lambda d: self.dims[d])
+        inverse = [ranks.index(d) for d in range(t.dim())]
+        return t.permute(inverse)
+
+
+def jax_coordinates(cfg: LlamaConfig, name: str) -> JaxLeaf:
+    """The JAX leaf a port parameter comes from (``params_from_jax``'s
+    mapping): blocks are layer ``i`` of a stacked leaf, matrices are
+    transposed."""
+    h, m, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    if name == "embed":
+        return JaxLeaf(("embed",), (v, h), None, (0, 1))
+    if name == "final_norm":
+        return JaxLeaf(("final_norm",), (h,), None, (0,))
+    if name == "lm_head.weight":
+        return JaxLeaf(("lm_head",), (h, v), None, (1, 0))
+    _, layer, leaf = name.split(".", 2)
+    key = leaf.split(".")[0]
+    L = cfg.num_layers
+    if key in _NORMS:
+        return JaxLeaf(("blocks", key), (L, h), int(layer), (1,))
+    shapes = {"wq": (h, q), "wk": (h, kv), "wv": (h, kv), "wo": (q, h),
+              "w_gate": (h, m), "w_up": (h, m), "w_down": (m, h)}
+    return JaxLeaf(("blocks", key), (L,) + shapes[key], int(layer), (2, 1))

@@ -50,14 +50,19 @@ synchronous copy. A restore that finds checkpoints but can read none of
 them raises.
 
 Several processes (the ranks of a process group, or ``process_index``
-and ``n_processes`` given): every rank writes its whole state to its
+and ``n_processes`` given): every rank writes its own state to its
 own RAM-tier file (``step-{s}-proc-{i}``), advertises it to the peer
 registry and serves it over ``/ckpt/shard`` (``checkpoint/peer.py``).
-The state is replicated over the ranks, so each tensor's one domain
-has every rank as a replica, and ``manifest.elect_owner`` picks the
-rank that persists it: the persist tier gets each rank's owned-only
-subset and index piece (``checkpoint/saver.py``), and rank 0 merges the
-pieces and writes COMMIT only when every rank's objects have landed.
+A replicated tensor has one domain with every rank as a replica; a
+sharded strategy's leaf (``ckpt_store.ShardedLeaf``, in the JAX
+parameter tree's coordinates) carries the global map of every rank's
+boxes, so a leaf has several domains, each with the ranks that hold
+that box as its replicas -- a norm under tp, for one, is replicated
+over ``tensor``. ``manifest.elect_owner`` picks, among a domain's
+replicas only, the rank that persists it: the persist tier gets each
+rank's owned-only subset and index piece (``checkpoint/saver.py``), and
+rank 0 merges the pieces and writes COMMIT only when every rank's
+objects have landed.
 An automatic restore is agreed: the ranks all-gather their newest 16
 restorable steps (RAM, store and the peers' advertisements) and take
 the newest step every rank holds, then all-gather whether each one
@@ -285,19 +290,22 @@ class _Staged:
 
 
 def _device_layout(flat):
-    """The CUDA tensors of a flattened state as ``[(index, tensor)]``,
-    and their layout: (device, paths, [(dtype, shape)]); None for a
-    state without CUDA tensors."""
-    cuda = [(i, leaf) for i, (_, leaf) in enumerate(flat)
-            if isinstance(leaf, torch.Tensor) and leaf.is_cuda]
+    """The CUDA tensors of a flattened state as ``[(leaf index, piece
+    index, tensor)]`` (a ShardedLeaf's pieces each, a tensor leaf as its
+    piece 0), and their layout: (device, paths, [(dtype, shape)]); None
+    for a state without CUDA tensors."""
+    cuda = [(i, j, t) for i, (_, leaf) in enumerate(flat)
+            for j, t in enumerate(ckpt_store.leaf_tensors(leaf))
+            if t.is_cuda]
     if not cuda:
         return cuda, None
-    devices = {leaf.device for _, leaf in cuda}
+    devices = {t.device for _, _, t in cuda}
     if len(devices) != 1:
         raise ValueError(f"state spans devices {sorted(map(str, devices))}"
                          "; one process saves one device's tensors")
-    specs = tuple((leaf.dtype, tuple(leaf.shape)) for _, leaf in cuda)
-    paths = tuple(ckpt_store._path_json(flat[i][0]) for i, _ in cuda)
+    specs = tuple((t.dtype, tuple(t.shape)) for _, _, t in cuda)
+    paths = tuple(f"{ckpt_store._path_json(flat[i][0])}#{j}"
+                  for i, j, _ in cuda)
     return cuda, (devices.pop(), paths, specs)
 
 
@@ -310,6 +318,10 @@ def _stage(state, pool: _PinnedPool, sync: bool, streams: Dict) -> _Staged:
     for _, leaf in flat:
         if isinstance(leaf, torch.Tensor) and not leaf.is_cuda:
             leaf = leaf.detach().clone()
+        elif isinstance(leaf, ckpt_store.ShardedLeaf):
+            leaf = leaf.with_tensors([
+                t if t.is_cuda else t.detach().clone()
+                for t in leaf.tensors()])
         elif isinstance(leaf, np.ndarray):
             leaf = leaf.copy()
         leaves.append(leaf)
@@ -327,10 +339,15 @@ def _stage(state, pool: _PinnedPool, sync: bool, streams: Dict) -> _Staged:
         with torch.cuda.stream(stream):
             staged.start = torch.cuda.Event(enable_timing=True)
             staged.start.record(stream)
-            for (i, src), dst in zip(cuda, staged.pinned.views):
+            for (i, j, src), dst in zip(cuda, staged.pinned.views):
                 dst.copy_(src.detach(), non_blocking=True)
                 src.record_stream(stream)
-                leaves[i] = dst
+                if isinstance(leaves[i], ckpt_store.ShardedLeaf):
+                    pieces = leaves[i].tensors()
+                    pieces[j] = dst
+                    leaves[i] = leaves[i].with_tensors(pieces)
+                else:
+                    leaves[i] = dst
             staged.event = torch.cuda.Event(enable_timing=True)
             staged.event.record(stream)
         if sync:
@@ -361,7 +378,9 @@ def _owned(tree):
     """``tree`` with every tensor copied out of the pinned buffers."""
     flat = ckpt_store.flatten_with_path(tree)
     return ckpt_store.unflatten_like(tree, [
-        leaf.clone() if isinstance(leaf, torch.Tensor) else leaf
+        leaf.clone() if isinstance(leaf, torch.Tensor)
+        else leaf.with_tensors([t.clone() for t in leaf.tensors()])
+        if isinstance(leaf, ckpt_store.ShardedLeaf) else leaf
         for _, leaf in flat
     ])
 
@@ -1465,8 +1484,8 @@ class FlashCheckpointer:
     def _restore_local_archive(self, f, man, step: int, target,
                                t0: float):
         """The RAM tier's (or a one-process persist) archive. A complete
-        archive -- one process's, or a rank's RAM tier, which holds the
-        whole replicated state -- is read whole, each tensor streamed to
+        archive -- one process's, or a rank's RAM tier of a replicated
+        state -- is read whole, each tensor streamed to
         its target's card; a subset, or a rank's archive with a member
         that fails its digest, is assembled through the format-v2
         catalog, this archive first, then the peers and the store."""

@@ -55,6 +55,7 @@ import zipfile
 import zlib
 from abc import ABC, abstractmethod
 from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, field
 from typing import Any, BinaryIO, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -119,6 +120,41 @@ def torch_dtype(name: str) -> torch.dtype:
         raise ArchiveError(f"archive uses unavailable dtype {name!r}")
 
 
+@dataclass
+class ShardedLeaf:
+    """One tensor of a state that several processes hold in boxes: its
+    global ``shape`` and ``dtype``; ``pieces``, the boxes this process
+    holds, as ``[([[start, end), ...], tensor of the box's shape)]``; and
+    ``domains``, the global domain map: every distinct box of every
+    process, ``{"idx": [[start, end), ...], "replicas": [process, ...]}``.
+    A save writes it as the JAX package writes a sharded array (its
+    domains with the owner elected among each box's replicas, its pieces
+    as shards); a restore target of this type gets each of its pieces'
+    boxes back, assembled from whatever saved domains cover them."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    pieces: List[Tuple[List[List[int]], torch.Tensor]]
+    domains: List[Dict[str, Any]] = field(default_factory=list)
+
+    def tensors(self) -> List[torch.Tensor]:
+        return [t for _, t in self.pieces]
+
+    def with_tensors(self, tensors: List[torch.Tensor]) -> "ShardedLeaf":
+        """The same boxes holding ``tensors``."""
+        return ShardedLeaf(self.shape, self.dtype, [
+            (idx, t) for (idx, _), t in zip(self.pieces, tensors)],
+            self.domains)
+
+
+def leaf_tensors(leaf) -> List[torch.Tensor]:
+    """The tensors a state leaf holds: itself, a ShardedLeaf's pieces,
+    or none."""
+    if isinstance(leaf, ShardedLeaf):
+        return leaf.tensors()
+    return [leaf] if isinstance(leaf, torch.Tensor) else []
+
+
 def flatten_with_path(tree) -> List[Tuple[List[Dict[str, Any]], Any]]:
     """``(path components, leaf)`` for every leaf of a tree of nested
     dicts, lists and tuples, in ``jax.tree_util``'s order (dict keys
@@ -164,14 +200,20 @@ def state_checksums(tree) -> Dict[str, Any]:
     out: Dict[str, Any] = {}
     for path, leaf in flatten_with_path(tree):
         key = "/".join(str(c.get("k", c.get("i"))) for c in path)
+        if isinstance(leaf, ShardedLeaf):
+            out[key] = [_checksum(t, ints) for t in leaf.tensors()]
+            continue
         if not isinstance(leaf, torch.Tensor):
             out[key] = leaf
             continue
-        bits = leaf.detach().reshape(-1).view(
-            ints[leaf.element_size()]).long()
-        weight = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
-        out[key] = int((bits * weight).sum())
+        out[key] = _checksum(leaf, ints)
     return out
+
+
+def _checksum(t: torch.Tensor, ints) -> int:
+    bits = t.detach().reshape(-1).view(ints[t.element_size()]).long()
+    weight = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+    return int((bits * weight).sum())
 
 
 def _path_json(comps) -> str:
@@ -316,11 +358,12 @@ def snapshot_to_file(snapshot: Any, step: int, fileobj: BinaryIO,
     is the sentinel's verdict at save time, written to the manifest when
     not None (False: saved inside an anomaly window). ``topology``
     (``{"n_processes": N, "process_index": p}``) stamps the save
-    topology into the manifest. Every tensor is replicated over the
-    ``N`` processes (data parallelism, the one layout the port trains
-    with): its one domain names them all as replicas and the owner
-    ``manifest.elect_owner`` picks among them, which the persist tier's
-    owned-only subset (``checkpoint/saver.py``) keeps.
+    topology into the manifest. A tensor leaf is replicated over the
+    ``N`` processes: its one domain names them all as replicas and the
+    owner ``manifest.elect_owner`` picks among them, which the persist
+    tier's owned-only subset (``checkpoint/saver.py``) keeps. A
+    :class:`ShardedLeaf` (a sharded strategy's) carries its own domain
+    map: the owner of each box is elected among that box's replicas.
     """
     me = int(topology["process_index"]) if topology else 0
     manifest: Dict[str, Any] = {
@@ -358,7 +401,9 @@ def snapshot_to_file(snapshot: Any, step: int, fileobj: BinaryIO,
     for comps, leaf in flatten_with_path(snapshot):
         entry: Dict[str, Any] = {"path": comps}
         pkey = ckpt_manifest.path_key(comps)
-        if isinstance(leaf, torch.Tensor):
+        if isinstance(leaf, ShardedLeaf):
+            entry.update(_sharded_entry(leaf, pkey, add_array))
+        elif isinstance(leaf, torch.Tensor):
             shape = list(leaf.shape)
             name = dtype_name(leaf.dtype)
             idx_doc = [[0, int(n)] for n in shape]
@@ -405,6 +450,36 @@ def snapshot_to_file(snapshot: Any, step: int, fileobj: BinaryIO,
         return fileobj.tell()
     except (OSError, AttributeError):
         return -1
+
+
+def _sharded_entry(leaf: ShardedLeaf, pkey: str, add_array
+                   ) -> Dict[str, Any]:
+    """A ShardedLeaf's manifest entry, as the JAX writer makes a sharded
+    array's: the global domain map with an owner elected among each
+    box's replicas, and this process's boxes as shards."""
+    shape = [int(n) for n in leaf.shape]
+    name = dtype_name(leaf.dtype)
+    domains, owners = [], {}
+    for d in leaf.domains:
+        idx = ckpt_manifest.normalize_index(d["idx"], shape)
+        ikey = ckpt_manifest.index_key(idx)
+        if ikey in owners:
+            continue
+        replicas = sorted(int(r) for r in d["replicas"])
+        owner = ckpt_manifest.elect_owner(
+            ckpt_manifest.shard_key(pkey, idx), replicas)
+        owners[ikey] = (owner, replicas)
+        domains.append({"idx": idx, "replicas": replicas, "owner": owner})
+    shards = []
+    for idx, t in leaf.pieces:
+        idx = ckpt_manifest.normalize_index(idx, shape)
+        owner, replicas = owners[ckpt_manifest.index_key(idx)]
+        encoding = ({"dtype": name, "shape": list(t.shape)}
+                    if name in _RAW else None)
+        shards.append({"idx": idx, "replicas": replicas, "owner": owner,
+                       "a": add_array(host_bytes(t), encoding)})
+    return {"kind": "shards", "shape": shape, "dtype": name,
+            "domains": domains, "shards": shards}
 
 
 def _read_exact(fileobj, fd, view: memoryview, pos: int) -> None:
@@ -675,7 +750,16 @@ def _leaf_from_entry(entry, arrays):
 
 def _onto(leaf, tgt, path):
     """An archived leaf as the target leaf asks: a tensor of the same
-    shape and dtype on the target's device."""
+    shape and dtype on the target's device; for a ShardedLeaf target,
+    its boxes cut from the whole archived tensor."""
+    if isinstance(tgt, ShardedLeaf):
+        if not isinstance(leaf, torch.Tensor) or tuple(
+                leaf.shape) != tuple(tgt.shape) or leaf.dtype != tgt.dtype:
+            raise ArchiveError(f"{path}: archive leaf does not match the "
+                               f"target {tgt.dtype}{list(tgt.shape)}")
+        return tgt.with_tensors([
+            _onto(leaf[tuple(slice(a, b) for a, b in idx)], t, path)
+            for idx, t in tgt.pieces])
     if not isinstance(tgt, torch.Tensor):
         return leaf
     if not isinstance(leaf, torch.Tensor):
@@ -1091,14 +1175,21 @@ def _await_shards(store: ObjectStore, step: int, n_processes: int,
 
 
 def _await_keys(store: ObjectStore, step: int, want, timeout: float) -> bool:
+    """Poll the step's listing until it holds ``want``: first after 50
+    ms, the wait doubling up to JAX's fixed interval (a hundredth of the
+    timeout, within 0.05-1 s), so pieces that land at once are seen at
+    once and slow ones cost no more listings than in JAX."""
     deadline = time.time() + timeout
+    cap = min(1.0, max(0.05, timeout / 100))
+    wait = 0.05
     while True:
         have = set(store.list(f"step-{step}/"))
         if want <= have:
             return True
         if time.time() >= deadline:
             return False
-        time.sleep(min(1.0, max(0.05, timeout / 100)))
+        time.sleep(min(wait, cap))
+        wait *= 2
 
 
 def committed_steps(store: ObjectStore) -> List[int]:

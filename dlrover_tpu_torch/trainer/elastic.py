@@ -50,7 +50,10 @@ than logged: a failed device copy must not pass unseen.
 import os
 import time
 import weakref
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
+import torch.distributed as dist
 
 from dlrover_tpu_torch.common.constants import (
     NodeEnv,
@@ -73,6 +76,22 @@ from dlrover_tpu_torch.telemetry.http import attach_hang_detector
 from dlrover_tpu_torch.trainer import profiler
 
 
+def _world() -> int:
+    return dist.get_world_size() if (
+        dist.is_available() and dist.is_initialized()) else 1
+
+
+def _gather_pairs(pair) -> List[Tuple[int, int]]:
+    """Every rank's int pair, over the gloo group of host tensors."""
+    from dlrover_tpu_torch.trainer.distributed import host_group
+
+    group = host_group()
+    mine = torch.tensor(pair, dtype=torch.int64)
+    rows = [torch.empty_like(mine) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(rows, mine, group=group)
+    return [tuple(int(v) for v in r) for r in rows]
+
+
 def compute_accum_steps(max_nodes: int, cur_nodes: int) -> int:
     """gradient_accumulation_steps = ceil(max/cur) keeps the global batch
     fixed when nodes drop out (parity: elastic.py:208)."""
@@ -93,16 +112,27 @@ class ElasticTrainer:
         elastic.report_step(loss=loss)
         elastic.maybe_checkpoint(state)
         order = elastic.sentinel.pending_rollback()  # restore order["step"]
+
+    ``max_nodes`` and ``cur_nodes`` count data-parallel ranks, which by
+    default are those of the trainer's mesh (``parallel/mesh.py``'s
+    ``data_parallel_size``): the ranks of one tensor group share a
+    batch, so they add nothing to the global batch.
     """
 
     def __init__(
         self,
         trainer,
-        max_nodes: int,
-        cur_nodes: int,
+        max_nodes: Optional[int] = None,
+        cur_nodes: Optional[int] = None,
         master_client=None,
         report_interval: int = 10,
     ):
+        from dlrover_tpu_torch.parallel.mesh import data_parallel_size
+
+        mesh = getattr(trainer, "mesh", None)
+        dp = data_parallel_size(mesh) if mesh is not None else 1
+        max_nodes = dp if max_nodes is None else max_nodes
+        cur_nodes = dp if cur_nodes is None else cur_nodes
         self._trainer = trainer
         self._max_nodes = max_nodes
         self._master_client = master_client
@@ -217,6 +247,7 @@ class ElasticTrainer:
     def trainer(self):
         return self._trainer
 
+
     @property
     def train_step(self) -> Callable:
         """The step for the current accumulation count, cached by it:
@@ -278,11 +309,12 @@ class ElasticTrainer:
                     grad_norm=None):
         """Advance the step bookkeeping, tag spans with the step, and
         report the global step to the master every ``report_interval``
-        steps. A completed step feeds the hang detector and is where a
-        planted fault fires; its loss (through a planted corruption)
-        goes to the sentinel, which otherwise polls for a rollback
-        order. Returns ``loss`` as a float (which waits for the step)
-        when one is passed."""
+        steps. A completed step feeds the hang detector; its loss
+        (through a planted corruption) goes to the sentinel, which
+        otherwise polls for a rollback order; above one rank the ranks
+        then agree on the rollback order (ROADMAP C.1), and a planted
+        fault fires last. Returns ``loss`` as a float (which waits for
+        the step) when one is passed."""
         self._global_step = step if step is not None else (
             self._global_step + 1
         )
@@ -294,8 +326,6 @@ class ElasticTrainer:
             self._hang_detector.record_step(self._global_step)
         if self._trace_capture is not None:
             self._trace_capture.step(self._global_step)
-        if self._fault_injector is not None:
-            self._fault_injector.maybe_inject(self._global_step)
         if loss is not None:
             loss = float(loss)
             if self._fault_injector is not None:
@@ -311,6 +341,13 @@ class ElasticTrainer:
             # no scalar this step: still poll for rollback orders
             # issued on another rank's anomaly
             self._sentinel.poll_rollback_order()
+        if self._sentinel is not None and _world() > 1:
+            # the ranks adopt an order at the same step boundary
+            self._sentinel.agree_rollback(_gather_pairs)
+        if self._fault_injector is not None:
+            # after the ranks' agreement: a planted crash or hang ends
+            # the step as a real one would, its collectives all run
+            self._fault_injector.maybe_inject(self._global_step)
         if (
             self._master_client is not None
             and self._global_step % self._report_interval == 0

@@ -261,7 +261,7 @@ def test_strategies(monkeypatch):
         == "ddp"
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 1.1"):
         ShardedTrainer(None, None, device="cpu", strategy="rowwise")
 
 

@@ -64,6 +64,12 @@ def test_the_multi_process_modules_are_under_the_rule():
             "telemetry/http.py"} <= ported
 
 
+def test_the_mesh_modules_are_under_the_rule():
+    ported = {str(p.relative_to(PORT)) for p in FILES if p.is_relative_to(PORT)}
+    assert {"parallel/mesh.py", "parallel/sharding.py",
+            "parallel/tensor_parallel.py", "trainer/sharded.py"} <= ported
+
+
 @pytest.mark.parametrize(
     "path", FILES, ids=[str(p.relative_to(REPO)) for p in FILES])
 def test_no_jax_imports(path):
@@ -172,17 +178,36 @@ def test_a_coworker_process_imports_no_torch():
     assert out.returncode == 0, out.stderr
 
 
+@pytest.fixture(scope="module")
+def torch_free_imports():
+    """Each TORCH_FREE module imported alone in an interpreter of its
+    own, all started together: {module: (return code, stderr)}."""
+    procs = {}
+    for module in TORCH_FREE:
+        code = (
+            "import importlib, sys\n"
+            f"importlib.import_module({module!r})\n"
+            "bad = [m for m in sys.modules if m == 'torch' "
+            "or m.startswith('torch.')]\n"
+            "assert not bad, bad[:5]\n"
+        )
+        procs[module] = subprocess.Popen(
+            [sys.executable, "-c", code], cwd=REPO,
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    try:
+        out = {}
+        for module, p in procs.items():
+            stderr = p.communicate(timeout=120)[1]
+            out[module] = (p.returncode, stderr)
+        return out
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+
+
 @pytest.mark.parametrize("module", TORCH_FREE)
-def test_agent_and_master_modules_load_without_torch(module):
-    code = (
-        "import importlib, sys\n"
-        f"importlib.import_module({module!r})\n"
-        "bad = [m for m in sys.modules if m == 'torch' "
-        "or m.startswith('torch.')]\n"
-        "assert not bad, bad[:5]\n"
-    )
-    out = subprocess.run(
-        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
-        text=True, timeout=120,
-    )
-    assert out.returncode == 0, out.stderr
+def test_agent_and_master_modules_load_without_torch(module,
+                                                      torch_free_imports):
+    returncode, stderr = torch_free_imports[module]
+    assert returncode == 0, stderr

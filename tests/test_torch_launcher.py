@@ -11,6 +11,7 @@ import os
 import re
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 
@@ -36,9 +37,10 @@ EXAMPLE = os.path.join("dlrover_tpu_torch", "examples", "llama_train.py")
 
 
 def launch(tmp, steps=12, save_interval=5, env=None, flags=(),
-           timeout=120):
-    """The launcher with a standalone master around the Llama example;
-    returns (process, its stdout + stderr, the out file's fields)."""
+           timeout=120, example=()):
+    """The launcher with a standalone master around the Llama example
+    (``example``: more of its flags); returns (process, its stdout +
+    stderr, the out file's fields)."""
     out = os.path.join(tmp, "out.txt")
     cmd = [
         sys.executable, "-m", "dlrover_tpu_torch.trainer.elastic_run",
@@ -46,7 +48,7 @@ def launch(tmp, steps=12, save_interval=5, env=None, flags=(),
         "--max_restarts", "2", *flags, EXAMPLE, "--",
         "--steps", str(steps), "--save-interval", str(save_interval),
         "--batch-size", "4", "--seq-len", "32", "--device", "cpu",
-        "--ckpt-dir", os.path.join(tmp, "ckpt"), "--out", out,
+        "--ckpt-dir", os.path.join(tmp, "ckpt"), "--out", out, *example,
     ]
     full_env = {k: v for k, v in os.environ.items()
                 if not k.startswith(("DLROVER_TPU_", "DLROVER_FAULT"))}
@@ -72,8 +74,35 @@ def step_losses(stdout: str):
     return runs
 
 
-def test_plain_run_ends_with_final(tmp_path):
-    proc, text, fields = launch(str(tmp_path), steps=12)
+#: the module's launches: a plain run, and ``crash@8`` at one worker and
+#: at two (``--nproc_per_node 2``, ``--strategy fsdp``)
+_LAUNCHES = {
+    "plain": {},
+    1: {"env": {"DLROVER_FAULT_INJECT": "crash@8"}},
+    2: {"env": {"DLROVER_FAULT_INJECT": "crash@8"},
+        "flags": ("--nproc_per_node", "2"),
+        "example": ("--strategy", "fsdp")},
+}
+
+
+@pytest.fixture(scope="module")
+def launches(tmp_path_factory):
+    """Each of _LAUNCHES, all run together (each launcher with a master
+    of its own, on a directory of its own, its journal on):
+    {key: (launch()'s result, the journal's path)}."""
+    def run(key):
+        tmp = tmp_path_factory.mktemp(f"launch_{key}")
+        journal = str(tmp / "journal.jsonl")
+        kwargs = dict(_LAUNCHES[key])
+        env = {**kwargs.pop("env", {}), "DLROVER_TPU_JOURNAL": journal}
+        return launch(str(tmp), env=env, **kwargs), journal
+
+    with ThreadPoolExecutor(len(_LAUNCHES)) as pool:
+        return dict(zip(_LAUNCHES, pool.map(run, _LAUNCHES)))
+
+
+def test_plain_run_ends_with_final(launches):
+    (proc, text, fields), _ = launches["plain"]
     assert proc.returncode == 0, text[-3000:]
     assert "FINAL step=12" in proc.stdout
     assert "DEVICE cpu" in proc.stdout
@@ -84,26 +113,55 @@ def test_plain_run_ends_with_final(tmp_path):
     assert sorted(losses) == list(range(1, 13))
 
 
-def test_crash_drill_restores_and_replays_bitwise(tmp_path):
+def _per_rank_steps(events):
+    """{rank: [{step: loss} of each incarnation]} from the journal's
+    ``train.step`` events, a process's rank from its
+    ``distributed.init``."""
+    rank = {e["pid"]: e["data"]["rank"] for e in events
+            if e["kind"] == "distributed.init"}
+    runs = {}
+    for e in events:
+        if e["kind"] == "train.step":
+            by_pid = runs.setdefault(rank[e["pid"]], {})
+            by_pid.setdefault(e["pid"], {})[e["data"]["step"]] = \
+                e["data"]["loss"]
+    return {r: list(pids.values()) for r, pids in runs.items()}
+
+
+@pytest.mark.parametrize("nproc", [1, 2])
+def test_crash_drill_restores_and_replays_bitwise(launches, nproc):
     """``crash@8``: the worker dies after step 8's update, the agent
     restarts it, it restores the step-5 checkpoint, trains steps 6-12
     and the launcher exits 0. Steps 6 and 7 ran in both incarnations,
-    with the same losses to the last bit."""
-    journal = str(tmp_path / "journal.jsonl")
-    proc, text, fields = launch(str(tmp_path), env={
-        "DLROVER_FAULT_INJECT": "crash@8", "DLROVER_TPU_JOURNAL": journal})
+    with the same losses to the last bit. At ``--nproc_per_node 2`` the
+    two workers train ``--strategy fsdp`` over a gloo group of two, save
+    their own shards, both crash and come back, and each restores its
+    shards of step 5."""
+    (proc, text, fields), journal = launches[nproc]
     assert proc.returncode == 0, text[-3000:]
     assert "INJECTED CRASH rc=17 at step 8" in proc.stdout
-    assert "RESTORED from step 5" in proc.stdout
-    assert "FINAL step=12" in proc.stdout
+    assert proc.stdout.count("RESTORED from step 5") == nproc
+    assert proc.stdout.count("FINAL step=12") == nproc
     assert int(fields[0]) == 12 and int(fields[2]) == 5
+    events = read_journal(journal)
+    if nproc == 2:
+        runs = _per_rank_steps(events)
+        assert sorted(runs) == [0, 1]
+        for first, second in runs.values():
+            assert sorted(first) == list(range(1, 8))
+            assert sorted(second) == list(range(6, 13))
+            assert {k: second[k] for k in (6, 7)} == {
+                k: first[k] for k in (6, 7)}
+        assert runs[0] == runs[1]  # the loss is the global batch's
+        saves = [e for e in events if e["kind"] == "checkpoint.save"]
+        assert {e["data"]["tier"] for e in saves} == {"ram"}
+        return
     first, second = step_losses(proc.stdout)
     assert sorted(first) == list(range(1, 8))
     assert sorted(second) == list(range(6, 13))
     assert {k: second[k] for k in (6, 7)} == {k: first[k] for k in (6, 7)}
     # one journal of master, agent and both workers, in causal order,
     # with the marks a recovery's timeline is read from
-    events = read_journal(journal)
     kinds = [e["kind"] for e in events]
     order = ["checkpoint.save", "fault.injected", "scale.restart",
              "checkpoint.restore"]

@@ -301,9 +301,10 @@ def test_default_device_is_the_gpu():
 
 
 def test_unported_strategy_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_trainer_for_llama(llama.llama_tiny(), device="cpu",
-                               strategy="fsdp")
+    for strategy, item in (("sequence", "A.1.3"), ("pipeline", "A.1.4")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+            make_trainer_for_llama(llama.llama_tiny(), device="cpu",
+                                   strategy=strategy)
 
 
 def test_make_trainer_for_dispatches_llama():
