@@ -45,14 +45,26 @@ Phases, each of which raises on failure:
    range(24) once); finite losses and 22 launches of each kernel per
    step; no coworker loads libcuda or torch and no second process holds
    a CUDA context; no ring left in ``/dev/shm``;
-7. elastic: the elastic loop at the same width -- the master's data
+7. optim: ``optim/`` on the same Llama-1.1B step, the first trainer
+   freed: 3 AdamW steps from seed 0, then 3 ``bf16_adamw(1e-4,
+   guard_nonfinite=True)`` steps from the same seed (fp32 masters, a
+   bf16 first moment: 10 bytes of state per parameter, AdamW's printed
+   beside it) -- every bf16 parameter its master rounded, the losses
+   within 1e-2 of AdamW's -- then a fourth step with an inf planted in
+   one element of the embedding's gradient, which must leave the
+   parameters, masters and moments bitwise as they were (the state's
+   checksums), give ``guard_stats`` (1, non-finite) and make the
+   sentinel report ``nonfinite_grad``; then 2 steps under
+   ``wsam_value_and_grad`` (44 launches of each kernel a step). Each
+   step's ms is printed;
+8. elastic: the elastic loop at the same width -- the master's data
    shards through a ShardingClient, ElasticTrainer steps, flash
    checkpoints at steps 4 and 8 -- then a crash, a fresh trainer
    restored from step 4 on the RAM tier (model, optimizer and data
    position), steps 5-8 again, and a restore from the persist tier:
    state checksums, shards and losses against the uninterrupted run,
    stall, staging, serialize, persist and restore times;
-8. eval: the checkpoint evaluator -- a llama_1b state trains 4 steps; at
+9. eval: the checkpoint evaluator -- a llama_1b state trains 4 steps; at
    steps 2 and 4 its held-out loss (a 3 x 2048 batch from seed 9999) is
    computed directly and the state saved durably; a
    ``CheckpointEvaluator`` restores each step into a fresh model,
@@ -62,7 +74,7 @@ Phases, each of which raises on failure:
    one, 22 forward launches and no backward launch per evaluation, the
    collector holding step 4 and its loss; restore seconds, forward ms
    and save-to-report seconds are printed;
-9. families: the other model families. GPT-2 XL (48 layers, hidden
+10. families: the other model families. GPT-2 XL (48 layers, hidden
    1600, 25 heads, vocab 50257, tied head) trains at batch 8 x 1024
    through ``make_trainer_for`` under AdamW, 2 warm-up and 5 timed
    steps: step time, tokens/s, MFU, peak memory, 48 launches of each
@@ -73,12 +85,12 @@ Phases, each of which raises on failure:
    batch 4096 under adagrad(0.05), bench.py's fields, its first 3 steps
    against the port's on the CPU. The MNIST CNN at batch 64, 5
    adam(1e-3) steps against the CPU's, under torch's TF32 defaults;
-10. launch: the llama_1b loop as a user runs it (at full width, cut to
-   ``LAUNCHER_LAYERS`` = 4 layers, as are phases 11 and 12), under the elastic
+11. launch: the llama_1b loop as a user runs it (at full width, cut to
+   ``LAUNCHER_LAYERS`` = 4 layers, as are phases 12 and 13), under the elastic
    launcher (``python -m dlrover_tpu_torch.trainer.elastic_run
    --standalone``: the local master, the agent and the worker in
    processes of their own; the example's ``--strategy ddp``, as in
-   phases 11 and 12) with ``DLROVER_FAULT_INJECT=crash@10``: the
+   phases 12 and 13) with ``DLROVER_FAULT_INJECT=crash@10``: the
    worker dies after step 10, the agent restarts it, it restores the
    newest checkpoint committed before the crash and trains to step 12;
    the launcher's exit, the restore, the worker's card and the losses of
@@ -91,7 +103,7 @@ Phases, each of which raises on failure:
    phases to its elapsed time within 1%, recover the crash's fault
    window and book the gap after the crash as ``restart``; goodput %,
    badput by cause and MTTR of both are printed beside ``recovery_s``;
-11. drain: two launches of the same loop on one checkpoint directory.
+12. drain: two launches of the same loop on one checkpoint directory.
     Launch A is preempted (``preempt@6:notice=30``, a 25 s drain budget):
     the worker drains at the end of step 6 -- the master told, a durable
     emergency save of step 6 on the persist tier, its shards handed back
@@ -105,7 +117,7 @@ Phases, each of which raises on failure:
     drain must fit its budget, and the replay of both launches must book
     ``preempt`` and ``rollback`` badput and recover the rollback's
     window;
-12. world: several processes. One master service of its own and two
+13. world: several processes. One master service of its own and two
     launchers (``--nnodes 2:2 --node_rank {0,1} --network-check``), each
     supervising one worker; both workers run on ``cuda:0`` in one gloo
     group (``--dist-backend gloo``: NCCL refuses two ranks on one
@@ -125,7 +137,7 @@ Phases, each of which raises on failure:
     ``/ckpt/shard``; steps 9-10 replayed bitwise; both launchers exit 0
     with ``FINAL step=12``. Printed: step and reduction ms, save stalls
     and bytes, restore seconds and peer bytes, ``recovery_s``;
-13. mesh: the sharding strategies across ranks (``trainer/sharded.py``),
+14. mesh: the sharding strategies across ranks (``trainer/sharded.py``),
     the same llama_1b cut to 4 layers, batch 3 x 2048 per data-parallel
     rank, AdamW(1e-4, 0.9, 0.95), 1 warm-up and 3 timed steps each (2
     for tp_fsdp, for the script's time limit). Two gloo ranks on
@@ -148,8 +160,22 @@ Phases, each of which raises on failure:
     into fresh ranks bitwise (the checksums of every shard) and whole
     into this process. Printed per strategy: step and collective ms,
     peak memory, bytes per rank, the parameters' share within 2 lr and
-    their update's relative error; the collective route of the layer;
-14. the wall seconds of each phase, then the kernels line (one JSON
+    their update's relative error; the collective route of the layer.
+    Then, in the same two ranks, the Llama state freed, "rowwise" on
+    (data 1, fsdp 2): (a) criteo_wide_deep (734,208 rows) at batch 4096,
+    3 adagrad(0.05) steps against the one-process step from the same
+    seed -- losses within 1e-5 relative, every parameter within 1e-5 of
+    its largest element, each rank holding half the tables' bytes --
+    and the save of step 3 restored bitwise into this process; (b)
+    dlrm_large at 100M rows (100,000,768 padded, embed 32, bottom MLP
+    64-32; each rank draws only its own rows), batch 4096, 1 warm-up and
+    3 timed steps, then a gated step: the lookup on its ids equal to the
+    rows fetched from the two shards on the host, a finite loss, every
+    row the batch touched changed and no other row (chunked checksums).
+    Printed: step ms, the lookup's all-reduce ms per step, table bytes
+    and peak memory per rank. A rowwise step without the all-reduce
+    fails the parity gate (``tests/test_torch_rowwise_gpu.py``);
+15. the wall seconds of each phase, then the kernels line (one JSON
     object; each kernel at both train steps' shapes and at the tp shape
     of "mesh", with ``mesh_launches``), then the card's name and power
     limit, then the device line, last.
@@ -2529,9 +2555,26 @@ MESH_SAVE_STEP = 2
 #: rank count -> [(strategy, mesh spec)], each group's ranks reused
 MESH_RUNS = {
     2: [("zero1", [("fsdp", 2)]), ("zero2", [("fsdp", 2)]),
-        ("fsdp", [("fsdp", 2)]), ("tp", [("tensor", 2)])],
+        ("fsdp", [("fsdp", 2)]), ("tp", [("tensor", 2)]),
+        ("rowwise", [("data", 1), ("fsdp", 2)])],
     4: [("tp_fsdp", [("fsdp", 2), ("tensor", 2)])],
 }
+#: "rowwise" (the recommender): (a) criteo_wide_deep at batch ROWWISE_BATCH,
+#: ROWWISE_STEPS adagrad(0.05) steps against the one-process step from the
+#: same seed; (b) dlrm_large at ROWWISE_SCALE_ROWS rows at its published
+#: width, 1 warm-up and ROWWISE_SCALE_TIMED timed steps, then one gated
+#: step. 400M rows with their state (about 158 GB) fit no single card.
+ROWWISE_BATCH = 4096
+ROWWISE_STEPS = 3
+ROWWISE_LOSS_RTOL = 1e-5
+#: a parameter's largest difference from the reference, relative to the
+#: reference tensor's largest element (fp32: the sharded gradient's sums
+#: run in another order than the one-process gather's)
+ROWWISE_PARAM_TOL = 1e-5
+ROWWISE_SCALE_ROWS = 100_000_000
+#: the scale run on CPU ranks (a dry run of its logic): a small table
+ROWWISE_SCALE_ROWS_CPU = 200_000
+ROWWISE_SCALE_TIMED = 3
 MESH_TIMEOUT_S = 300
 #: the tp shape of the flash kernels: the Llama step's heads split over 2
 SLICE_TP = dict(SLICE, h=SLICE["h"] // 2, kvh=SLICE["kvh"] // 2)
@@ -2658,7 +2701,9 @@ def mesh_rank(work: str, layers: int, device=None) -> None:
     opt = adamw(MESH_LR, b1=0.9, b2=0.95)
     out = {"rank": env.rank, "route": coll.collective_route(
         dist.group.WORLD), "runs": {}}
-    init = torch.load(os.path.join(work, "init.pt"), map_location="cpu")
+    init_path = os.path.join(work, "init.pt")
+    init = (torch.load(init_path, map_location="cpu")
+            if os.path.exists(init_path) else None)
 
     def trainer_for(strategy, spec, seed):
         t = make_trainer_for_llama(cfg, device=device, strategy=strategy,
@@ -2669,6 +2714,13 @@ def mesh_rank(work: str, layers: int, device=None) -> None:
 
     for strategy, spec in plan["runs"][str(env.world_size)]:
         spec = [tuple(x) for x in spec]
+        if strategy == "rowwise":
+            torch.cuda.empty_cache() if device != "cpu" else None
+            out["runs"][strategy] = rowwise_rank(
+                work, spec, env.rank, device,
+                plan["plants"].get(strategy), plan["rowwise_scale"])
+            dist.barrier()
+            continue
         # the global batch: 3 rows per data-parallel rank
         n_rows = _dp_size(spec) * SLICE["b"]
         steps = _mesh_steps(strategy)
@@ -2764,6 +2816,8 @@ def _mesh_reference(work: str, layers: int, runs, device=None) -> dict:
     wanted = {}
     for group in runs.values():
         for strategy, spec in group:
+            if strategy == "rowwise":
+                continue
             wanted.setdefault(_dp_size(spec), set()).add(
                 _mesh_steps(strategy))
     out = {}
@@ -2792,6 +2846,300 @@ def _mesh_reference(work: str, layers: int, runs, device=None) -> dict:
         if device != "cpu":
             torch.cuda.empty_cache()
     return out
+
+
+def _rowwise_cfg(scale: bool, device=None):
+    from dlrover_tpu_torch.models import dlrm
+
+    if not scale:
+        return dlrm.criteo_wide_deep()
+    return dlrm.dlrm_large(total_vocab=(
+        ROWWISE_SCALE_ROWS_CPU if device == "cpu" else ROWWISE_SCALE_ROWS))
+
+
+def _clicks(cfg, n: int, seed: int):
+    """A batch of ``n`` clicks whose ids spread over every feature's whole
+    vocabulary: (dense fp32, cat_ids int32, labels int32)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    cat = np.stack([rng.integers(0, v, n) for v in cfg.vocab_sizes],
+                   axis=1).astype(np.int32)
+    return (rng.standard_normal((n, cfg.dense_dim)).astype(np.float32),
+            cat, rng.integers(0, 2, n).astype(np.int32))
+
+
+def _plant_rowwise(plant):
+    """"no_allreduce": the lookup's sum over fsdp left out, so each rank
+    sees only its own rows' embeddings. Returns the undo."""
+    from dlrover_tpu_torch.parallel import embedding
+
+    if plant is None:
+        return lambda: None
+    if plant != "no_allreduce":
+        raise ValueError(f"no planted rowwise fault {plant!r}")
+
+    class _NoSum:
+        def __getattr__(self, name):
+            return getattr(saved, name)
+
+        @staticmethod
+        def all_reduce_(t, group, op=None):
+            return t
+
+    saved = embedding.coll
+    embedding.coll = _NoSum()
+    return lambda: setattr(embedding, "coll", saved)
+
+
+def _chunk_checksum(t) -> int:
+    """A position-weighted checksum of a large table's bits, on its
+    device, in blocks of rows (``ckpt_store.state_checksums`` whole would
+    take an int64 copy of the table)."""
+    import torch
+
+    total, rows = 0, max(1, (1 << 24) // max(1, t[0].numel()))
+    flat_at = 0
+    for i in range(0, t.shape[0], rows):
+        bits = t[i:i + rows].reshape(-1).view(torch.int32).long()
+        w = (torch.arange(bits.numel(), device=t.device) + flat_at) % 65521
+        total += int((bits * (w + 1)).sum())
+        flat_at += bits.numel()
+    return total
+
+
+def rowwise_rank(work: str, spec, rank: int, device, plant,
+                 scale: bool) -> dict:
+    """One rank of "rowwise": (a) the CRITEO parity run and the save of
+    its last step, (b) with ``scale`` the dlrm_large run."""
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.models import dlrm
+    from dlrover_tpu_torch.parallel.mesh import create_mesh
+    from dlrover_tpu_torch.trainer import ckpt_store
+    from dlrover_tpu_torch.trainer.checkpoint import FlashCheckpointer
+
+    undo = _plant_rowwise(plant)
+    cuda = device != "cpu"
+    try:
+        mesh = create_mesh(spec, device=device)
+        cfg = _rowwise_cfg(False)
+        data = np.load(os.path.join(work, "rowwise_batches.npz"))
+        t = dlrm.make_trainer(cfg, device=device, mesh=mesh)
+        t.init(seed=0)
+        run = {"losses": [], "step_ms": [], "collective_ms": []}
+        for i in range(ROWWISE_STEPS):
+            mb = t.shard_batch(t.microbatch(t.split_batch(tuple(
+                data[f"{k}{i}"] for k in ("dense", "cat", "labels")))))
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run["losses"].append(t.train_step(mb).item())
+            run["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            run["collective_ms"].append(t.reduce_seconds * 1e3)
+        run["bytes"] = t.state_bytes()
+        run["table_bytes"] = 4 * (t.model.table.numel()
+                                  + t.model.wide.numel())
+        run["device"] = str(t.model.table.device)
+        ref = torch.load(os.path.join(work, "rowwise_reference.pt"),
+                         map_location="cpu")
+        run["param_err"] = {}
+        for name, box, shard in t.local_shards():
+            want = ref[name][tuple(slice(a, b) for a, b in box)].float()
+            diff = (shard.detach().cpu().float() - want).abs().max()
+            run["param_err"][name] = float(diff) / max(
+                float(ref[name].abs().max()), 1e-30)
+        ckpt = FlashCheckpointer(os.path.join(work, "rowwise_store"),
+                                 ram_dir=os.path.join(work,
+                                                      f"rowwise_ram{rank}"),
+                                 persist_interval=ROWWISE_STEPS)
+        ckpt.save(ROWWISE_STEPS, {**t.train_state(), "step": ROWWISE_STEPS,
+                                  "data": ""})
+        ckpt.close()  # persisted, and committed by rank 0
+        run["saved_whole_sums"] = ckpt_store.state_checksums(
+            t.gathered_params())
+        del t, ref
+        if scale:
+            run["scale"] = _rowwise_scale(work, mesh, rank, device)
+        return run
+    finally:
+        undo()
+
+
+def _rowwise_scale(work: str, mesh, rank: int, device) -> dict:
+    """dlrm_large on the mesh: each rank draws only its rows; the timed
+    steps; then one gated step: the lookup on its ids (saved beside the
+    rows this rank fetched to the host, for the parent to add up), a
+    finite loss, every row the batch touched changed and no other row."""
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.models import dlrm
+    from dlrover_tpu_torch.parallel.embedding import (
+        stack_ids, vocab_parallel_lookup)
+
+    cuda = device != "cpu"
+    if cuda:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    cfg = _rowwise_cfg(True, device)
+    t0 = time.perf_counter()
+    t = dlrm.make_trainer(cfg, device=device, mesh=mesh)
+    t.init(seed=0)
+    if cuda:
+        torch.cuda.synchronize()
+    out = {"total_vocab": cfg.total_vocab, "padded_vocab": cfg.padded_vocab,
+           "embed_dim": cfg.embed_dim, "bottom_mlp": list(cfg.bottom_mlp),
+           "init_s": time.perf_counter() - t0,
+           "table_bytes": 4 * (t.model.table.numel() + t.model.wide.numel()),
+           "rows": list(t.model.rows), "step_ms": [], "collective_ms": [],
+           "losses": []}
+    batches = [t.shard_batch(t.microbatch(_clicks(cfg, ROWWISE_BATCH,
+                                                   100 + i)))
+               for i in range(ROWWISE_SCALE_TIMED + 2)]
+    for mb in batches[:-1]:  # the first is the warm-up
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out["losses"].append(t.train_step(mb).item())
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["collective_ms"].append(t.reduce_seconds * 1e3)
+    dense, cat, labels = (x[0] for x in batches[-1])
+    model = t.model
+    lo, hi = model.rows
+    with torch.no_grad():
+        ids = torch.minimum(cat.clamp(min=0), model.sizes[None, :] - 1)
+        rows = stack_ids(ids.to(model.offsets.dtype), model.offsets).long()
+        emb = vocab_parallel_lookup(model.table.detach(), rows, mesh)
+        owned = (rows >= lo) & (rows < hi)
+        fetched = torch.zeros_like(emb).cpu()
+        fetched[owned.cpu()] = model.table[rows[owned] - lo].cpu()
+        np.save(os.path.join(work, f"rowwise_emb{rank}.npy"),
+                emb.cpu().numpy())
+        np.save(os.path.join(work, f"rowwise_fetched{rank}.npy"),
+                fetched.numpy())
+        touched = torch.unique(rows[owned]) - lo
+        before = {n: getattr(model, n)[touched].clone()
+                  for n in ("table", "wide")}
+        sums = {n: _chunk_checksum(getattr(model, n).detach())
+                for n in ("table", "wide")}
+    loss = t.train_step(batches[-1]).item()
+    with torch.no_grad():
+        out["gate_loss"] = loss
+        out["touched_rows"] = int(touched.numel())
+        out["untouched_equal"], out["touched_changed_share"] = {}, {}
+        for n in ("table", "wide"):
+            p = getattr(model, n)
+            after = p[touched].clone()
+            changed = (after != before[n]).any(dim=1)
+            out["touched_changed_share"][n] = float(changed.float().mean())
+            p[touched] = before[n]
+            out["untouched_equal"][n] = _chunk_checksum(p.detach()) == sums[n]
+            p[touched] = after
+    out["peak_mem_gb"] = (torch.cuda.max_memory_allocated() / 2**30
+                          if cuda else None)
+    del t, model, batches, before
+    if cuda:
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _rowwise_reference(work: str, device=None) -> dict:
+    """The batches of the CRITEO parity run, and the port's one-process
+    step on them from the same seed: its losses; its parameters after
+    the last step go to ``rowwise_reference.pt``."""
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.models import dlrm
+
+    cfg = _rowwise_cfg(False)
+    arrays = {}
+    for i in range(ROWWISE_STEPS):
+        for k, x in zip(("dense", "cat", "labels"),
+                        _clicks(cfg, ROWWISE_BATCH, 10 + i)):
+            arrays[f"{k}{i}"] = x
+    np.savez(os.path.join(work, "rowwise_batches.npz"), **arrays)
+    t = dlrm.make_trainer(cfg, device=device)
+    t.init(seed=0)
+    losses = [t.train_step(t.shard_batch(t.microbatch(tuple(
+        arrays[f"{k}{i}"] for k in ("dense", "cat", "labels"))))).item()
+        for i in range(ROWWISE_STEPS)]
+    torch.save({n: p.detach().cpu() for n, p in t.gathered_params().items()},
+               os.path.join(work, "rowwise_reference.pt"))
+    return {"losses": losses}
+
+
+def _rowwise_gates(work: str, ranks, reference, solo_sums, device,
+                   failed: list) -> dict:
+    """The gates of "rowwise" over its ranks' results; its readings."""
+    import numpy as np
+
+    from dlrover_tpu_torch.models import dlrm
+
+    runs = [r["runs"]["rowwise"] for r in ranks]
+    cfg = _rowwise_cfg(False)
+    want = reference["losses"]
+    line = {
+        "mesh": {"data": 1, "fsdp": len(runs)}, "batch": ROWWISE_BATCH,
+        "steps": ROWWISE_STEPS, "losses": [r["losses"] for r in runs],
+        "reference_losses": want,
+        "loss_rel": max(abs(a - b) / abs(b) for r in runs
+                        for a, b in zip(r["losses"], want)),
+        "param_err_max": max(max(r["param_err"].values()) for r in runs),
+        "param_err": runs[0]["param_err"],
+        "step_ms": [r["step_ms"] for r in runs],
+        "collective_ms": [r["collective_ms"] for r in runs],
+        "table_bytes_per_rank": [r["table_bytes"] for r in runs],
+        "bytes": [r["bytes"] for r in runs],
+        "restored_one_rank_bitwise": solo_sums == runs[0]["saved_whole_sums"],
+    }
+    for i, r in enumerate(runs):
+        if line["loss_rel"] > ROWWISE_LOSS_RTOL:
+            failed.append(f"rowwise rank {i}: losses {r['losses']} vs the "
+                          f"one-process {want}")
+        bad = {n: e for n, e in r["param_err"].items()
+               if e > ROWWISE_PARAM_TOL}
+        if bad:
+            failed.append(f"rowwise rank {i}: parameters off the "
+                          f"one-process step's: {bad}")
+        if 2 * r["table_bytes"] != dlrm.table_bytes(cfg):
+            failed.append(f"rowwise rank {i}: {r['table_bytes']} table "
+                          f"bytes, not half of {dlrm.table_bytes(cfg)}")
+        if device != "cpu" and r["device"] != "cuda:0":
+            failed.append(f"rowwise rank {i} on {r['device']}")
+    if not line["restored_one_rank_bitwise"]:
+        failed.append("rowwise: the save did not restore bitwise into "
+                      "one rank")
+    scales = [r.get("scale") for r in runs]
+    if scales[0] is not None:
+        emb = [np.load(os.path.join(work, f"rowwise_emb{r}.npy"))
+               for r in range(len(runs))]
+        fetched = sum(np.load(os.path.join(work, f"rowwise_fetched{r}.npy"))
+                      for r in range(len(runs)))
+        line["scale"] = {
+            **{k: scales[0][k] for k in ("total_vocab", "padded_vocab",
+                                         "embed_dim", "bottom_mlp")},
+            "per_rank": scales,
+            "lookup_equals_host_rows": all(np.array_equal(e, fetched)
+                                           for e in emb)}
+        if not line["scale"]["lookup_equals_host_rows"]:
+            failed.append("rowwise scale: the lookup differs from the rows "
+                          "fetched from the shards")
+        for i, sc in enumerate(scales):
+            if not math.isfinite(sc["gate_loss"]):
+                failed.append(
+                    f"rowwise scale rank {i}: loss {sc['gate_loss']}")
+            if not all(sc["untouched_equal"].values()):
+                failed.append(f"rowwise scale rank {i}: rows the batch did "
+                              f"not touch changed {sc['untouched_equal']}")
+            if min(sc["touched_changed_share"].values()) < 1.0:
+                failed.append(f"rowwise scale rank {i}: touched rows "
+                              f"unchanged {sc['touched_changed_share']}")
+    return line
 
 
 def _mesh_ranks(work: str, n: int, layers: int, device=None):
@@ -2835,14 +3183,16 @@ def _mesh_ranks(work: str, n: int, layers: int, device=None):
 
 
 def run_mesh(layers: int = MESH_LAYERS, device=None, runs=None,
-             plants=None) -> dict:
+             plants=None, rowwise_scale: bool = True) -> dict:
     """Phase "mesh"'s body at ``layers`` layers: the reference, each rank
-    group's strategies (``runs``, by default MESH_RUNS), the restore of
-    the fsdp save into one rank, the gates; returns the readings and the
-    failed gates. ``plants`` ({strategy: "no_step" or "no_reduce"})
-    plants a fault in a strategy's ranks, as a control of the gates.
-    ``device="cpu"`` runs llama_tiny on CPU ranks instead (the logic
-    alone: no kernel launches there)."""
+    group's strategies (``runs``, by default MESH_RUNS), the restores of
+    the fsdp and rowwise saves into one rank, the gates; returns the
+    readings and the failed gates. ``plants`` ({strategy: "no_step" or
+    "no_reduce"}, and for rowwise "no_allreduce") plants a fault in a
+    strategy's ranks, as a control of the gates; ``rowwise_scale=False``
+    leaves out rowwise's dlrm_large run. ``device="cpu"`` runs llama_tiny
+    and a small dlrm_large on CPU ranks instead (the logic alone: no
+    kernel launches there)."""
     import numpy as np
     import torch
 
@@ -2854,8 +3204,11 @@ def run_mesh(layers: int = MESH_LAYERS, device=None, runs=None,
 
     runs = MESH_RUNS if runs is None else runs
     saves = any(s == "fsdp" for group in runs.values() for s, _ in group)
+    rowwise = [n for n, group in runs.items()
+               if any(s == "rowwise" for s, _ in group)]
     cfg = _mesh_cfg(layers, device)
-    steps = max(_mesh_steps(s) for group in runs.values() for s, _ in group)
+    steps = max([_mesh_steps(s) for group in runs.values() for s, _ in group
+                 if s != "rowwise"] or [1])
     work = tempfile.mkdtemp(prefix="dlrover_mesh_")
     failed, readings = [], {}
     try:
@@ -2866,9 +3219,12 @@ def run_mesh(layers: int = MESH_LAYERS, device=None, runs=None,
         np.savez(os.path.join(work, "batches.npz"),
                  tokens=tokens[:, :, :-1], targets=tokens[:, :, 1:])
         with open(os.path.join(work, "runs.json"), "w") as f:
-            json.dump({"runs": runs, "plants": plants or {}}, f)
+            json.dump({"runs": runs, "plants": plants or {},
+                       "rowwise_scale": rowwise_scale}, f)
         t0 = time.time()
         reference = _mesh_reference(work, layers, runs, device)
+        if rowwise:
+            row_reference = _rowwise_reference(work, device)
         readings["reference_s"] = time.time() - t0
         results = {}
         for n in runs:
@@ -2890,6 +3246,24 @@ def run_mesh(layers: int = MESH_LAYERS, device=None, runs=None,
             solo.load_train_state(got)
             solo_sums = ckpt_store.state_checksums(solo.gathered_params())
             del solo, got
+        if rowwise:
+            # the rowwise step restores whole into one rank
+            from dlrover_tpu_torch.models import dlrm
+
+            solo = dlrm.make_trainer(_rowwise_cfg(False), device=device)
+            solo.init(seed=1)
+            reader = FlashCheckpointer(
+                os.path.join(work, "rowwise_store"),
+                ram_dir=os.path.join(work, "rowwise-ram-solo"))
+            got, _ = reader.restore(
+                target={**solo.train_state(), "step": 0, "data": ""})
+            reader.close()
+            solo.load_train_state(got)
+            readings["rowwise"] = _rowwise_gates(
+                work, results[rowwise[0]], row_reference,
+                ckpt_store.state_checksums(solo.gathered_params()), device,
+                failed)
+            del solo, got
         if device != "cpu":
             torch.cuda.empty_cache()
     finally:
@@ -2901,6 +3275,8 @@ def run_mesh(layers: int = MESH_LAYERS, device=None, runs=None,
     strategies = {}
     for n, ranks in results.items():
         for strategy, spec in runs[n]:
+            if strategy == "rowwise":
+                continue
             runs_ = [r["runs"][strategy] for r in ranks]
             steps = _mesh_steps(strategy)
             want = reference[_dp_size(spec)][:steps]
@@ -2998,7 +3374,7 @@ def run_mesh(layers: int = MESH_LAYERS, device=None, runs=None,
         "launches": {
             shape: {k: sum(r["runs"][s]["launches"][k]
                            for n, ranks in results.items() for r in ranks
-                           for s, spec in runs[n]
+                           for s, spec in runs[n] if s != "rowwise"
                            if (s in ("tp", "tp_fsdp")) == (shape == "tp"))
                     for k in REPLACES}
             for shape in ("dense", "tp")},
@@ -3012,7 +3388,8 @@ def phase_mesh() -> dict:
     tp_fsdp on (fsdp 2, tensor 2), four. Each against the port's
     single-process step from the same weights on the same global
     batches; an fsdp save at step 2 restored into fresh ranks and into
-    one rank."""
+    one rank. Then "rowwise" in the two ranks (the docstring's phase
+    14)."""
     import torch
 
     gc.collect()
@@ -3028,6 +3405,157 @@ def phase_mesh() -> dict:
         raise AssertionError("mesh: " + "; ".join(got["failed"]))
     return got["readings"]
 
+
+
+#: phase "optim": the optimizers of ``optim/`` on the Llama-1.1B step
+OPTIM_STEPS = 3
+OPTIM_LR = 1e-4
+#: the losses of bf16_adamw against AdamW's from the same seed
+OPTIM_LOSS_ATOL = 1e-2
+OPTIM_WSAM_STEPS = 2
+
+
+def _optim_trainer(cfg, optimizer, value_and_grad=None):
+    from dlrover_tpu_torch.trainer.sharded import make_trainer_for_llama
+
+    t = make_trainer_for_llama(cfg, strategy="ddp", optimizer=optimizer,
+                               value_and_grad=value_and_grad)
+    t.init(seed=0)
+    return t
+
+
+def _optim_steps(t, batches, launches_per_step: int, failed: list,
+                 what: str) -> dict:
+    """Each batch's step on the card, timed one by one: the losses, the
+    step ms, and the gate on the kernels' launches."""
+    import torch
+
+    from dlrover_tpu_torch.ops.cuda import flash_attention as fa
+
+    losses, ms = [], []
+    fa.reset_launches()
+    for mb in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(t.train_step(mb)))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    want = launches_per_step * len(batches)
+    if any(n != want for n in fa.LAUNCHES.values()):
+        failed.append(f"{what}: launches {dict(fa.LAUNCHES)}, want {want}")
+    if not all(math.isfinite(x) for x in losses):
+        failed.append(f"{what}: losses {losses}")
+    return {"losses": losses, "step_ms": ms}
+
+
+def phase_optim() -> dict:
+    """``optim/`` on the Llama-1.1B step (22 layers, batch 3 x 2048):
+    AdamW's steps from seed 0, then ``bf16_adamw(1e-4,
+    guard_nonfinite=True)``'s from the same seed -- every bf16
+    parameter its master rounded, the losses within OPTIM_LOSS_ATOL of
+    AdamW's -- then one more step with an inf planted in one gradient
+    element, which must leave the parameters, masters and moments
+    bitwise as they were, give ``guard_stats`` (1, non-finite) and trip
+    the sentinel's ``nonfinite_grad``; then OPTIM_WSAM_STEPS steps under
+    ``wsam_value_and_grad`` (two forwards and backwards each)."""
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.fault_tolerance.sentinel import TrainingSentinel
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.optim import (
+        bf16_adamw, guard_stats, wsam_value_and_grad)
+    from dlrover_tpu_torch.trainer.ckpt_store import state_checksums
+    from dlrover_tpu_torch.trainer.sharded import adamw
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = llama.llama_1b(remat="dots_attn_out")
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(0, cfg.vocab_size,
+                          (OPTIM_STEPS + 1, SLICE["b"], SLICE["s"] + 1))
+    failed, out = [], {}
+    n_params = llama.param_count(cfg)
+
+    def batches(t, k):
+        return [t.shard_batch(t.microbatch((x[:, :-1], x[:, 1:])))
+                for x in tokens[:k]]
+
+    t = _optim_trainer(cfg, adamw(OPTIM_LR, b1=0.9, b2=0.95))
+    out["adamw"] = _optim_steps(t, batches(t, OPTIM_STEPS), cfg.num_layers,
+                                failed, "adamw")
+    out["adamw"]["state_bytes_per_param"] = (
+        t.state_bytes()["optimizer"] / n_params)
+    del t
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = _optim_trainer(cfg, bf16_adamw(OPTIM_LR, guard_nonfinite=True))
+    mb = batches(t, OPTIM_STEPS + 1)
+    run = _optim_steps(t, mb[:OPTIM_STEPS], cfg.num_layers, failed,
+                       "bf16_adamw")
+    run["state_bytes_per_param"] = t.state_bytes()["optimizer"] / n_params
+    guard = t.optimizer
+    masters = guard.inner
+    unequal = sum(int(not torch.equal(p, m.to(p.dtype)))
+                  for p, m in zip(masters.params, masters.master))
+    run["params_not_round_master"] = unequal
+    if unequal:
+        failed.append(f"bf16_adamw: {unequal} parameters differ from "
+                      "their masters rounded")
+    run["loss_abs_diff"] = [abs(a - b) for a, b in
+                            zip(run["losses"], out["adamw"]["losses"])]
+    if max(run["loss_abs_diff"]) > OPTIM_LOSS_ATOL:
+        failed.append(f"bf16_adamw losses {run['losses']} vs adamw "
+                      f"{out['adamw']['losses']}")
+    # the planted inf: one element of the embedding's gradient
+    held = state_checksums(t.train_state())
+    def plant(g):
+        at = (torch.tensor([7], device=g.device),
+              torch.tensor([3], device=g.device))
+        return g.index_put(at, torch.tensor(float("inf"), dtype=g.dtype,
+                                            device=g.device))
+
+    hook = t.model.embed.register_hook(plant)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t.train_step(mb[OPTIM_STEPS])
+    torch.cuda.synchronize()
+    run["planted_step_ms"] = (time.perf_counter() - t0) * 1e3
+    hook.remove()
+    now = state_checksums(t.train_state())
+    changed = sorted(k for k in held if held[k] != now[k]
+                     and not k.endswith(("nonfinite_count",
+                                         "last_grad_norm")))
+    stats = guard_stats(t)
+    sentinel = TrainingSentinel()
+    trip = sentinel.check(OPTIM_STEPS + 1, 1.0, grad_norm=stats[1])
+    run.update({"planted_changed": changed, "guard_stats": [
+        stats[0], repr(stats[1])], "sentinel": trip and trip["kind"],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
+    if changed:
+        failed.append(f"bf16_adamw: the skipped step changed {changed[:4]}")
+    if stats[0] != 1 or math.isfinite(stats[1]):
+        failed.append(f"guard_stats {stats}, want (1, non-finite)")
+    if run["sentinel"] != "nonfinite_grad":
+        failed.append(f"the sentinel reported {trip}, not nonfinite_grad")
+    out["bf16_adamw"] = run
+    del t, guard, masters, mb
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = _optim_trainer(cfg, adamw(OPTIM_LR, b1=0.9, b2=0.95),
+                       wsam_value_and_grad(rho=0.05))
+    out["wsam"] = _optim_steps(t, batches(t, OPTIM_WSAM_STEPS),
+                               2 * cfg.num_layers, failed, "wsam")
+    del t
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "optim", "model": "llama_1b", "batch": SLICE["b"],
+          "seq": SLICE["s"], "lr": OPTIM_LR, **out,
+          "nvidia_smi": nvidia_smi_line()})
+    if failed:
+        raise AssertionError("optim: " + "; ".join(failed))
+    return out
 
 
 def main() -> int:
@@ -3056,6 +3584,7 @@ def main() -> int:
     launches, trainer, mb = timed("slice", phase_slice)
     timed("data", phase_data, trainer, mb)
     del trainer, mb  # the card's memory goes back for the next phases
+    timed("optim", phase_optim)
     timed("elastic", phase_elastic)
     timed("eval", phase_eval)
     gpt_launches = timed("families", phase_families)

@@ -3,14 +3,19 @@
     python -m dlrover_tpu_torch.examples.dlrm_train --steps 60 \
         --ckpt-dir /tmp/dlrm_ckpt                # on the GPU
     python -m dlrover_tpu_torch.trainer.elastic_run --standalone \
-        --nnodes 1:1 dlrover_tpu_torch/examples/dlrm_train.py -- \
+        --nnodes 1:1 --nproc_per_node 2 \
+        dlrover_tpu_torch/examples/dlrm_train.py -- \
         --steps 60 --ckpt-dir /tmp/dlrm_ckpt --device cpu
 
 Counterpart of ``examples/dlrm_train.py``: ``criteo_wide_deep`` (the
-stacked 734,208-row table of width 8 and the wide table on one device)
-under ``adagrad(0.05)``, fed a procedural click stream with planted
-per-id effects (made from a seed: learnable, not separable) through the
-master's shards, in the loop of ``shard_loop.py``. Ids arrive as int32.
+stacked 734,208-row table of width 8 and the wide table) under
+``adagrad(0.05)`` and the "rowwise" strategy on the JAX default mesh
+``[(data, 1), (fsdp, world)]``: above one rank each rank holds its block
+of the tables' rows and every rank steps the same batch
+(``shard_loop.SameBatch``). It is fed a procedural click stream with
+planted per-id effects (made from a seed: learnable, not separable)
+through the master's shards, in the loop of ``shard_loop.py``. Ids
+arrive as int32.
 Prints ``RESTORED from step k`` after a restore and ``FINAL step=N
 loss=... acc=...`` (the training accuracy on the first 512 rows);
 ``--out`` gets ``step,loss,acc,start_step``.
@@ -67,7 +72,7 @@ def main(argv=None) -> int:
         args.batch_size, args.ckpt_dir)
     with torch.no_grad():
         logits = trainer.model(*(torch.from_numpy(x[:512]).to(
-            trainer.device) for x in (dense, cat)))
+            trainer.device) for x in (dense, cat)), mesh=trainer.mesh)
     acc = ((logits > 0).cpu().numpy() == labels[:512]).mean()
     shard_loop.finish(step, loss, float(acc), start_step, args.out)
     return 0

@@ -13,12 +13,20 @@ examples: a restart takes the master's next shards. Each step prints
 launcher the ElasticTrainer arms the hang detector, the drills' fault
 injector and the preemption drain, whose emergency save takes this
 loop's step and state.
+
+Above one rank the ranks that share a data-parallel index step the same
+rows (under "rowwise" every rank of an fsdp group): the lowest of them
+fetches the master's shard and the others take its indices
+(:class:`SameBatch`); each rank saves its own shards of the state, and
+a restart restores them.
 """
 
 import os
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from dlrover_tpu_torch.agent.master_client import build_master_client
 from dlrover_tpu_torch.agent.sharding.client import ShardingClient
@@ -39,6 +47,59 @@ def pad_batch(arrays: Sequence[np.ndarray], batch_size: int):
     return (*(np.pad(x, [(0, pad)] + [(0, 0)] * (x.ndim - 1))
               for x in features),
             np.pad(labels, (0, pad), constant_values=-1))
+
+
+class SameBatch:
+    """The master's shards for the ranks of a process group: the lowest
+    rank of each data-parallel index fetches, and one all-gather over the
+    host's gloo group (``trainer/distributed.py``) hands its indices to
+    the ranks of the same index. At one rank, and where every rank has
+    an index of its own, each rank fetches its own."""
+
+    def __init__(self, trainer, make_client):
+        self.world = dist.get_world_size() if dist.is_initialized() else 1
+        index, self.fetcher = trainer.data_parallel_index(), 0
+        self.shared = False
+        if self.world > 1:
+            from dlrover_tpu_torch.trainer.distributed import host_group
+
+            self.group = host_group()
+            mine = torch.tensor([index], dtype=torch.int64)
+            got = [torch.zeros_like(mine) for _ in range(self.world)]
+            dist.all_gather(got, mine, group=self.group)
+            indices = [int(t) for t in got]
+            self.fetcher = indices.index(index)
+            self.shared = len(set(indices)) < self.world
+        me = dist.get_rank() if self.world > 1 else 0
+        self.client = (make_client() if not self.shared or me == self.fetcher
+                       else None)
+
+    def fetch(self, batch_size: int) -> Optional[np.ndarray]:
+        """The next shard's record indices (None: no more shards)."""
+        idx = None
+        if self.client is not None:
+            shard = self.client.fetch_shard()
+            if shard is not None:
+                idx = np.asarray(shard.record_indices if shard.record_indices
+                                 else np.arange(shard.start, shard.end))
+        if not self.shared:
+            return idx
+        row = torch.full((batch_size + 1,), -1, dtype=torch.int64)
+        if idx is not None:
+            row[0] = len(idx)
+            row[1:1 + len(idx)] = torch.from_numpy(idx.astype(np.int64))
+        rows = [torch.empty_like(row) for _ in range(self.world)]
+        dist.all_gather(rows, row, group=self.group)
+        n = int(rows[self.fetcher][0])
+        return None if n < 0 else rows[self.fetcher][1:1 + n].numpy()
+
+    def done(self) -> None:
+        if self.client is not None:
+            self.client.report_batch_done()
+
+    def stop(self) -> None:
+        if self.client is not None:
+            self.client.stop()
 
 
 def run(trainer, arrays: Sequence[np.ndarray], dataset_name: str,
@@ -66,27 +127,29 @@ def run(trainer, arrays: Sequence[np.ndarray], dataset_name: str,
         start_step = int(restored["step"])
         print(f"RESTORED from step {start_step}", flush=True)
     elastic.attach_checkpointer(ckpt, save_interval=SAVE_INTERVAL)
-    sharding = ShardingClient(
+    sharding = SameBatch(trainer, lambda: ShardingClient(
         dataset_name, batch_size, num_epochs=10**6,
         dataset_size=len(arrays[-1]), shuffle=True,
         num_minibatches_per_shard=1, master_client=client,
-    )
+    ))
     step, loss = start_step, float("nan")
     elastic.drain.set_state_provider(lambda: (step, lambda: state(step)))
     try:
         while step < steps:
-            shard = sharding.fetch_shard()
-            if shard is None:
+            idx = sharding.fetch(batch_size)
+            if idx is None:
                 break
-            idx = (shard.record_indices if shard.record_indices
-                   else np.arange(shard.start, shard.end))
             batch = trainer.shard_batch(elastic.microbatch(
                 pad_batch([x[idx] for x in arrays], batch_size)))
             loss = elastic.report_step(step + 1,
                                        loss=elastic.train_step(batch))
             step += 1
-            sharding.report_batch_done()
-            print(f"step {step} loss {loss!r}", flush=True)
+            sharding.done()
+            # one write, newline included: the ranks share the
+            # launcher's stdout, and an unbuffered one (PYTHONUNBUFFERED)
+            # would take print's newline as a write of its own, letting
+            # another rank's line in between
+            print(f"step {step} loss {loss!r}\n", end="", flush=True)
             # durable: a crash drill hard-kills shortly after a cadence
             # step -- the archive must already be on the RAM tier
             elastic.maybe_checkpoint(lambda: state(step),

@@ -10,12 +10,18 @@ sum, in fp32, into the logit. Ids are clipped into each feature's own
 vocabulary before the offsets are added. The loss is the stable sigmoid
 cross-entropy with label -1 masked out (tail-shard padding). The table
 gradients are dense, as the JAX package's are, and the trainer's
-default optimizer is ``adagrad(0.05)`` under the "rowwise" strategy,
-which on one device is the plain step (``trainer/sharded.py``).
+default optimizer is ``adagrad(0.05)`` under the "rowwise" strategy on
+the JAX default mesh ``[(data, 1), (fsdp, world)]``: both tables' rows
+split over fsdp, each rank holding and stepping its own block, the
+lookups vocab-parallel (``parallel/embedding.py``), every rank stepping
+the whole batch, the MLPs replicated. A rank draws only its own rows:
+the table's initial values come in blocks of ``ROW_BLOCK`` rows, each
+from a generator seeded with the seed and the block, so a table sharded
+over any number of ranks holds the same values as a whole one.
 """
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,7 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dlrover_tpu_torch.auto.device_context import resolve_device
-from dlrover_tpu_torch.models.llama import _tensor
+from dlrover_tpu_torch.models.llama import JaxLeaf, _tensor
 from dlrover_tpu_torch.parallel.embedding import (
     feature_offsets,
     stack_ids,
@@ -37,6 +43,8 @@ CRITEO_VOCAB_SIZES = (
     27189, 65, 20188,
 )
 CRITEO_DENSE = 13  # I1..I13
+#: rows per seeded block of the table's initial values
+ROW_BLOCK = 65536
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,8 +111,8 @@ def dlrm_large(total_vocab: int = 400_000_000, embed_dim: int = 32,
     """A production-recommender scale point: the stacked fp32 tables
     take ``table_bytes`` (52.8 GB at the defaults, 51.2 GB of it the
     deep table), and with the gradient and Adagrad's accumulators more
-    than one card holds; only a sharded table (ROADMAP.md item 6) would
-    train it. The port builds its config, not its model."""
+    than one card holds: the "rowwise" strategy splits the tables' rows
+    over the ranks."""
     n = 26
     base = total_vocab // n
     sizes = tuple(
@@ -161,14 +169,18 @@ def table_bytes(cfg: DLRMConfig) -> int:
 
 class DLRM(nn.Module):
     """The recommender. Its parameters are left uninitialized:
-    ``init_params`` draws them, ``params_from_jax`` loads them."""
+    ``init_params`` draws them, ``params_from_jax`` loads them. ``rows``
+    (start, end) makes both tables hold only those rows of the stacked
+    table: a rank's block under the "rowwise" strategy."""
 
-    def __init__(self, cfg: DLRMConfig, device=None):
+    def __init__(self, cfg: DLRMConfig, device=None,
+                 rows: Optional[Tuple[int, int]] = None):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
         bottom, top, t = _widths(cfg)
-        v = cfg.padded_vocab
+        self.rows = tuple(rows) if rows is not None else (0, cfg.padded_vocab)
+        v = self.rows[1] - self.rows[0]
         self.table = nn.Parameter(torch.empty(
             v, cfg.embed_dim, device=device, dtype=torch.float32))
         self.wide = nn.Parameter(torch.empty(
@@ -195,17 +207,21 @@ class DLRM(nn.Module):
             x = F.relu(layer(x))
         return x
 
-    def forward(self, dense: torch.Tensor, cat_ids: torch.Tensor
-                ) -> torch.Tensor:
+    def forward(self, dense: torch.Tensor, cat_ids: torch.Tensor,
+                mesh=None) -> torch.Tensor:
         """dense [b, dense_dim] fp32, cat_ids [b, features] int
-        per-feature indices -> fp32 click logits [b]."""
+        per-feature indices -> fp32 click logits [b]. ``mesh``: the
+        mesh whose fsdp axis splits the tables' rows (the trainer's,
+        under "rowwise"); every rank of that axis passes the same
+        batch."""
         cfg = self.cfg
         # clip into each feature's own vocabulary: an out-of-range id
         # must not read a neighbouring feature's rows
         ids = torch.minimum(cat_ids.clamp(min=0), self.sizes[None, :] - 1)
         rows = stack_ids(ids.to(self.offsets.dtype), self.offsets)
-        emb = vocab_parallel_lookup(self.table, rows)  # [b, F, d]
-        wide = vocab_parallel_lookup(self.wide, rows)  # [b, F, 1]
+        mesh_kw = {} if mesh is None else {"mesh": mesh}
+        emb = vocab_parallel_lookup(self.table, rows, **mesh_kw)  # [b, F, d]
+        wide = vocab_parallel_lookup(self.wide, rows, **mesh_kw)  # [b, F, 1]
         wide_logit = wide[..., 0].float().sum(dim=-1)
 
         x = self._mlp(self.bottom, dense.to(cfg.dtype))
@@ -222,18 +238,38 @@ class DLRM(nn.Module):
         return wide_logit + self.head(z).float()[:, 0]
 
 
-def init_params(cfg: DLRMConfig, seed: int = 0, device=None) -> DLRM:
-    """The JAX package's initial distributions from a ``torch.Generator``
+def table_rows(cfg: DLRMConfig, seed: int, lo: int, hi: int,
+               device=None) -> torch.Tensor:
+    """Rows ``[lo, hi)`` of the table's initial values, U(-1, 1) /
+    sqrt(d): each block of ``ROW_BLOCK`` rows from a ``torch.Generator``
+    seeded with ``(seed << 32) + block``, so any split of the rows draws
+    the same values."""
+    device = resolve_device(device)
+    d = cfg.embed_dim
+    out = torch.empty(hi - lo, d, device=device)
+    for b in range(lo // ROW_BLOCK, (hi - 1) // ROW_BLOCK + 1 if hi > lo
+                   else 0):
+        start, end = b * ROW_BLOCK, min((b + 1) * ROW_BLOCK,
+                                        cfg.padded_vocab)
+        gen = torch.Generator(device=device).manual_seed((seed << 32) + b)
+        block = torch.rand((end - start, d), generator=gen, device=device)
+        a, z = max(lo, start), min(hi, end)
+        out[a - lo:z - lo] = (block[a - start:z - start] * 2 - 1) / d ** 0.5
+    return out
+
+
+def init_params(cfg: DLRMConfig, seed: int = 0, device=None,
+                rows: Optional[Tuple[int, int]] = None) -> DLRM:
+    """The JAX package's initial distributions from ``torch.Generator``s
     seeded with ``seed`` (the numbers differ from ``jax.random``'s):
-    table rows U(-1, 1) / sqrt(d), the wide table 0, MLP weights
-    N(0, 2 / fan_in), the head N(0, 1 / fan_in), biases 0."""
-    model = DLRM(cfg, device)
+    table rows U(-1, 1) / sqrt(d) (:func:`table_rows`; ``rows``: only
+    those), the wide table 0, MLP weights N(0, 2 / fan_in), the head
+    N(0, 1 / fan_in), biases 0."""
+    model = DLRM(cfg, device, rows=rows)
     dev = model.table.device
     gen = torch.Generator(device=dev).manual_seed(seed)
     with torch.no_grad():
-        model.table.copy_(
-            (torch.rand(model.table.shape, generator=gen, device=dev) * 2 - 1)
-            / cfg.embed_dim ** 0.5)
+        model.table.copy_(table_rows(cfg, seed, *model.rows, device=dev))
         model.wide.zero_()
         for layer in [*model.bottom, *model.top, model.head]:
             w = layer.weight  # [out, in]
@@ -244,12 +280,47 @@ def init_params(cfg: DLRMConfig, seed: int = 0, device=None) -> DLRM:
     return model
 
 
-def loss_sums(model: DLRM, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+def param_axes(cfg: DLRMConfig) -> Dict[str, Tuple]:
+    """Logical axes of every parameter, keyed by the port's names and in
+    the port's dimension order (the JAX table: both tables row-sharded
+    on "vocab", the MLPs replicated)."""
+    axes = {"table": ("vocab", None), "wide": ("vocab", None)}
+    bottom, top, _ = _widths(cfg)
+    names = [f"bottom.{i}" for i in range(len(bottom))]
+    names += [f"top.{i}" for i in range(len(top))] + ["head"]
+    for name in names:
+        axes[f"{name}.weight"] = (None, None)
+        axes[f"{name}.bias"] = (None,)
+    return axes
+
+
+def jax_coordinates(cfg: DLRMConfig, name: str) -> JaxLeaf:
+    """The JAX leaf a port parameter comes from (``params_from_jax``'s
+    mapping): ``bottom.i.weight`` is ``["bottom"][i]["w"]``, transposed."""
+    v, d = cfg.padded_vocab, cfg.embed_dim
+    if name in ("table", "wide"):
+        return JaxLeaf((name,), (v, d if name == "table" else 1), None,
+                       (0, 1))
+    bottom, top, t = _widths(cfg)
+    *layer, kind = name.split(".")
+    if layer == ["head"]:
+        path, (i, o) = ("head",), (t, 1)
+    else:
+        part, idx = layer
+        path, (i, o) = (part, int(idx)), (bottom if part == "bottom"
+                                           else top)[int(idx)]
+    if kind == "weight":
+        return JaxLeaf(path + ("w",), (i, o), None, (1, 0))
+    return JaxLeaf(path + ("b",), (o,), None, (0,))
+
+
+def loss_sums(model: DLRM, batch, mesh=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """batch = (dense [b, 13], cat_ids [b, 26], labels [b]) -> (the
     summed sigmoid cross-entropy over labels >= 0 (1 click, 0 none, -1
     padding), in its stable form; their count)."""
     dense, cat_ids, labels = batch
-    logits = model(dense, cat_ids)
+    logits = model(dense, cat_ids, mesh=mesh)
     labels = labels.float()
     valid = (labels >= 0).float()
     y = labels.clamp(min=0.0)
@@ -258,10 +329,10 @@ def loss_sums(model: DLRM, batch) -> Tuple[torch.Tensor, torch.Tensor]:
     return (per * valid).sum(), valid.sum()
 
 
-def loss(model: DLRM, batch) -> torch.Tensor:
+def loss(model: DLRM, batch, mesh=None) -> torch.Tensor:
     """The mean sigmoid cross-entropy over labels >= 0 (see
     :func:`loss_sums`)."""
-    total, cnt = loss_sums(model, batch)
+    total, cnt = loss_sums(model, batch, mesh=mesh)
     return total / cnt.clamp(min=1.0)
 
 
@@ -270,17 +341,38 @@ next_token_loss = loss
 
 
 def make_trainer(cfg: DLRMConfig, device=None, strategy: str = "rowwise",
-                 accum_steps: int = 1, optimizer=None, attn_fn=None):
+                 accum_steps: int = 1, optimizer=None, attn_fn=None,
+                 mesh=None, value_and_grad=None):
     """Trainer for DLRM under ``adagrad(0.05)`` by default, the
     recommender's optimizer (per-row adaptive steps, no momentum
-    doubling the table); ``device=None`` is the GPU."""
+    doubling the table); ``device=None`` is the GPU. ``mesh=None`` is
+    the JAX default mesh, ``[(data, 1), (fsdp, world)]`` over the
+    process group's ranks. Under "rowwise" each rank draws only its own
+    rows of the tables and the lookups run over the mesh."""
+    from dlrover_tpu_torch.parallel import sharding as shd
+    from dlrover_tpu_torch.parallel.mesh import create_mesh
     from dlrover_tpu_torch.trainer.sharded import adagrad, family_trainer
 
+    if mesh is None:
+        mesh = create_mesh([("data", 1), ("fsdp", -1)], device=device)
+    rowwise = strategy == "rowwise"
+    lookup_mesh = mesh if rowwise else None
+
+    def init(seed, dev):
+        rows = None
+        if rowwise:
+            spec = shd.spec_for_axes(("vocab", None), shd.get_rules(strategy),
+                                     mesh)
+            rows = shd.local_slices(spec, (cfg.padded_vocab, 1), mesh)[0]
+        return init_params(cfg, seed=seed, device=dev, rows=rows)
+
     return family_trainer(
-        cfg, loss_sums,
-        lambda seed, dev: init_params(cfg, seed=seed, device=dev),
-        param_count(cfg), device=device, strategy=strategy,
-        accum_steps=accum_steps, optimizer=optimizer or adagrad(0.05))
+        cfg, lambda model, batch: loss_sums(model, batch, mesh=lookup_mesh),
+        init, param_count(cfg), device=device, strategy=strategy,
+        accum_steps=accum_steps, optimizer=optimizer or adagrad(0.05),
+        mesh=mesh, param_axes=lambda model: param_axes(cfg),
+        jax_coordinates=lambda name: jax_coordinates(cfg, name),
+        value_and_grad=value_and_grad)
 
 
 def example_batch(cfg: DLRMConfig, global_batch: int, seq_len: int = 1):

@@ -464,8 +464,11 @@ class MetricsServer:
             self._httpd.shard_provider = (  # type: ignore[attr-defined]
                 self._shard_provider
             )
+        # stop() waits up to one poll interval (the standard library's
+        # default is 0.5 s, paid at every master's and worker's exit)
         self._thread = threading.Thread(
             target=self._httpd.serve_forever,
+            kwargs={"poll_interval": 0.05},
             daemon=True,
             name="telemetry-http",
         )

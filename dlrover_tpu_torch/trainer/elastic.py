@@ -114,9 +114,11 @@ class ElasticTrainer:
         order = elastic.sentinel.pending_rollback()  # restore order["step"]
 
     ``max_nodes`` and ``cur_nodes`` count data-parallel ranks, which by
-    default are those of the trainer's mesh (``parallel/mesh.py``'s
-    ``data_parallel_size``): the ranks of one tensor group share a
-    batch, so they add nothing to the global batch.
+    default are those of the trainer's strategy on its mesh
+    (``ShardedTrainer.data_parallel_size``: the axes of its rule table's
+    batch entry): the ranks of one tensor group, or of one fsdp group
+    under "rowwise", share a batch, so they add nothing to the global
+    batch.
     """
 
     def __init__(
@@ -127,10 +129,7 @@ class ElasticTrainer:
         master_client=None,
         report_interval: int = 10,
     ):
-        from dlrover_tpu_torch.parallel.mesh import data_parallel_size
-
-        mesh = getattr(trainer, "mesh", None)
-        dp = data_parallel_size(mesh) if mesh is not None else 1
+        dp = getattr(trainer, "data_parallel_size", 1)
         max_nodes = dp if max_nodes is None else max_nodes
         cur_nodes = dp if cur_nodes is None else cur_nodes
         self._trainer = trainer

@@ -15,9 +15,15 @@ loss.
 * ``"ddp"``: parameters and optimizer state replicated; between
   ``backward`` and the update the gradients and losses are summed over
   the data-parallel ranks (one ``all_reduce`` per dtype bucket), where
-  XLA sums them (psum) in the JAX step. ``"rowwise"`` is the same step
-  on one rank; its sharded table above one rank is later work (ROADMAP
-  queue A).
+  XLA sums them (psum) in the JAX step.
+* ``"rowwise"``: the recommender's layout (``models/dlrm.py``): the
+  tables' rows (logical axis ``vocab``) split over fsdp and the batch
+  over data only, so every rank of an fsdp group steps the same rows.
+  The fsdp dim of a table is used sharded, as a tensor-parallel dim is:
+  the forward looks the ids up in the rank's rows and sums the rows over
+  fsdp (``parallel/embedding.py``), and the gradient and the optimizer
+  state stay on those rows. Nothing is gathered, and only the data axis
+  reduces gradients.
 * ``"zero1"``: parameters and gradients replicated, the AdamW moments
   sharded under the ZeRO rules (``opt_state_rules``). The gradients are
   reduce-scattered to the rank's slice, AdamW runs on that slice of the
@@ -39,23 +45,34 @@ loss.
 
 "sequence" and "pipeline" raise (ROADMAP queue A.1.3 and A.1.4). Every
 collective goes through ``trainer/distributed.py``'s layer, on the
-mesh's groups. The strategies other than ddp and rowwise need the
-model's logical axes (``make_trainer_for_llama`` gives them), and their
-:meth:`ShardedTrainer.train_state` is the JAX parameter tree
+mesh's groups. A mesh axis of the rule table's ``batch`` entry splits
+the batch and reduces the gradients, and a parameter dim sharded over
+it is gathered before use (fsdp); a dim sharded over any other axis is
+used as the rank holds it (tensor, and fsdp under rowwise). The
+strategies other than ddp need the model's logical axes
+(``make_trainer_for_llama`` and ``models/dlrm.py``'s ``make_trainer``
+give them), and their :meth:`ShardedTrainer.train_state` is the JAX
+parameter tree
 (``models/llama.py``'s ``jax_coordinates``: stacked layers, ``[in,
 out]`` matrices) whose leaves are ``ckpt_store.ShardedLeaf``: the boxes
 this rank holds, and the global map of every rank's boxes, which the
 flash checkpoint writes as the leaf's domains.
 Where the JAX step donates its buffers, this one updates
-the parameters and optimizer state in place. Three of optax's optimizers
-are carried: ``adamw``, ``adam`` (AdamW without decay) and ``adagrad``.
-Gradient accumulation sums the microbatches' gradients in fp32 buffers
-and hands their fp32 mean to AdamW, as the JAX step hands it to optax.
+the parameters and optimizer state in place. The optimizers are
+``optim/``'s: optax's ``adamw``, ``adam`` (AdamW without decay) and
+``adagrad`` (``optim/optimizers.py``, re-exported here), and
+``bf16_adamw`` and the wrappers ``master_weights`` and
+``nonfinite_guard`` (``optim/bf16.py``). An optimizer's state is
+optax's tree (``optim/state.py``). Gradient accumulation sums the
+microbatches' gradients in fp32 buffers and hands their fp32 mean to
+AdamW, as the JAX step hands it to optax. ``value_and_grad=`` replaces
+the step's autograd call, as the JAX trainer's does (``optim/wsam.py``).
 """
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import math
 import time
 
 import numpy as np
@@ -66,15 +83,31 @@ from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from dlrover_tpu_torch.auto.device_context import resolve_device
 from dlrover_tpu_torch.common.log import default_logger as logger
+from dlrover_tpu_torch.optim.optimizers import (  # noqa: F401
+    AdamW,
+    Adagrad,
+    Fp32GradAdamW,
+    OptimizerFactory,
+    RssAdagrad,
+    adagrad,
+    adam,
+    adamw,
+)
+from dlrover_tpu_torch.optim.state import (
+    init_adamw_state,
+    load_optimizer_state,
+    map_per_param,
+    optimizer_state,
+    per_param_leaves,
+)
 from dlrover_tpu_torch.parallel import mesh as mesh_lib
 from dlrover_tpu_torch.parallel import sharding as shd
 from dlrover_tpu_torch.trainer import distributed as coll
 
-#: the strategies a trainer runs ("rowwise" equals "ddp" on one device,
-#: and raises above one rank)
+#: the strategies a trainer runs
 STRATEGIES = ("ddp", "rowwise", "zero1", "zero2", "fsdp", "tp", "tp_fsdp")
 #: the strategies that shard a parameter or its optimizer state
-SHARDED = ("zero1", "zero2", "fsdp", "tp", "tp_fsdp")
+SHARDED = ("rowwise", "zero1", "zero2", "fsdp", "tp", "tp_fsdp")
 
 
 def allreduce_sum_(tensors: List[torch.Tensor], group) -> None:
@@ -94,176 +127,15 @@ def allreduce_sum_(tensors: List[torch.Tensor], group) -> None:
             t.copy_(r)
 
 
-OptimizerFactory = Callable[[Iterable[nn.Parameter]], torch.optim.Optimizer]
-
-
-@dataclass(frozen=True)
-class AdamW:
-    """``optax.adamw``'s hyperparameters; called on parameters, the
-    ``torch.optim.AdamW`` that runs them (see :func:`adamw`)."""
-
-    learning_rate: float
-    b1: float = 0.9
-    b2: float = 0.999
-    eps: float = 1e-8
-    weight_decay: float = 1e-4
-
-    def __call__(self, params) -> torch.optim.AdamW:
-        return torch.optim.AdamW(
-            params, lr=self.learning_rate, betas=(self.b1, self.b2),
-            eps=self.eps, weight_decay=self.weight_decay,
-        )
-
-
-def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
-          eps: float = 1e-8, weight_decay: float = 1e-4) -> AdamW:
-    """``optax.adamw`` with its own defaults written out: eps 1e-8 and a
-    weight decay of 1e-4 on every parameter, norms and embedding
-    included (``torch.optim.AdamW`` would default to 1e-2)."""
-    return AdamW(learning_rate, b1, b2, eps, weight_decay)
-
-
-def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
-         eps: float = 1e-8) -> AdamW:
-    """``optax.adam``: :func:`adamw` without weight decay (optax's adamw
-    is adam plus the decay term), so its state and checkpoint layout are
-    AdamW's."""
-    return AdamW(learning_rate, b1, b2, eps, weight_decay=0.0)
-
-
-@dataclass(frozen=True)
-class Adagrad:
-    """``optax.adagrad``'s hyperparameters; called on parameters, the
-    :class:`RssAdagrad` that runs them. Made by :func:`adagrad`, which
-    holds optax's defaults."""
-
-    learning_rate: float
-    initial_accumulator_value: float
-    eps: float
-
-    def __call__(self, params) -> "RssAdagrad":
-        return RssAdagrad(params, self)
-
-
-def adagrad(learning_rate: float, initial_accumulator_value: float = 0.1,
-            eps: float = 1e-7) -> Adagrad:
-    """``optax.adagrad`` with its own defaults. ``torch.optim.Adagrad``
-    is another optimizer: its accumulator starts at 0, its eps is added
-    after the square root, and it decays the learning rate."""
-    return Adagrad(learning_rate, initial_accumulator_value, eps)
-
-
-class RssAdagrad:
-    """``optax.adagrad`` to optax's formula (``scale_by_rss``, then the
-    learning rate): ``acc += g * g``, then ``p -= lr * g * rsqrt(acc +
-    eps)`` where ``acc > 0`` (else no step). The accumulators
-    (``sum_of_squares``, in parameter order) start at
-    ``initial_accumulator_value`` in each parameter's dtype, as optax's
-    do. A plain object with ``step`` and ``zero_grad``: a
-    ``torch.optim.Optimizer`` would load ``torch._dynamo`` at its first
-    construction, seconds of every worker's start."""
-
-    def __init__(self, params: Iterable[nn.Parameter], hp: Adagrad):
-        self.params = [p for p in params if p.requires_grad]
-        self.hp = hp
-        self.sum_of_squares = [
-            torch.full_like(p, hp.initial_accumulator_value)
-            for p in self.params]
-
-    @torch.no_grad()
-    def step(self) -> None:
-        """One update from the parameters' ``.grad`` (those without one
-        are left alone)."""
-        live = [(p, a) for p, a in zip(self.params, self.sum_of_squares)
-                if p.grad is not None]
-        if not live:
-            return
-        params = [p for p, _ in live]
-        acc = [a for _, a in live]
-        grads = [p.grad for p in params]
-        torch._foreach_add_(acc, torch._foreach_mul(grads, grads))
-        scale = torch._foreach_add(acc, self.hp.eps)
-        torch._foreach_rsqrt_(scale)
-        for s, a in zip(scale, acc):
-            s.masked_fill_(a <= 0, 0.0)
-        torch._foreach_mul_(scale, grads)
-        torch._foreach_add_(params, scale, alpha=-self.hp.learning_rate)
-
-    def zero_grad(self, set_to_none: bool = True) -> None:
-        for p in self.params:
-            if set_to_none:
-                p.grad = None
-            elif p.grad is not None:
-                p.grad.zero_()
-
-
-class Fp32GradAdamW:
-    """``optax.adamw`` on fp32 gradients of parameters of any dtype, as
-    the JAX step runs it on the fp32 mean of accumulated microbatch
-    gradients: the moments are fp32 (optax's bf16 moments become fp32 at
-    the first fp32 gradient), the update is computed in fp32 with the
-    decay term ``weight_decay * p`` taken in the parameter's dtype, and
-    ``p + update`` is rounded once to the parameter's dtype.
-    ``torch.optim.AdamW`` cannot take these gradients: it needs them in
-    the parameters' dtype."""
-
-    def __init__(self, params: Iterable[nn.Parameter], hp: AdamW):
-        self.params = list(params)
-        self.hp = hp
-        self.mu = [torch.zeros_like(p, dtype=torch.float32)
-                   for p in self.params]
-        self.nu = [torch.zeros_like(p, dtype=torch.float32)
-                   for p in self.params]
-        self.count = 0
-
-    @torch.no_grad()
-    def step(self, grads: List[torch.Tensor]) -> None:
-        """One update from ``grads`` (fp32, one per parameter)."""
-        hp = self.hp
-        self.count += 1
-        # mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu
-        torch._foreach_mul_(self.mu, hp.b1)
-        torch._foreach_add_(self.mu, torch._foreach_mul(grads, 1 - hp.b1))
-        torch._foreach_mul_(self.nu, hp.b2)
-        torch._foreach_add_(self.nu, torch._foreach_mul(
-            torch._foreach_mul(grads, grads), 1 - hp.b2))
-        mu_hat = torch._foreach_div(self.mu, 1 - hp.b1 ** self.count)
-        nu_hat = torch._foreach_div(self.nu, 1 - hp.b2 ** self.count)
-        denom = torch._foreach_add(torch._foreach_sqrt(nu_hat), hp.eps)
-        update = torch._foreach_div(mu_hat, denom)
-        decay = torch._foreach_mul(self.params, hp.weight_decay)
-        torch._foreach_add_(update, [d.float() for d in decay])
-        torch._foreach_mul_(update, -hp.learning_rate)
-        for p, u in zip(self.params, update):
-            p.copy_(p.float() + u)
-
-
-def _init_adamw_state(opt: torch.optim.AdamW) -> None:
-    """Create AdamW's per-parameter state now, as its first step would
-    (zero moments in the parameter's dtype, a step count of 0), so the
-    state exists -- and a checkpoint of it has one layout -- from the
-    start."""
-    for group in opt.param_groups:
-        for p in group["params"]:
-            if p.requires_grad and not opt.state[p]:
-                opt.state[p] = {
-                    "step": torch.zeros((), dtype=torch.float32),
-                    "exp_avg": torch.zeros_like(
-                        p, memory_format=torch.preserve_format),
-                    "exp_avg_sq": torch.zeros_like(
-                        p, memory_format=torch.preserve_format),
-                }
-
-
 @dataclass
 class _Layout:
-    """How a strategy holds one parameter (port order of dims): ``store``,
-    what the rank keeps between steps; ``opt``, the box its optimizer
-    steps; ``gather``, the (dim, axis) pairs along which the stored
-    shard is all-gathered into the parameter the forward uses (fsdp);
-    ``scatter``, those along which the gradient is reduce-scattered to
-    the optimizer's box; ``reduce_axes``, the data-parallel axes it is
-    all-reduced over besides."""
+    """How a strategy holds one parameter (port order of dims): its global
+    ``shape``; ``store``, the spec of what the rank keeps between steps;
+    ``opt``, of the box its optimizer steps; ``gather``, the (dim, axis)
+    pairs along which the stored shard is all-gathered into the
+    parameter the forward uses (the batch axes: fsdp); ``scatter``, those
+    along which the gradient is reduce-scattered to the optimizer's box;
+    ``reduce_axes``, the batch axes it is all-reduced over besides."""
 
     name: str
     shape: Tuple[int, ...]
@@ -274,25 +146,43 @@ class _Layout:
     reduce_axes: Tuple[str, ...]
 
 
-def _non_tensor(spec: shd.Spec) -> List[Tuple[int, str]]:
+def _over(spec: shd.Spec, axes) -> List[Tuple[int, str]]:
+    """``(dim, axis)`` for every dim of ``spec`` sharded over one of
+    ``axes``."""
     out = []
     for d, entry in enumerate(spec):
-        axes = [a for a in shd.spec_axes(entry) if a != mesh_lib.TENSOR_AXIS]
         if len(shd.spec_axes(entry)) > 1:
             raise NotImplementedError(
                 f"a parameter dim sharded over {shd.spec_axes(entry)}: one "
                 "mesh axis per parameter dim is carried")
-        out += [(d, a) for a in axes]
+        out += [(d, a) for a in shd.spec_axes(entry) if a in axes]
     return out
 
 
-def _tensor_part(spec: shd.Spec) -> shd.Spec:
-    return tuple(e if mesh_lib.TENSOR_AXIS in shd.spec_axes(e) else None
-                 for e in spec)
+def _used_part(spec: shd.Spec, batch_axes) -> shd.Spec:
+    """``spec`` without its batch axes: how the parameter the forward uses
+    is sharded (over tensor, or fsdp under rowwise)."""
+    return tuple(None if any(a in batch_axes for a in shd.spec_axes(e))
+                 else e for e in spec)
 
 
 def _box(t: torch.Tensor, box) -> torch.Tensor:
     return t[tuple(slice(a, b) for a, b in box)]
+
+
+def _as_lists(node):
+    """A tree whose dicts keyed 0..n-1 become lists (the JAX trees' lists
+    of layers)."""
+    if not isinstance(node, dict):
+        return node
+    out = {k: _as_lists(v) for k, v in node.items()}
+    if out and all(isinstance(k, int) for k in out):
+        return [out[k] for k in sorted(out)]
+    return out
+
+
+def _norm_sq(t: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.vector_norm(t, dtype=torch.float32).square()
 
 
 class ShardedTrainer:
@@ -304,14 +194,16 @@ class ShardedTrainer:
         is a mean over (``next_token_sums`` of the LMs, ``loss_sums`` of
         the CNN and DLRM); the step's loss is their quotient, over the
         global batch above one rank.
-      init_fn: ``init_fn(seed, device) -> nn.Module``.
+      init_fn: ``init_fn(seed, device) -> nn.Module``. Under a sharded
+        strategy a parameter may come as the rank's box of its forward
+        (a rowwise table's rows, ``models/dlrm.py``) instead of whole.
       device: where to train; ``None`` is the GPU.
       strategy: one of :data:`STRATEGIES` (see the module docstring);
         "sequence" and "pipeline" raise ``NotImplementedError``.
       optimizer: a factory from parameters to an optimizer (default
         ``adamw(3e-4)``, the JAX trainer's default); :meth:`train_state`
-        carries :func:`adamw`, :func:`adam` and :func:`adagrad` (the
-        sharded strategies: the first two).
+        carries :func:`adamw`, :func:`adam`, :func:`adagrad` and the
+        optimizers of ``optim/bf16.py``.
       accum_steps: microbatches per optimizer update. Above 1 the
         optimizer must be an :func:`adamw`, whose update then runs as
         :class:`Fp32GradAdamW` on the fp32 mean of the gradients.
@@ -320,6 +212,13 @@ class ShardedTrainer:
       param_axes: ``param_axes(model) -> {name: logical axes}`` and
       jax_coordinates: ``jax_coordinates(name) -> models.llama.JaxLeaf``,
         which the sharded strategies need (the model's layout).
+      value_and_grad: ``value_and_grad(model, batch) -> (loss, grads)``
+        in place of the step's autograd call (the JAX trainer's hook,
+        ``optim/wsam.py``): the rank's share of the loss and its
+        gradients, one per trained parameter (or None), which the step
+        then reduces as its own. A hook with ``bind(loss, grad_norm)``
+        is bound at :meth:`init` to the trainer's loss on the rank's
+        rows and to the norm of the data-parallel sum of gradients.
     """
 
     def __init__(
@@ -333,6 +232,7 @@ class ShardedTrainer:
         mesh=None,
         param_axes: Optional[Callable] = None,
         jax_coordinates: Optional[Callable] = None,
+        value_and_grad: Optional[Callable] = None,
     ):
         if strategy in shd.NOT_PORTED:
             raise NotImplementedError(
@@ -341,23 +241,14 @@ class ShardedTrainer:
         if strategy not in STRATEGIES:
             raise ValueError(f"Unknown strategy {strategy!r}; one of "
                              f"{sorted(STRATEGIES)}")
-        if (strategy == "rowwise" and torch.distributed.is_available()
-                and torch.distributed.is_initialized()
-                and torch.distributed.get_world_size() > 1):
-            raise NotImplementedError(
-                "strategy 'rowwise' over more than one device shards the "
-                "table rows, which is not ported yet (ROADMAP.md, queue A, "
-                "item 1.1: a sharded vocab_parallel_lookup with dlrm_large)")
         if strategy in SHARDED and (param_axes is None
                                     or jax_coordinates is None):
             raise NotImplementedError(
                 f"strategy {strategy!r} needs the model's logical axes, "
-                "which only make_trainer_for_llama gives: the other "
+                "which the Llama and DLRM factories give: the other "
                 "families on a mesh are not ported yet (ROADMAP.md, queue "
-                "A, item 1.1)")
+                "A)")
         optimizer = optimizer or adamw(3e-4)
-        if strategy in SHARDED and not isinstance(optimizer, AdamW):
-            raise ValueError(f"strategy {strategy!r} carries adamw/adam")
         #: seconds the newest step spent in collectives, the device
         #: synchronized on both sides (0 at one rank): ddp's reduction,
         #: or every collective of a sharded strategy's step
@@ -374,17 +265,20 @@ class ShardedTrainer:
         self._make_optimizer = optimizer
         self._param_axes = param_axes
         self._jax_coordinates = jax_coordinates
+        self._hook = value_and_grad
+        self._value_and_grad: Optional[Callable] = None
         if mesh is None:
             mesh = mesh_lib.create_mesh(
                 [(mesh_lib.DATA_AXIS, 1), (mesh_lib.FSDP_AXIS, -1)],
                 device=self.device)
         self.mesh = mesh
         self.rules = shd.get_rules(strategy)
-        #: the data-parallel axes (of size > 1) and their group: the
-        #: batch is split, and the loss, its count and the gradients
-        #: summed, over these ranks only
-        self.batch_axes = tuple(a for a in mesh_lib.batch_axes(mesh)
-                                if mesh_lib.axis_size(mesh, a) > 1)
+        #: the data-parallel axes (the rule table's batch axes of size
+        #: > 1) and their group: the batch is split, and the loss, its
+        #: count and the gradients summed, over these ranks only
+        self.batch_axes = tuple(
+            a for a in shd.spec_axes(self.rules.get("batch"))
+            if mesh_lib.axis_size(mesh, a) > 1)
         self._dp_group = mesh_lib.axes_group(mesh, self.batch_axes)
         self._tp_group = mesh_lib.axes_group(mesh, (mesh_lib.TENSOR_AXIS,))
         self.model: Optional[nn.Module] = None
@@ -404,9 +298,16 @@ class ShardedTrainer:
     def sharded(self) -> bool:
         return self.strategy in SHARDED
 
+    @property
+    def data_parallel_size(self) -> int:
+        """The ranks that step different rows of the global batch."""
+        return math.prod(mesh_lib.axis_size(self.mesh, a)
+                         for a in self.batch_axes)
+
     def data_parallel_index(self) -> int:
-        """This rank's index among the data-parallel ranks (data major,
-        fsdp minor): which part of the global batch it steps on."""
+        """This rank's index among the data-parallel ranks (in the order
+        of the batch axes, the last minor): which part of the global
+        batch it steps on."""
         idx = 0
         for a in self.batch_axes:
             idx = (idx * mesh_lib.axis_size(self.mesh, a)
@@ -415,8 +316,9 @@ class ShardedTrainer:
 
     def split_batch(self, batch):
         """This rank's rows of a global batch (leaves [global, ...]):
-        the data-parallel ranks split it, a tensor group shares a part."""
-        dp = mesh_lib.data_parallel_size(self.mesh)
+        the data-parallel ranks split it, the ranks of one tensor group
+        (or, under rowwise, of one fsdp group) share a part."""
+        dp = self.data_parallel_size
         i = self.data_parallel_index()
         return tuple(x[i * (x.shape[0] // dp):(i + 1) * (x.shape[0] // dp)]
                      for x in batch)
@@ -435,13 +337,31 @@ class ShardedTrainer:
         if self.accum_steps == 1:
             self.optimizer = self._make_optimizer(self._opt_params)
             if isinstance(self.optimizer, torch.optim.AdamW):
-                _init_adamw_state(self.optimizer)
+                init_adamw_state(self.optimizer)
         else:
             self.optimizer = Fp32GradAdamW(self._opt_params,
                                            self._make_optimizer)
+        self._bind_optimizer()
+        hook = self._hook
+        if hook is not None and hasattr(hook, "bind"):
+            hook = hook.bind(lambda model, batch: self._mean_loss(batch),
+                             self._used_grad_norm)
+        self._value_and_grad = hook
         return self.model, self.optimizer
 
+    def _bind_optimizer(self) -> None:
+        """A sharded strategy's optimizer sees its boxes of the
+        gradients: a guard among its wrappers takes the global norm of
+        the boxes of every rank (:meth:`_opt_grad_norm`)."""
+        bind = getattr(self.optimizer, "bind_grad_norm", None)
+        if bind is not None and self.sharded:
+            bind(self._opt_grad_norm)
+
     # ------------------------------------------------------------ layouts
+
+    def _global_shape(self, name: str, p: torch.Tensor) -> Tuple[int, ...]:
+        leaf = self._jax_coordinates(name)
+        return tuple(leaf.shape[leaf.dims[d]] for d in range(p.dim()))
 
     def _layout(self, name: str, shape, logical) -> _Layout:
         mesh = self.mesh
@@ -451,49 +371,58 @@ class ShardedTrainer:
         opt_rules = shd.opt_state_rules(self.strategy)
         opt = (shd.spec_in_order(logical, order, opt_rules, mesh)
                if opt_rules is not None else store)
-        if _tensor_part(opt) != _tensor_part(store):
+        if _used_part(opt, self.batch_axes) != _used_part(store,
+                                                          self.batch_axes):
             raise NotImplementedError(f"{name}: optimizer state sharded "
-                                      "over tensor unlike the parameter")
-        scatter = _non_tensor(opt)
-        if any(a not in self.batch_axes for _, a in scatter):
-            raise NotImplementedError(
-                f"{name}: {scatter} shards over a non-data-parallel axis")
+                                      "over a model axis unlike the "
+                                      "parameter")
+        scatter = _over(opt, self.batch_axes)
         return _Layout(
-            name, tuple(shape), store, opt, _non_tensor(store), scatter,
-            tuple(a for a in self.batch_axes
-                  if a not in {a for _, a in scatter}))
+            name, tuple(shape), store, opt, _over(store, self.batch_axes),
+            scatter, tuple(a for a in self.batch_axes
+                           if a not in {a for _, a in scatter}))
 
     @torch.no_grad()
     def _shard_model(self) -> None:
         """Cut the whole model every rank built down to this rank's
-        shards: the tensor-parallel shard as the parameter the forward
-        uses, the fsdp shard kept apart (the parameter emptied until a
-        step gathers it), the ZeRO slice as the optimizer's own."""
+        shards: the model-parallel box (tensor, or a rowwise table's rows)
+        as the parameter the forward uses, the fsdp shard kept apart (the
+        parameter emptied until a step gathers it), the ZeRO slice as the
+        optimizer's own. A parameter the model already holds as its
+        forward box stays as it is."""
         axes = self._param_axes(self.model)
         self._layouts, self._stored, self._opt_params = [], [], []
-        tensor_box = {}
+        used_box = {}
+        mesh = self.mesh
         for name, p in self._named_trained():
-            lay = self._layout(name, p.shape, axes[name])
-            whole = p.detach()
-            mesh = self.mesh
-            tensor_box[name] = shd.local_slices(
-                _tensor_part(lay.store), whole.shape, mesh)
-            p.data = _box(whole, tensor_box[name]).clone()
+            shape = self._global_shape(name, p)
+            lay = self._layout(name, shape, axes[name])
+            used_box[name] = shd.local_slices(
+                _used_part(lay.store, self.batch_axes), shape, mesh)
+            whole = None
+            if tuple(p.shape) == shape:
+                whole = p.detach()
+                p.data = _box(whole, used_box[name]).clone()
+            elif (tuple(p.shape) != tuple(b - a for a, b in used_box[name])
+                  or lay.gather or lay.opt != lay.store):
+                raise ValueError(
+                    f"{name}: {tuple(p.shape)} is neither the whole "
+                    f"{shape} nor this rank's box {used_box[name]}")
             stored = p
             if lay.gather:
                 stored = nn.Parameter(_box(whole, shd.local_slices(
-                    lay.store, whole.shape, mesh)).clone())
+                    lay.store, shape, mesh)).clone())
                 p.data = p.data.new_empty(0)
             opt_param = stored
             if lay.opt != lay.store:
                 opt_param = nn.Parameter(_box(whole, shd.local_slices(
-                    lay.opt, whole.shape, mesh)).clone())
+                    lay.opt, shape, mesh)).clone())
             self._layouts.append(lay)
             self._stored.append(stored)
             self._opt_params.append(opt_param)
         if self._tp_group is not None:
             self.model.tp_group = self._tp_group
-            self.model.vocab_start = tensor_box["embed"][0][0]
+            self.model.vocab_start = used_box["embed"][0][0]
             for module in self.model.modules():
                 if hasattr(module, "tp_group"):
                     module.tp_group = self._tp_group
@@ -517,10 +446,10 @@ class ShardedTrainer:
 
     def _reduce_to_opt(self, grads: List[torch.Tensor]
                        ) -> List[torch.Tensor]:
-        """Whole (or tensor-parallel) gradients of this rank's rows ->
-        the optimizer's boxes of their sum over the data-parallel ranks:
-        reduce-scattered along the sharded dims, all-reduced over the
-        data-parallel axes that do not shard it (one bucket per group
+        """Gradients of the parameters the forward used, from this rank's
+        rows -> the optimizer's boxes of their sum over the data-parallel
+        ranks: reduce-scattered along the sharded dims, all-reduced over
+        the data-parallel axes that do not shard it (one bucket per group
         and dtype)."""
         out, buckets = [], {}
         for lay, g in zip(self._layouts, grads):
@@ -577,14 +506,56 @@ class ShardedTrainer:
 
     def state_bytes(self) -> Dict[str, int]:
         """Bytes this rank keeps between steps: its parameters (the
-        stored shards) and its optimizer state."""
-        mu, nu, _ = self._moments()
+        stored shards) and its optimizer's per-parameter state."""
         return {
             "params": sum(t.numel() * t.element_size()
                           for t in self._stored),
-            "optimizer": sum(t.numel() * t.element_size()
-                             for t in list(mu) + list(nu)),
+            "optimizer": sum(
+                t.numel() * t.element_size()
+                for _, ts in per_param_leaves(optimizer_state(
+                    self.optimizer)) for t in ts),
         }
+
+    # ------------------------------------------------------------- norms
+
+    def _global_norm(self, tensors: List[torch.Tensor],
+                     specs: List[shd.Spec]) -> torch.Tensor:
+        """The norm of the global tensors whose boxes, laid out by
+        ``specs``, the ranks hold: each box's square counted once over
+        the ranks that hold a copy of it, summed over the mesh. On the
+        device, without a host sync."""
+        ranks = math.prod(self.mesh.mesh.shape) if self.sharded else 1
+        total = torch.zeros((), dtype=torch.float32, device=self.device)
+        for t, spec in zip(tensors, specs):
+            parts = math.prod(mesh_lib.axis_size(self.mesh, a)
+                              for e in spec for a in shd.spec_axes(e))
+            total = total + _norm_sq(t) * (parts / ranks)
+        if ranks > 1:
+            coll.all_reduce_(total, dist.group.WORLD)
+        return total.sqrt()
+
+    def _opt_grad_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """The global gradient's norm from the optimizer's boxes of the
+        reduced gradients (a guard's non-finite test: every rank
+        decides alike)."""
+        grads = [g if g is not None else torch.zeros_like(p)
+                 for g, p in zip(grads, self._opt_params)]
+        return self._global_norm(grads, [lay.opt for lay in self._layouts])
+
+    def _used_grad_norm(self, grads: List[Optional[torch.Tensor]]
+                        ) -> torch.Tensor:
+        """The norm of the global gradient from this rank's gradients of
+        the parameters the forward used: their sum over the
+        data-parallel ranks (a copy), then :meth:`_global_norm`."""
+        grads = [g if g is not None else torch.zeros_like(p)
+                 for g, p in zip(grads, self._trained())]
+        if self._dp_group is not None:
+            grads = [g.clone() for g in grads]
+            allreduce_sum_(grads, self._dp_group)
+        if not self.sharded:
+            return self._global_norm(grads, [()] * len(grads))
+        return self._global_norm(grads, [
+            _used_part(lay.store, self.batch_axes) for lay in self._layouts])
 
     # -------------------------------------------------------------- state
 
@@ -596,101 +567,121 @@ class ShardedTrainer:
                 if p.requires_grad]
 
     def _moments(self):
-        """(mu, nu, count): the optimizer's moments as lists in parameter
-        order, and its update count -- optax's ``ScaleByAdamState``."""
-        opt = self.optimizer
-        if isinstance(opt, Fp32GradAdamW):
-            return opt.mu, opt.nu, opt.count
-        if not isinstance(opt, torch.optim.AdamW):
-            raise TypeError(
-                f"train state of a {type(opt).__name__}: only AdamW "
-                "(torch.optim.AdamW or Fp32GradAdamW) and RssAdagrad are "
-                "carried")
-        states = [opt.state[p] for p in self._opt_params]
-        count = int(states[0]["step"]) if states else 0
-        return ([s["exp_avg"] for s in states],
-                [s["exp_avg_sq"] for s in states], count)
+        """(mu, nu, count): AdamW's moments in parameter order and its
+        update count -- optax's ``ScaleByAdamState``."""
+        tree = optimizer_state(self.optimizer)
+        return tree["mu"], tree["nu"], tree["count"]
 
     def train_state(self) -> Dict[str, Any]:
         """The live training state, without copies: ``{"model": {name:
         parameter}, "optimizer": ...}``, the layout a checkpoint saves.
-        The optimizer's part is optax's state by parameter name:
-        ``{"mu": {name: moment}, "nu": {name: moment}, "count": updates}``
-        for AdamW and Adam, ``{"sum_of_squares": {name: accumulator}}``
-        for Adagrad. Under a sharded strategy the names are the JAX
-        parameter tree's and each leaf a ``ckpt_store.ShardedLeaf`` of
-        this rank's boxes (:meth:`_jax_state`)."""
+        The optimizer's part is optax's state (:func:`optimizer_state`)
+        with each per-parameter list keyed by parameter name: ``{"mu",
+        "nu", "count"}`` for AdamW and Adam, ``{"sum_of_squares"}`` for
+        Adagrad. Under a sharded strategy the names are the JAX parameter
+        tree's and each leaf a ``ckpt_store.ShardedLeaf`` of this rank's
+        boxes (:meth:`_jax_state`)."""
         if self.sharded:
             return self._jax_state()
         named = self._named_trained()
         names = [n for n, _ in named]
-        if isinstance(self.optimizer, RssAdagrad):
-            opt = {"sum_of_squares": dict(
-                zip(names, self.optimizer.sum_of_squares))}
-        else:
-            mu, nu, count = self._moments()
-            opt = {"mu": dict(zip(names, mu)), "nu": dict(zip(names, nu)),
-                   "count": count}
+        opt = map_per_param(optimizer_state(self.optimizer),
+                            lambda _, ts: dict(zip(names, ts)))
         return {"model": {n: p.detach() for n, p in named},
                 "optimizer": opt}
 
-    def _jax_state(self) -> Dict[str, Any]:
-        """The sharded state in the JAX parameter tree's coordinates:
-        every port parameter is a box of its JAX leaf (a layer of a
-        stacked leaf, transposed for a matrix), viewed in JAX order; the
-        leaf's domains are every rank's boxes of every parameter in it,
-        with the ranks that hold each."""
+    def _jax_tree(self, specs: List[shd.Spec],
+                  tensors: List[torch.Tensor]) -> Dict[str, Any]:
+        """One tensor per layout, each the box of its JAX leaf that
+        ``specs`` gives this rank, as the JAX parameter tree: every port
+        parameter is a box of its leaf (a layer of a stacked leaf,
+        transposed for a matrix), viewed in JAX order; the leaf's domains
+        are every rank's boxes of every parameter in it, with the ranks
+        that hold each."""
         from dlrover_tpu_torch.trainer.ckpt_store import ShardedLeaf
 
-        mu, nu, count = self._moments()
-        trees: Dict[str, Dict] = {"model": {}, "mu": {}, "nu": {}}
-        for i, lay in enumerate(self._layouts):
+        root: Dict = {}
+        for lay, spec, t in zip(self._layouts, specs, tensors):
             leaf = self._jax_coordinates(lay.name)
-            for key, spec, t in (("model", lay.store, self._stored[i]),
-                                 ("mu", lay.opt, mu[i]),
-                                 ("nu", lay.opt, nu[i])):
-                node = trees[key]
-                for k in leaf.path[:-1]:
-                    node = node.setdefault(k, {})
-                sl = node.get(leaf.path[-1])
-                if sl is None:
-                    sl = node[leaf.path[-1]] = ShardedLeaf(
-                        tuple(leaf.shape), t.dtype, [], [])
-                box = shd.local_slices(spec, lay.shape, self.mesh)
-                sl.pieces.append((leaf.index(box), leaf.to_jax(t.detach())))
-                sl.domains += [
-                    {"idx": leaf.index(b), "replicas": r}
-                    for b, r in shd.global_boxes(spec, lay.shape, self.mesh)]
-        return {"model": trees["model"],
-                "optimizer": {"mu": trees["mu"], "nu": trees["nu"],
-                              "count": count}}
+            node = root
+            for k in leaf.path[:-1]:
+                node = node.setdefault(k, {})
+            sl = node.get(leaf.path[-1])
+            if sl is None:
+                sl = node[leaf.path[-1]] = ShardedLeaf(
+                    tuple(leaf.shape), t.dtype, [], [])
+            box = shd.local_slices(spec, lay.shape, self.mesh)
+            sl.pieces.append((leaf.index(box), leaf.to_jax(t.detach())))
+            sl.domains += [
+                {"idx": leaf.index(b), "replicas": r}
+                for b, r in shd.global_boxes(spec, lay.shape, self.mesh)]
+        return _as_lists(root)
+
+    def _jax_state(self) -> Dict[str, Any]:
+        """The sharded state in the JAX parameter tree's coordinates."""
+        opt_specs = [lay.opt for lay in self._layouts]
+        return {
+            "model": self._jax_tree([lay.store for lay in self._layouts],
+                                    self._stored),
+            "optimizer": map_per_param(
+                optimizer_state(self.optimizer),
+                lambda _, ts: self._jax_tree(opt_specs, ts))}
 
     @torch.no_grad()
     def _load_jax_state(self, state: Dict[str, Any]) -> None:
         """:meth:`_jax_state`'s tree (restored) into the live shards."""
-        moments = []
         seen: Dict[Tuple, int] = {}
-        for i, lay in enumerate(self._layouts):
+        pieces = []
+        for lay in self._layouts:
             leaf = self._jax_coordinates(lay.name)
             k = seen[leaf.path] = seen.get(leaf.path, -1) + 1
+            pieces.append((leaf, k))
 
-            def piece(tree):
+        def boxes(tree) -> List[torch.Tensor]:
+            out = []
+            for leaf, k in pieces:
+                node = tree
                 for key in leaf.path:
-                    tree = tree[key]
-                return leaf.from_jax(tree.pieces[k][1])
+                    node = node[key]
+                out.append(leaf.from_jax(node.pieces[k][1]))
+            return out
 
-            self._stored[i].copy_(piece(state["model"]))
-            moments.append((piece(state["optimizer"]["mu"]),
-                            piece(state["optimizer"]["nu"])))
-        for (_, p), lay, stored, op in zip(
-                self._named_trained(), self._layouts, self._stored,
-                self._opt_params):
+        for dst, src in zip(self._stored, boxes(state["model"])):
+            dst.copy_(src)
+        for lay, stored, op in zip(self._layouts, self._stored,
+                                   self._opt_params):
             if op is not stored:  # ZeRO: the slice of the parameter
                 op.copy_(_box(stored, shd.local_slices(
                     lay.opt, lay.shape, self.mesh)))
-        self._set_optimizer([m for m, _ in moments],
-                            [v for _, v in moments],
-                            int(state["optimizer"]["count"]))
+
+        def saved(path, _):
+            node = state["optimizer"]
+            for key in path:
+                node = node[key]
+            return boxes(node)
+
+        self._load_optimizer(map_per_param(optimizer_state(self.optimizer),
+                                           saved), state["optimizer"])
+
+    def _load_optimizer(self, tree: Dict[str, Any], saved) -> None:
+        """A restored optimizer state (per-parameter lists in the order of
+        the optimizer's parameters; scalars from ``saved``) into the
+        optimizer. AdamW's moments pick its class by their dtype (see
+        :meth:`load_train_state`)."""
+        tree = map_per_param(tree, lambda _, ts: ts)
+
+        def scalars(node, src):
+            for k, v in node.items():
+                if isinstance(v, dict):
+                    scalars(v, src[k])
+                elif not isinstance(v, list):
+                    node[k] = src[k]
+
+        scalars(tree, saved)
+        if isinstance(self._make_optimizer, AdamW):
+            self._set_optimizer(tree["mu"], tree["nu"], int(tree["count"]))
+        else:
+            load_optimizer_state(self.optimizer, tree)
 
     @torch.no_grad()
     def load_train_state(self, state: Dict[str, Any]) -> None:
@@ -708,17 +699,20 @@ class ShardedTrainer:
         for n, p in named:
             p.copy_(state["model"][n])
         opt = state["optimizer"]
-        if "sum_of_squares" in opt:
-            if not isinstance(self.optimizer, RssAdagrad):
-                raise ValueError(
-                    "an Adagrad state for a trainer whose optimizer is a "
-                    f"{type(self.optimizer).__name__}")
-            for (n, _), acc in zip(named, self.optimizer.sum_of_squares):
-                acc.copy_(opt["sum_of_squares"][n])
-            return
-        mu = [opt["mu"][n] for n, _ in named]
-        nu = [opt["nu"][n] for n, _ in named]
-        self._set_optimizer(mu, nu, int(opt["count"]))
+
+        def saved(path, _):
+            node = opt
+            for key in path:
+                if not isinstance(node, dict) or key not in node:
+                    raise ValueError(
+                        f"an optimizer state of {sorted(opt)} for a trainer "
+                        f"whose optimizer is a "
+                        f"{type(self.optimizer).__name__}")
+                node = node[key]
+            return [node[n] for n, _ in named]
+
+        self._load_optimizer(map_per_param(
+            optimizer_state(self.optimizer), saved), opt)
 
     def set_accum_steps(self, accum_steps: int) -> None:
         """Change the microbatches per update, carrying the moments and
@@ -733,28 +727,35 @@ class ShardedTrainer:
                 "mean of the microbatch gradients goes to Fp32GradAdamW")
         self.accum_steps = accum_steps
         if self.model is not None:
-            self._set_optimizer(*self._moments())
+            tree = optimizer_state(self.optimizer)
+            self._set_optimizer(tree["mu"], tree["nu"], tree["count"])
 
     def _set_optimizer(self, mu, nu, count: int) -> None:
         params = self._opt_params
         fp32 = self.accum_steps > 1 or any(
             m.dtype != p.dtype for m, p in zip(mu, params))
-        if fp32:
-            opt = Fp32GradAdamW(params, self._make_optimizer)
-            for dst, src in zip(opt.mu + opt.nu, list(mu) + list(nu)):
-                dst.copy_(src)
-            opt.count = count
-        else:
-            opt = self._make_optimizer(params)
-            _init_adamw_state(opt)
-            for p, m, v in zip(params, mu, nu):
-                st = opt.state[p]
-                st["exp_avg"].copy_(m)
-                st["exp_avg_sq"].copy_(v)
-                st["step"].fill_(count)
+        opt = (Fp32GradAdamW(params, self._make_optimizer) if fp32
+               else self._make_optimizer(params))
+        load_optimizer_state(opt, {"mu": mu, "nu": nu, "count": count})
         self.optimizer = opt
+        self._bind_optimizer()
 
     # --------------------------------------------------------------- step
+
+    def _loss_and_grads(self, batch):
+        """The rank's share of the loss on ``batch`` (detached) and its
+        gradient of every trained parameter (None where it has none):
+        autograd, or the ``value_and_grad`` hook."""
+        if self._value_and_grad is not None:
+            loss, grads = self._value_and_grad(self.model, batch)
+            return loss.detach(), list(grads)
+        loss = self._mean_loss(batch)
+        loss.backward()
+        grads = []
+        for p in self._trained():
+            grads.append(p.grad)
+            p.grad = None
+        return loss.detach(), grads
 
     def train_step(self, batch) -> torch.Tensor:
         """One update on ``batch``, whose leaves have a leading microbatch
@@ -765,32 +766,28 @@ class ShardedTrainer:
             return self._sharded_step(batch)
         accum = self.accum_steps
         reduced = self._dp_group is not None
+        params = self._trained()
         if not isinstance(self.optimizer, Fp32GradAdamW):
-            loss = self._mean_loss(tuple(x[0] for x in batch))
-            loss.backward()
-            loss = loss.detach()
-            if reduced:
-                params = self._trained()
-                for p in params:
-                    if p.grad is None:  # one layout on every rank
-                        p.grad = torch.zeros_like(p)
-                loss = self._reduce([p.grad for p in params], loss)
+            loss, grads = self._loss_and_grads(tuple(x[0] for x in batch))
+            if reduced:  # one layout on every rank
+                grads = [g if g is not None else torch.zeros_like(p)
+                         for g, p in zip(grads, params)]
+                loss = self._reduce(grads, loss)
+            for p, g in zip(params, grads):
+                p.grad = g
             if self.before_update is not None:
                 self.before_update()
             self.optimizer.step()
             self.optimizer.zero_grad(set_to_none=True)
             return loss
-        params = self._trained()
         sums = [torch.zeros_like(p, dtype=torch.float32) for p in params]
         loss = torch.zeros((), device=self.device)
         for i in range(accum):
-            micro = self._mean_loss(tuple(x[i] for x in batch))
-            micro.backward()
-            for acc, p in zip(sums, params):
-                if p.grad is not None:
-                    acc.add_(p.grad.float())
-                    p.grad = None
-            loss += micro.detach()
+            micro, grads = self._loss_and_grads(tuple(x[i] for x in batch))
+            for acc, g in zip(sums, grads):
+                if g is not None:
+                    acc.add_(g.float())
+            loss += micro
         grads = [acc.div_(accum) for acc in sums]
         loss = loss / accum
         if reduced:
@@ -801,9 +798,9 @@ class ShardedTrainer:
         return loss
 
     def _sharded_step(self, batch) -> torch.Tensor:
-        """The step of zero1, zero2, fsdp, tp and tp_fsdp: gather what the
-        forward needs, forward and backward on this rank's rows, the
-        gradients reduced to the optimizer's boxes (zero1 once after the
+        """The step of the sharded strategies: gather what the forward
+        needs, forward and backward on this rank's rows, the gradients
+        reduced to the optimizer's boxes (zero1 once after the
         microbatches, the others per microbatch), the update, and the
         updated ZeRO slices gathered back."""
         coll.collective_seconds(reset=True)
@@ -811,27 +808,21 @@ class ShardedTrainer:
         params = [p for _, p in self._named_trained()]
         self._gather_params()
 
-        def grads_of():
-            out = [p.grad if p.grad is not None else torch.zeros_like(p)
-                   for p in params]
-            for p in params:
-                p.grad = None
-            return out
+        def grads_of(batch):
+            loss, grads = self._loss_and_grads(batch)
+            return loss, [g if g is not None else torch.zeros_like(p)
+                          for g, p in zip(grads, params)]
 
         fp32 = isinstance(self.optimizer, Fp32GradAdamW)
         if not fp32:
-            loss = self._mean_loss(tuple(x[0] for x in batch))
-            loss.backward()
-            loss = loss.detach()
-            grads = self._reduce_to_opt(grads_of())
+            loss, grads = grads_of(tuple(x[0] for x in batch))
+            grads = self._reduce_to_opt(grads)
         else:
             per_micro = self.strategy != "zero1"
             sums = None
             loss = torch.zeros((), device=self.device)
             for i in range(accum):
-                micro = self._mean_loss(tuple(x[i] for x in batch))
-                micro.backward()
-                g = grads_of()
+                micro, g = grads_of(tuple(x[i] for x in batch))
                 if per_micro:
                     g = self._reduce_to_opt(g)
                 if sums is None:
@@ -839,7 +830,7 @@ class ShardedTrainer:
                 else:
                     for acc, x in zip(sums, g):
                         acc.add_(x.float())
-                loss += micro.detach()
+                loss += micro
             if not per_micro:
                 sums = self._reduce_to_opt(sums)
             grads = [acc.div_(accum) for acc in sums]
@@ -932,7 +923,8 @@ def family_trainer(cfg, loss_fn: Callable, init_fn: Callable,
                    accum_steps: int = 1,
                    optimizer: Optional[OptimizerFactory] = None,
                    mesh=None, param_axes: Optional[Callable] = None,
-                   jax_coordinates: Optional[Callable] = None
+                   jax_coordinates: Optional[Callable] = None,
+                   value_and_grad: Optional[Callable] = None
                    ) -> ShardedTrainer:
     """A family's trainer (each family's ``make_trainer``), logged with
     its config and size."""
@@ -940,6 +932,7 @@ def family_trainer(cfg, loss_fn: Callable, init_fn: Callable,
         loss_fn, init_fn, device=device, strategy=strategy,
         optimizer=optimizer, accum_steps=accum_steps, mesh=mesh,
         param_axes=param_axes, jax_coordinates=jax_coordinates,
+        value_and_grad=value_and_grad,
     )
     logger.info(
         "ShardedTrainer: %s params=%.1fM device=%s mesh=%s strategy=%s "
@@ -957,11 +950,13 @@ def make_trainer_for_llama(
     optimizer: Optional[OptimizerFactory] = None,
     attn_fn=None,
     mesh=None,
+    value_and_grad: Optional[Callable] = None,
 ) -> ShardedTrainer:
     """Trainer for the Llama model; ``device=None`` is the GPU. The
     default strategy stays "ddp" (the JAX default is "fsdp"), which the
     port's callers before the mesh rely on; ``mesh=None`` is the JAX
-    default mesh, ``[(data, 1), (fsdp, world)]``."""
+    default mesh, ``[(data, 1), (fsdp, world)]``; ``value_and_grad`` is
+    :class:`ShardedTrainer`'s hook."""
     from dlrover_tpu_torch.models import llama
 
     def loss(model, batch):
@@ -974,4 +969,5 @@ def make_trainer_for_llama(
         cfg, loss, init, llama.param_count(cfg), device=device,
         strategy=strategy, accum_steps=accum_steps, optimizer=optimizer,
         mesh=mesh, param_axes=lambda model: llama.param_axes(cfg),
-        jax_coordinates=lambda name: llama.jax_coordinates(cfg, name))
+        jax_coordinates=lambda name: llama.jax_coordinates(cfg, name),
+        value_and_grad=value_and_grad)

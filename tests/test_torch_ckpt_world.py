@@ -480,7 +480,7 @@ def two_ranks(tmp_path_factory):
     port = _free_port()
     procs = [subprocess.Popen(
         [sys.executable, "-c", "import torch\n" + _RANK, str(work)],
-        env={**os.environ, "PYTHONPATH": REPO,
+        env={**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1",
              "DLROVER_TPU_COORDINATOR_ADDR": f"localhost:{port}",
              "DLROVER_TPU_PROCESS_ID": str(rank),
              "DLROVER_TPU_NUM_PROCESSES": "2", "JAX_PLATFORMS": "cpu"},

@@ -192,7 +192,7 @@ def runs(tmp_path_factory, batches):
     procs = [
         subprocess.Popen(
             [sys.executable, "-c", _RANK, str(tmp_path)],
-            env={**os.environ, "PYTHONPATH": REPO,
+            env={**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1",
                  "DLROVER_TPU_COORDINATOR_ADDR": f"localhost:{port}",
                  "DLROVER_TPU_PROCESS_ID": str(rank),
                  "DLROVER_TPU_NUM_PROCESSES": "2",

@@ -206,6 +206,21 @@ def test_three_adagrad_steps_match_optax(jax_runs, adagrad_runs):
         _assert_close(got[name], want[name])
 
 
+def test_adagrad_in_row_blocks_is_bitwise_one_pass(jax_runs, adagrad_runs,
+                                                   monkeypatch):
+    """A parameter of more than ``CHUNK_ROWS`` rows is updated a block of
+    rows at a time: the steps equal the one-pass steps bit for bit."""
+    batches, _ = adagrad_runs
+    params = jax_runs["dot"][0]
+    _, want_losses, want = _port_steps(params, batches)
+    monkeypatch.setattr(RssAdagrad, "CHUNK_ROWS", 7)
+    trainer, losses, got = _port_steps(params, batches)
+    assert trainer.model.table.shape[0] > 7
+    assert losses == want_losses
+    for name in want:
+        np.testing.assert_array_equal(got[name], want[name])
+
+
 def test_torch_adagrad_is_another_optimizer(jax_runs, adagrad_runs):
     """``torch.optim.Adagrad``: accumulator from 0, eps after the root."""
     batches, (_, want) = adagrad_runs
@@ -218,15 +233,18 @@ def test_torch_adagrad_is_another_optimizer(jax_runs, adagrad_runs):
 
 
 def test_adagrad_state_round_trips(jax_runs, adagrad_runs):
-    """``train_state`` carries optax's ``sum_of_squares`` by parameter
-    name; a fresh trainer loaded with it takes the same next step."""
+    """``train_state`` carries optax's ``sum_of_squares`` in the JAX
+    parameter tree's coordinates (the rowwise layout's); a fresh trainer
+    loaded with it takes the same next step."""
     batches, _ = adagrad_runs
     params = jax_runs["dot"][0]
     trainer, _, _ = _port_steps(params, batches[:2])
     state = trainer.train_state()
     assert set(state["optimizer"]) == {"sum_of_squares"}
-    assert state["optimizer"]["sum_of_squares"].keys() == state["model"].keys()
-    acc = state["optimizer"]["sum_of_squares"]["head.bias"]
+    acc_tree = state["optimizer"]["sum_of_squares"]
+    assert acc_tree.keys() == state["model"].keys()
+    assert len(acc_tree["bottom"]) == len(SMALL["bottom_mlp"])
+    (_, acc), = acc_tree["head"]["b"].pieces
     assert acc.item() > 0.1  # 0.1 plus two squared gradients
     fresh = make_trainer_for(_configs()[1], device="cpu")
     fresh.init(model=_port_model(params))
@@ -253,15 +271,17 @@ def test_lookup_and_its_gradient_match_a_dense_gather():
     assert embedding.feature_offsets((10, 20, 30)).tolist() == [0, 10, 30]
 
 
-def test_strategies(monkeypatch):
+def test_strategies():
+    """DLRM gives its logical axes, so every ported strategy builds; the
+    unported ones name their ROADMAP item, and a model without axes
+    cannot take rowwise."""
     cfg = _configs()[1]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dlrm.make_trainer(cfg, device="cpu", strategy="fsdp")
+        dlrm.make_trainer(cfg, device="cpu", strategy="sequence")
+    assert dlrm.make_trainer(cfg, device="cpu", strategy="fsdp").sharded
     assert make_trainer_for(cfg, device="cpu", strategy="ddp").strategy \
         == "ddp"
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 1.1"):
+    with pytest.raises(NotImplementedError, match="logical axes"):
         ShardedTrainer(None, None, device="cpu", strategy="rowwise")
 
 

@@ -305,7 +305,7 @@ def test_init_from_env_forms_a_gloo_group_of_four():
     procs = []
     for pid in range(2):
         for local in range(2):
-            env = {**os.environ, "PYTHONPATH": REPO,
+            env = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1",
                    "DLROVER_TPU_COORDINATOR_ADDR": f"localhost:{port}",
                    "DLROVER_TPU_PROCESS_ID": str(pid),
                    "DLROVER_TPU_NUM_PROCESSES": "2",

@@ -18,13 +18,16 @@ A preemption (``preempt@6``): the drain's final ``report_goodput`` is
 accepted (its step is ok in ``preempt.drained``, and the master's final
 account carries the ``preempt`` seconds that only that report holds),
 the replay books ``preempt`` badput, and the SIGTERM leaves exactly one
-flight record."""
+flight record. The two drills run together."""
 
 import json
 import os
 import socket
 import threading
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
+
+import pytest
 
 from dlrover_tpu_torch.telemetry import goodput, read_journal
 from dlrover_tpu_torch.trainer.elastic_run import launch_local_master
@@ -43,9 +46,11 @@ def _drill(tmp, monkeypatch, fault, **kw):
     master of its own whose metrics are on a pinned port: its
     ``/goodput`` is polled until the launch ends, and the master stops
     by itself once the worker has exited, journaling its final account.
-    Flight records go under ``tmp/crash``. Returns the launcher's
-    process, its output, the journal's events and the last ``/goodput``
-    answer."""
+    Flight records go under ``tmp/crash``. The master starts here (it
+    takes the journal and the port from this process's environment);
+    the launch runs when the returned function is called, which returns
+    the launcher's process, its output, the journal's events and the
+    last ``/goodput`` answer."""
     port = _free_port()
     journal = os.path.join(tmp, "journal.jsonl")
     monkeypatch.setenv("DLROVER_TPU_JOURNAL", journal)
@@ -53,35 +58,61 @@ def _drill(tmp, monkeypatch, fault, **kw):
     master, addr = launch_local_master(node_num=1)
     env = {"DLROVER_FAULT_INJECT": fault, "DLROVER_TPU_JOURNAL": journal,
            "DLROVER_TPU_CRASH_DIR": os.path.join(tmp, "crash"), **kw}
-    last, done = {}, threading.Event()
 
-    def poll():
-        while not done.is_set():
-            try:
-                with urllib.request.urlopen(
-                        f"http://127.0.0.1:{port}/goodput",
-                        timeout=2) as resp:
-                    answer = json.loads(resp.read())
-                if answer.get("job"):
-                    last["answer"] = answer
-            except OSError:
-                pass
-            done.wait(0.1)
+    def run():
+        last, done = {}, threading.Event()
 
-    poller = threading.Thread(target=poll, daemon=True)
-    poller.start()
-    try:
-        proc, text, _ = launch(tmp, save_interval=4, env=env,
-                               flags=("--master_addr", addr))
-        master.wait(timeout=30)
-    finally:
-        done.set()
-        poller.join(timeout=10)
-        if master.poll() is None:
-            master.kill()
+        def poll():
+            while not done.is_set():
+                try:
+                    with urllib.request.urlopen(
+                            f"http://127.0.0.1:{port}/goodput",
+                            timeout=2) as resp:
+                        answer = json.loads(resp.read())
+                    if answer.get("job"):
+                        last["answer"] = answer
+                except OSError:
+                    pass
+                done.wait(0.1)
+
+        poller = threading.Thread(target=poll, daemon=True)
+        poller.start()
+        try:
+            proc, text, _ = launch(tmp, save_interval=4, env=env,
+                                   flags=("--master_addr", addr))
             master.wait(timeout=30)
-    events = read_journal(journal) if os.path.exists(journal) else []
-    return proc, text, events, last.get("answer")
+        finally:
+            done.set()
+            poller.join(timeout=10)
+            if master.poll() is None:
+                master.kill()
+                master.wait(timeout=30)
+        events = read_journal(journal) if os.path.exists(journal) else []
+        return proc, text, events, last.get("answer")
+
+    return run
+
+
+#: the module's two drills: (fault, extra environment)
+_DRILLS = {"crash": ("crash@8", {}),
+           "preempt": ("preempt@6:notice=10",
+                       {"DLROVER_TPU_PREEMPT_NOTICE_BUDGET": "8"})}
+
+
+@pytest.fixture(scope="module")
+def drills(tmp_path_factory):
+    """Both drills, run together, each against its own master (started
+    one after the other: each takes this process's environment):
+    {name: (its directory, _drill's result)}."""
+    runs = {}
+    with pytest.MonkeyPatch.context() as mp:
+        for name, (fault, kw) in _DRILLS.items():
+            tmp = tmp_path_factory.mktemp(f"goodput_{name}")
+            runs[name] = (tmp, _drill(str(tmp), mp, fault, **kw))
+    with ThreadPoolExecutor(len(runs)) as pool:
+        futures = {name: pool.submit(run) for name, (_, run) in runs.items()}
+        return {name: (runs[name][0], f.result())
+                for name, f in futures.items()}
 
 
 def _final_account(events):
@@ -101,9 +132,8 @@ def _check_replay(report):
         assert idle <= 0.05 * elapsed, (key, p["phases"])
 
 
-def test_crash_drill_books_the_gap_as_restart(tmp_path, monkeypatch):
-    proc, text, events, live = _drill(str(tmp_path), monkeypatch,
-                                      "crash@8")
+def test_crash_drill_books_the_gap_as_restart(drills):
+    _, (proc, text, events, live) = drills["crash"]
     assert proc.returncode == 0, text[-3000:]
     assert "RESTORED from step 4" in proc.stdout
     report = goodput.reconstruct(events)
@@ -127,10 +157,8 @@ def test_crash_drill_books_the_gap_as_restart(tmp_path, monkeypatch):
     assert final["faults"] == 2 and final["mttr_s"] > 0
 
 
-def test_preempt_drill_closes_the_incarnation(tmp_path, monkeypatch):
-    proc, text, events, live = _drill(
-        str(tmp_path), monkeypatch, "preempt@6:notice=10",
-        DLROVER_TPU_PREEMPT_NOTICE_BUDGET="8")
+def test_preempt_drill_closes_the_incarnation(drills):
+    tmp_path, (proc, text, events, live) = drills["preempt"]
     assert proc.returncode == 21, text[-3000:]
     drained = [e for e in events if e["kind"] == "preempt.drained"]
     assert len(drained) == 1 and drained[0]["data"]["goodput"] is True

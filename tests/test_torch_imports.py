@@ -70,6 +70,12 @@ def test_the_mesh_modules_are_under_the_rule():
             "parallel/tensor_parallel.py", "trainer/sharded.py"} <= ported
 
 
+def test_the_optimizers_are_under_the_rule():
+    ported = {str(p.relative_to(PORT)) for p in FILES if p.is_relative_to(PORT)}
+    assert {"optim/__init__.py", "optim/bf16.py", "optim/optimizers.py",
+            "optim/state.py", "optim/wsam.py"} <= ported
+
+
 @pytest.mark.parametrize(
     "path", FILES, ids=[str(p.relative_to(REPO)) for p in FILES])
 def test_no_jax_imports(path):

@@ -52,7 +52,9 @@ def launch(tmp, steps=12, save_interval=5, env=None, flags=(),
     ]
     full_env = {k: v for k, v in os.environ.items()
                 if not k.startswith(("DLROVER_TPU_", "DLROVER_FAULT"))}
-    full_env.update(env or {})
+    # one OpenMP thread a worker: launches that run together do not
+    # spin each other's threads
+    full_env.update({"OMP_NUM_THREADS": "1", **(env or {})})
     proc = subprocess.run(cmd, cwd=REPO, env=full_env, timeout=timeout,
                           capture_output=True, text=True)
     text = proc.stdout + proc.stderr
@@ -90,8 +92,12 @@ def launches(tmp_path_factory):
     """Each of _LAUNCHES, all run together (each launcher with a master
     of its own, on a directory of its own, its journal on):
     {key: (launch()'s result, the journal's path)}."""
+    # the directories first: mktemp is not safe across threads
+    dirs = {key: tmp_path_factory.mktemp(f"launch_{key}")
+            for key in _LAUNCHES}
+
     def run(key):
-        tmp = tmp_path_factory.mktemp(f"launch_{key}")
+        tmp = dirs[key]
         journal = str(tmp / "journal.jsonl")
         kwargs = dict(_LAUNCHES[key])
         env = {**kwargs.pop("env", {}), "DLROVER_TPU_JOURNAL": journal}

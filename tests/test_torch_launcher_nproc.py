@@ -45,7 +45,7 @@ def test_two_workers_per_node_form_a_world_and_restart_together(tmp_path):
          "--standalone", "--nnodes", "1:1", "--nproc_per_node", "2",
          "--monitor_interval", "0.2", str(script)],
         cwd=REPO, capture_output=True, text=True, timeout=120,
-        env={**os.environ, "PYTHONPATH": REPO,
+        env={**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1",
              "DLROVER_TPU_JOURNAL": str(journal)})
     assert proc.returncode == 0, proc.stderr[-2000:]
     lines = re.findall(

@@ -92,6 +92,7 @@ def _rounds():
 
 def test_two_nodes_pass_both_rounds_of_the_torch_probe(monkeypatch):
     monkeypatch.setenv(network_check.ENV_PROBE_DEVICE, "cpu")
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the probes run together
     with _master(2) as master:
         assert _run_agents(master, 2) == {0: True, 1: True}
         client = MasterClient(master, node_id=0, node_type="worker")

@@ -20,13 +20,16 @@ from dlrover_tpu_torch.data import shm_ring
 from tests.test_torch_shm_drill import (
     _alive,
     _assert_no_coworker_or_ring_left,
+    crash_drill,
     shm_launch,
 )
 
 
-def test_preempt_under_the_shm_feed(tmp_path):
+def test_preempt_under_the_shm_feed(tmp_path, tmp_path_factory):
     """``preempt@6``: the worker drains (rc 21) and the launcher exits
-    21; no coworker and no ring of the worker outlives it."""
+    21; no coworker and no ring of the worker outlives it. The crash
+    drill of test_torch_shm_drill.py runs beside it."""
+    crash_drill(tmp_path_factory)
     proc, text, events, _ = shm_launch(
         str(tmp_path), {"DLROVER_FAULT_INJECT": "preempt@6:notice=10",
                         "DLROVER_TPU_PREEMPT_NOTICE_BUDGET": "8"},

@@ -15,6 +15,7 @@ import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 from dlrover_tpu_torch.data import shm_ring
 from dlrover_tpu_torch.telemetry import read_journal
@@ -96,7 +97,7 @@ def shm_launch(tmp, env, steps=12, save_interval=5, dataset_rows=256):
     ]
     full_env = {k: v for k, v in os.environ.items()
                 if not k.startswith(("DLROVER_TPU_", "DLROVER_FAULT"))}
-    full_env.update(env, DLROVER_TPU_JOURNAL=journal)
+    full_env.update(env, DLROVER_TPU_JOURNAL=journal, OMP_NUM_THREADS="1")
     with _ProcWatch(journal) as watch:
         proc = subprocess.run(cmd, cwd=REPO, env=full_env, timeout=150,
                               capture_output=True, text=True)
@@ -120,13 +121,31 @@ def _assert_no_coworker_or_ring_left(events):
     assert not [n for w in workers for n in shm_ring.segments_of(w)]
 
 
-def test_crash_under_the_shm_feed(tmp_path):
+#: the crash drill's launch: started by whichever of this module and
+#: test_torch_shm_drain_drill.py runs first, so that it runs beside the
+#: drain drill's launch
+_CRASH = {}
+
+
+def crash_drill(tmp_path_factory):
+    """The crash drill's launch, started in the background once: its
+    future of (directory, shm_launch's result)."""
+    if "future" not in _CRASH:
+        tmp = tmp_path_factory.mktemp("shm_crash")
+        pool = ThreadPoolExecutor(1)
+        _CRASH["future"] = pool.submit(lambda: (tmp, shm_launch(
+            str(tmp), {"DLROVER_FAULT_INJECT": "crash@8"})))
+        pool.shutdown(wait=False)
+    return _CRASH["future"]
+
+
+def test_crash_under_the_shm_feed(tmp_path_factory):
     """``crash@8`` with two coworkers: the agent ends the dead worker's
     coworkers and unlinks its ring before the successor spawns; the
     successor restores step 5 (model and optimizer; the ledger is not
     rewound) and trains to step 12 on shards it had not been given."""
-    proc, text, events, watch = shm_launch(
-        str(tmp_path), {"DLROVER_FAULT_INJECT": "crash@8"})
+    _, (proc, text, events, watch) = crash_drill(tmp_path_factory).result(
+        timeout=300)
     assert proc.returncode == 0, text[-4000:]
     assert "INJECTED CRASH rc=17 at step 8" in proc.stdout
     assert "RESTORED from step 5" in proc.stdout

@@ -10,9 +10,13 @@ its layout says: half the parameters under fsdp and tp at two ranks,
 half the optimizer state under the ZeRO strategies and fsdp.
 
 Cases: zero1, zero2 (also at two microbatches), fsdp and tp at two
-ranks, tp_fsdp at four (fsdp 2 x tensor 2). The two ranks then run
-test_torch_ckpt_sharded.py's fsdp save and restore (``rank_groups``
-starts the groups once for both modules)."""
+ranks, tp_fsdp at four (fsdp 2 x tensor 2), all under adamw; and zero1
+under the guarded ``bf16_adamw`` (fp32 masters and its moments the
+ZeRO slices, the guard's norm the global one) against JAX's
+``bf16_adamw``. The two ranks then run
+test_torch_ckpt_sharded.py's fsdp save and restore and
+test_torch_rowwise.py's rowwise cases (``rank_groups`` starts the groups
+once for the three modules)."""
 
 import functools
 import os
@@ -31,6 +35,7 @@ import torch
 from jax.sharding import Mesh as JaxMesh
 
 from dlrover_tpu.models import llama as jax_llama
+from dlrover_tpu.optim import bf16 as jax_bf16
 from dlrover_tpu.trainer import sharded as jax_sharded
 from dlrover_tpu.trainer.sharded import (
     make_trainer_for_llama as jax_make_trainer,
@@ -45,13 +50,19 @@ from tests.test_torch_trainer import _assert_adam_close
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LR = 1e-3
 STEPS = 3
-#: (strategy, mesh, accum) by rank count
+#: (strategy, mesh, accum, optimizer) by rank count
 CASES = {
-    2: [("zero1", (("fsdp", 2),), 1), ("zero2", (("fsdp", 2),), 1),
-        ("zero2", (("fsdp", 2),), 2), ("fsdp", (("fsdp", 2),), 1),
-        ("tp", (("tensor", 2),), 1)],
-    4: [("tp_fsdp", (("fsdp", 2), ("tensor", 2)), 1)],
+    2: [("zero1", (("fsdp", 2),), 1, "adamw"),
+        ("zero2", (("fsdp", 2),), 1, "adamw"),
+        ("zero2", (("fsdp", 2),), 2, "adamw"),
+        ("fsdp", (("fsdp", 2),), 1, "adamw"),
+        ("tp", (("tensor", 2),), 1, "adamw"),
+        ("zero1", (("fsdp", 2),), 1, "bf16_adamw")],
+    4: [("tp_fsdp", (("fsdp", 2), ("tensor", 2)), 1, "adamw")],
 }
+#: optimizer state bytes per fp32 parameter byte: two fp32 moments;
+#: an fp32 master, a bf16 mu and an fp32 nu
+STATE_PER_BYTE = {"adamw": 2, "bf16_adamw": 2.5}
 ALL = [(n, c) for n in CASES for c in CASES[n]]
 
 _RANK = textwrap.dedent("""
@@ -60,6 +71,7 @@ _RANK = textwrap.dedent("""
     from dlrover_tpu_torch.models import llama
     from dlrover_tpu_torch.parallel.mesh import create_mesh
     from dlrover_tpu_torch.trainer.distributed import init_from_env
+    from dlrover_tpu_torch.optim import bf16_adamw
     from dlrover_tpu_torch.trainer.sharded import (
         adamw, make_trainer_for_llama)
     work, cases = sys.argv[1], eval(sys.argv[2])
@@ -68,13 +80,15 @@ _RANK = textwrap.dedent("""
     cfg = llama.llama_tiny(dtype=torch.float32, remat="off")
     data = np.load(f"{work}/batches.npz")
     out = {}
-    for i, (strategy, spec, accum) in enumerate(cases):
+    for i, (strategy, spec, accum, opt) in enumerate(cases):
         model = llama.Llama(cfg, device="cpu")
         model.load_state_dict(torch.load(f"{work}/start{i}.pt"))
         trainer = make_trainer_for_llama(
             cfg, device="cpu", strategy=strategy, accum_steps=accum,
             mesh=create_mesh(list(spec), device="cpu"),
-            optimizer=adamw(1e-3, b1=0.9, b2=0.95))
+            optimizer={"adamw": adamw, "bf16_adamw": lambda *a, **k:
+                       bf16_adamw(*a, guard_nonfinite=True, **k)}[opt](
+                1e-3, b1=0.9, b2=0.95))
         trainer.init(model=model)
         losses = []
         for s in range(len(data[f"tokens{i}"])):
@@ -112,6 +126,12 @@ def _batches(spec, accum):
     return port, jax_order
 
 
+_JAX_OPTIMIZERS = {
+    "adamw": optax.adamw,
+    "bf16_adamw": lambda *a, **k: jax_bf16.bf16_adamw(
+        *a, guard_nonfinite=True, **k)}
+
+
 class _FastJax(types.ModuleType):
     """``jax`` for the JAX trainer's module, whose ``jit`` compiles with
     XLA's cheap codegen (test_torch_gpt.py's FAST_COMPILE)."""
@@ -120,7 +140,7 @@ class _FastJax(types.ModuleType):
         return getattr(jax, name)
 
 
-def _jax_trainer(strategy, spec, accum):
+def _jax_trainer(strategy, spec, accum, opt):
     """The JAX trainer of a case and its initial (params, opt_state)."""
     jcfg = jax_llama.llama_tiny(dtype=np.float32, remat="off")
     n = int(np.prod([k for _, k in spec]))
@@ -128,7 +148,8 @@ def _jax_trainer(strategy, spec, accum):
         [k for _, k in spec]), tuple(a for a, _ in spec))
     jtrainer = jax_make_trainer(jcfg, mesh, strategy=strategy,
                                 accum_steps=accum,
-                                optimizer=optax.adamw(LR, b1=0.9, b2=0.95))
+                                optimizer=_JAX_OPTIMIZERS[opt](
+                                    LR, b1=0.9, b2=0.95))
     _ = jtrainer.train_step  # builds its jit now, with the cheap codegen
     return jtrainer, jtrainer.init(jax.random.key(0))
 
@@ -166,8 +187,10 @@ def _start(tmp_path_factory):
     compiles overlap), its starting weights in the port's layout and its
     batches written for the ranks, the ranks started, and the JAX steps
     started on threads. The two ranks also run
-    test_torch_ckpt_sharded.py's job after their cases."""
+    test_torch_ckpt_sharded.py's and test_torch_rowwise.py's jobs after
+    their cases."""
     from tests import test_torch_ckpt_sharded as ckpt
+    from tests import test_torch_rowwise as rowwise
 
     cfg = llama.llama_tiny(dtype=torch.float32, remat="off")
     fast = _FastJax("jax")
@@ -183,7 +206,7 @@ def _start(tmp_path_factory):
     for n, cases in CASES.items():
         tmp = dirs[n] = tmp_path_factory.mktemp(f"strategies{n}")
         arrays = {}
-        for i, (_, spec, accum) in enumerate(cases):
+        for i, (_, spec, accum, _) in enumerate(cases):
             start = jax.tree.map(np.array, built[n, cases[i]][1][0])
             model = llama.params_from_jax(start, cfg, device="cpu")
             torch.save(model.state_dict(), tmp / f"start{i}.pt")
@@ -195,7 +218,8 @@ def _start(tmp_path_factory):
                 k: v.detach().numpy().copy()
                 for k, v in model.named_parameters()}
         np.savez(tmp / "batches.npz", **arrays)
-        job = ckpt.rank_job(tmp) if n == 2 else ""
+        job = (ckpt.rank_job(tmp) + rowwise.rank_job(tmp) if n == 2
+               else "")
         procs[n] = _spawn(tmp, n, cases, job)
     stepped = {nc: pool.submit(_jax_steps, nc[1][1], nc[1][2], *built[nc])
                for nc in ALL}
@@ -246,7 +270,7 @@ def runs(tmp_path_factory):
 
 @pytest.mark.parametrize("n,case", ALL, ids=[
     f"{c[0]}-accum{c[2]}-{'x'.join(f'{a}{k}' for a, k in c[1])}"
-    for _, c in ALL])
+    + ("" if c[3] == "adamw" else f"-{c[3]}") for _, c in ALL])
 def test_strategy_matches_the_jax_sharded_trainer(runs, n, case):
     start, jax_losses, want, ranks = runs[n, case]
     for run in ranks:
@@ -262,15 +286,17 @@ def test_strategy_matches_the_jax_sharded_trainer(runs, n, case):
 def test_bytes_per_rank_follow_the_layout(runs):
     """Parameters halve under fsdp and tp at two ranks (the norms, tiny,
     stay whole under fsdp); the optimizer state halves under zero1,
-    zero2 and fsdp; tp_fsdp at 2 x 2 keeps a quarter."""
+    zero2 and fsdp; tp_fsdp at 2 x 2 keeps a quarter. bf16_adamw keeps
+    10 bytes a parameter where AdamW keeps 8."""
     cfg = llama.llama_tiny(dtype=torch.float32)
     whole = 4 * llama.param_count(cfg)
     norms = 4 * cfg.hidden_size * (2 * cfg.num_layers + 1)
-    for (n, (strategy, _, _)), (*_, ranks) in runs.items():
+    for (n, (strategy, _, _, opt_name)), (*_, ranks) in runs.items():
         for run in ranks:
             params, opt = run["bytes"]["params"], run["bytes"]["optimizer"]
             sharded = {"zero1": 1, "zero2": 1, "fsdp": 2, "tp": 2,
                        "tp_fsdp": 4}[strategy]
             opt_parts = 4 if strategy == "tp_fsdp" else 2
             assert params == (whole - norms) // sharded + norms
-            assert opt == 2 * ((whole - norms) // opt_parts + norms)
+            assert opt == STATE_PER_BYTE[opt_name] * (
+                (whole - norms) // opt_parts + norms)
