@@ -11,10 +11,13 @@ Phases, each of which raises on failure:
 3. kernels: each kernel against its plain PyTorch version on the card,
    at the Llama-1.1B train step's attention shape (GQA group 8), at
    GPT-2 XL's (25 heads over 25 kv heads, group 1), at the Llama step's
-   heads split over two tensor ranks (16 over 2) and at one small
-   non-causal shape, element by element; planted faults that the same
-   rule must reject; each kernel launched twice at the two train steps'
-   shapes, which must give the same bits; times there beside the
+   heads split over two tensor ranks (16 over 2), at phase "sequence"'s
+   (the ring's chunk of 8,192 tokens, causal and non-causal; Ulysses'
+   16,384 tokens at 16 over 2 heads: their plain versions a kv-head
+   group at a time) and at one small non-causal shape, element by
+   element; planted faults that the same rule must reject (at the train
+   steps' and the tp shape); each kernel launched twice at every timed
+   shape, which must give the same bits; times there beside the
    kernel's bound and PyTorch's own ``scaled_dot_product_attention`` as
    a yardstick;
 4. slice: the Llama-1.1B (TinyLlama shape, 22 layers) train step,
@@ -175,10 +178,38 @@ Phases, each of which raises on failure:
     Printed: step ms, the lookup's all-reduce ms per step, table bytes
     and peak memory per rank. A rowwise step without the all-reduce
     fails the parity gate (``tests/test_torch_rowwise_gpu.py``);
-15. the wall seconds of each phase, then the kernels line (one JSON
-    object; each kernel at both train steps' shapes and at the tp shape
-    of "mesh", with ``mesh_launches``), then the card's name and power
-    limit, then the device line, last.
+15. sequence: long context (``parallel/context_parallel.py``), the
+    same llama_1b cut to 4 layers at one sequence of 16,384 tokens a
+    step, ``max_seq_len=16384``, AdamW(1e-4, 0.9, 0.95), 1 warm-up and 2
+    timed steps, in two gloo ranks on ``cuda:0`` under "sequence" on (seq
+    2), each rank holding 8,192 tokens: ring attention (the flash kernels
+    per chunk: causal on the diagonal, non-causal on the earlier chunk,
+    no launch on a later one), then Ulysses (all-to-all, the kernels on
+    the whole sequence at 16 over 2 heads), each against the port's
+    one-process step at 16,384 from the same seed. Gates: losses within
+    MESH_LOSS_RTOL and phase "mesh"'s parameter gates; under ring rank i
+    launches each kernel i + 1 times a layer a step, under Ulysses once;
+    a ring that drops every chunk but the diagonal must fail the gates;
+    first, the ring Function alone at RING_SMALL on the card against the
+    same Function on host copies (the kernels' plain versions), under the
+    kernels' element rule. Printed per rank: step and collective ms, the
+    bytes ppermute and all_to_all sent a step, launches per step by
+    shape, peak memory; the collective route of each op;
+16. moe: the MoE Llama (``parallel/moe.py``): llama_1b's width with 4
+    experts, top-2, capacity factor 1.25 (llama_moe_tiny's experts and
+    k), cut to 4 layers, batch 3 x 2048, AdamW(1e-4, 0.9, 0.95), 1
+    warm-up and 2 timed steps: one process, then two gloo ranks under
+    tp_fsdp on (expert 2), each holding two experts. Gates: layer 0's
+    dispatch on the first batch equal to the one process's, bit for bit;
+    losses (with the auxiliary loss) within MESH_LOSS_RTOL; the parameter
+    gates; each rank holding half of the experts' bytes; 4 launches of
+    each kernel a rank a step. Printed: the dropped share of layer 0's
+    choices, aux, step ms, MFU from the MoE ``flops_per_token``, peak
+    memory;
+17. the wall seconds of each phase, then the kernels line (one JSON
+    object; each kernel at both train steps' shapes, at the tp shape of
+    "mesh", with ``mesh_launches``, and at the shapes of "sequence"), then
+    the card's name and power limit, then the device line, last.
 
 Exits non-zero, and prints no result, when there is no CUDA device or
 when the package is not beside this file.
@@ -454,10 +485,56 @@ def _work(b, s, h, kvh, d, causal):
             2.0 * b * s * kvh * d, 4.0 * b * h * s)
 
 
-def check_kernels(shape, timed: bool):
+#: the plain versions' fp32 scores above this many bytes are computed a
+#: kv-head group at a time (the groups are independent of each other)
+PLAIN_SCORES_BYTES = 2 ** 31
+
+
+def _plain_parts(q, k) -> int:
+    """1, or the kv heads when the plain versions' fp32 scores of q
+    would pass PLAIN_SCORES_BYTES."""
+    b, s, h, _ = q.shape
+    return 1 if 4 * b * h * s * s <= PLAIN_SCORES_BYTES else k.shape[2]
+
+
+def _plain(name: str, args):
+    """The plain version of kernel ``name`` on ``args`` (q, k, v, then
+    for the backward do, lse, delta; then causal, scale), a kv-head
+    group at a time when its fp32 scores would pass PLAIN_SCORES_BYTES:
+    the same equations on each group's heads, joined along the heads."""
+    import torch
+
+    from dlrover_tpu_torch.ops.cuda import flash_attention as fa
+
+    fn = {"fwd": fa.fwd_plain, "dq": fa.dq_plain, "dkv": fa.dkv_plain}[name]
+    q, k = args[0], args[1]
+    parts = _plain_parts(q, k)
+    if parts == 1:
+        return fn(*args)
+    g = q.shape[2] // parts
+    outs = []
+    for j in range(parts):
+        heads, kv = slice(j * g, (j + 1) * g), slice(j, j + 1)
+        part = [x[:, :, heads] for x in args[:1]]
+        part += [x[:, :, kv] for x in args[1:3]]
+        if name != "fwd":
+            do, lse, delta = args[3:6]
+            part += [do[:, :, heads], lse[:, heads], delta[:, heads]]
+        got = fn(*[x.contiguous() for x in part], *args[-2:])
+        outs.append(got if isinstance(got, tuple) else (got,))
+        torch.cuda.empty_cache()
+    joined = []
+    for i, first in enumerate(outs[0]):
+        dim = 1 if first.dim() == 3 else 2  # lse [b, h, s]; else heads
+        joined.append(torch.cat([o[i] for o in outs], dim=dim))
+    return tuple(joined) if len(joined) > 1 else joined[0]
+
+
+def check_kernels(shape, timed: bool, planted: bool = True):
     """Hold each kernel against its plain version at ``shape``; with
-    ``timed`` also time kernel, plain version and library call. One dict
-    per kernel."""
+    ``timed`` also time kernel, plain version and library call, and
+    check a bitwise repeat and (with ``planted``) that planted faults
+    fail the rule. One dict per kernel."""
     import torch
     import torch.nn.functional as F
 
@@ -471,13 +548,13 @@ def check_kernels(shape, timed: bool):
     q, k, v, do = _inputs(*(shape[x] for x in ("b", "s", "h", "kvh", "d")))
     scale = shape["d"] ** -0.5
     o, lse = fa.fwd(q, k, v, causal, scale)
-    o_ref, lse_ref = fa.fwd_plain(q, k, v, causal, scale)
+    o_ref, lse_ref = _plain("fwd", (q, k, v, causal, scale))
     delta = fa.attention_delta(o, do)
     args = (q, k, v, do, lse, delta, causal, scale)
     dq = fa.dq(*args)
-    dq_ref = fa.dq_plain(*args)
+    dq_ref = _plain("dq", args)
     dk, dv = fa.dkv(*args)
-    dk_ref, dv_ref = fa.dkv_plain(*args)
+    dk_ref, dv_ref = _plain("dkv", args)
     torch.cuda.synchronize()
 
     checks = {
@@ -509,7 +586,8 @@ def check_kernels(shape, timed: bool):
             if not same:
                 failed.append(f"{name}: two launches differ")
         # the rule must reject each planted fault
-        for name, faults in planted_faults(*args).items():
+        for name, faults in (planted_faults(*args).items() if planted
+                             else ()):
             readings = []
             for fault, label, bad in faults:
                 e = closeness(label, bad, want[label])
@@ -561,15 +639,18 @@ def check_kernels(shape, timed: bool):
     for name in list(calls) + list(calls)[::-1]:
         readings[name].append(time_ms(calls[name]))
     library = {"fwd": "sdpa_fwd", "dq": "sdpa_bwd", "dkv": "sdpa_bwd"}
-    plains = {"fwd": lambda: fa.fwd_plain(q, k, v, causal, scale),
-              "dq": lambda: fa.dq_plain(*args),
-              "dkv": lambda: fa.dkv_plain(*args)}
+    plains = {"fwd": lambda: _plain("fwd", (q, k, v, causal, scale)),
+              "dq": lambda: _plain("dq", args),
+              "dkv": lambda: _plain("dkv", args)}
     for name, plain in plains.items():
         flops, nbytes = work[name]
         t_ops, t_bytes = flops / peak, nbytes / rate
         out[name].update(
             kernel_ms=min(readings[name]),
-            plain_ms=time_ms(plain, reps=3),
+            # a plain version a kv group at a time takes a few hundred ms
+            # a call: one timing after its warm-up
+            plain_ms=time_ms(plain, reps=1 if _plain_parts(q, k) > 1
+                             else 3),
             bound_ms=max(t_ops, t_bytes) * 1e3,
             bound_by="operations" if t_ops >= t_bytes else "bytes",
             library_ms=min(readings[library[name]]), flop=flops,
@@ -582,7 +663,9 @@ def check_kernels(shape, timed: bool):
 def phase_kernels():
     """{shape name: check_kernels' dicts} at the Llama-1.1B step's shape,
     at its heads split over 2 tensor ranks (phase "mesh"'s tp and
-    tp_fsdp) and at GPT-2 XL's, all timed."""
+    tp_fsdp), at GPT-2 XL's, and at phase "sequence"'s -- the ring's
+    chunk causal and non-causal, Ulysses' whole sequence -- all timed
+    (no planted faults at the last three)."""
     import torch
 
     # the plain versions' fp32 products must not drop to TF32
@@ -591,9 +674,14 @@ def phase_kernels():
     check_kernels(SMALL, timed=False)
     results = {}
     for name, shape in (("llama_1b", SLICE), ("llama_1b_tp", SLICE_TP),
-                        ("gpt2_xl", GPT)):
+                        ("gpt2_xl", GPT), ("ring_chunk", RING_CHUNK),
+                        ("ring_chunk_full", RING_FULL),
+                        ("ulysses", ULYSSES)):
         t0 = time.perf_counter()
-        results[name] = check_kernels(shape, timed=True)
+        results[name] = check_kernels(
+            shape, timed=True,
+            planted=name in ("llama_1b", "llama_1b_tp", "gpt2_xl"))
+        torch.cuda.empty_cache()
         emit({"phase": "kernels", "shape": shape,
               "seconds": time.perf_counter() - t0})
         for r in results[name].values():
@@ -3142,13 +3230,13 @@ def _rowwise_gates(work: str, ranks, reference, solo_sums, device,
     return line
 
 
-def _mesh_ranks(work: str, n: int, layers: int, device=None):
-    """``n`` rank processes of :func:`mesh_rank` on the card; their
-    results, in rank order, and their combined output."""
+def _rank_group(work: str, n: int, call: str, what: str):
+    """``n`` rank processes running ``chip_smoke.<call>`` in one gloo
+    group (each writes ``rank<r>.json`` to ``work``): their results, in
+    rank order, and their combined output."""
     port = _free_port()
     code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
-            f"import chip_smoke; chip_smoke.mesh_rank({work!r}, {layers}, "
-            f"{device!r})")
+            f"import chip_smoke; chip_smoke.{call}")
     base = {k: v for k, v in os.environ.items()
             if not k.startswith(("DLROVER_TPU_", "DLROVER_FAULT"))}
     procs = [subprocess.Popen(
@@ -3172,7 +3260,7 @@ def _mesh_ranks(work: str, n: int, layers: int, device=None):
                 p.wait(timeout=30)
     rcs = [p.returncode for p in procs]
     if rcs != [0] * n:
-        raise AssertionError(f"mesh: {n} ranks exited {rcs}: "
+        raise AssertionError(f"{what}: {n} ranks exited {rcs}: "
                              + logs[rcs.index(next(c for c in rcs if c))
                                     ][-4000:])
     results = []
@@ -3229,7 +3317,9 @@ def run_mesh(layers: int = MESH_LAYERS, device=None, runs=None,
         results = {}
         for n in runs:
             t0 = time.time()
-            results[n], _ = _mesh_ranks(work, n, layers, device)
+            results[n], _ = _rank_group(
+                work, n, f"mesh_rank({work!r}, {layers}, {device!r})",
+                "mesh")
             readings[f"ranks{n}_s"] = time.time() - t0
         if saves:
             # the fsdp step restores whole into one rank
@@ -3558,6 +3648,529 @@ def phase_optim() -> dict:
     return out
 
 
+#: phase "sequence": llama_1b's width at SEQ_S tokens a sequence, cut to
+#: MESH_LAYERS layers, one sequence a step, on (seq 2) in two gloo ranks
+#: on ``cuda:0``: ring attention, then Ulysses, against the one-process
+#: step from the same seed; a ring that drops every chunk but the
+#: diagonal must fail the same gates
+SEQ_S = 16384
+SEQ_WARMUP, SEQ_TIMED = 1, 2
+SEQ_RUNS = ("ring", "ulysses", "ring_planted")
+#: the flash kernels' shapes under "sequence": the ring's chunk (causal on
+#: the diagonal, non-causal on an earlier chunk) and Ulysses' whole
+#: sequence at half the heads
+RING_CHUNK = dict(b=1, s=SEQ_S // 2, h=32, kvh=4, d=64, causal=True)
+RING_FULL = dict(RING_CHUNK, causal=False)
+ULYSSES = dict(b=1, s=SEQ_S, h=16, kvh=2, d=64, causal=True)
+#: the ring Function alone against its plain version: a small shape
+RING_SMALL = dict(b=1, s=2048, h=32, kvh=4, d=64)
+#: on CPU ranks (a dry run of the phase's logic): llama_tiny's sequence
+SEQ_S_CPU = 256
+#: phase "moe": llama_1b's width with llama_moe_tiny's experts and k, cut
+#: to MESH_LAYERS layers, batch 3 x 2048, one process, then tp_fsdp on
+#: (expert 2) in two gloo ranks on ``cuda:0``, each holding two experts
+MOE = dict(num_experts=4, moe_top_k=2, moe_capacity_factor=1.25)
+MOE_WARMUP, MOE_TIMED = 1, 2
+
+
+def _shape_key(kernel: str, shape: dict) -> str:
+    """A kernel at a shape, as ``SHAPE_LAUNCHES`` counts it (JSON-safe)."""
+    dims = "x".join(str(shape[k]) for k in ("b", "s", "h", "kvh", "d"))
+    return f"{kernel}@{dims}{'c' if shape['causal'] else 'n'}"
+
+
+def _shape_launches() -> dict:
+    from dlrover_tpu_torch.ops.cuda import flash_attention as fa
+
+    return {_shape_key(k, dict(zip(("b", "s", "h", "kvh", "d"), dims),
+                                causal=c)): n
+            for (k, dims, c), n in fa.SHAPE_LAUNCHES.items()}
+
+
+def _seq_cfg(layers: int, device=None):
+    import dataclasses
+
+    from dlrover_tpu_torch.models import llama
+
+    cfg = (llama.llama_tiny(max_seq_len=SEQ_S_CPU) if device == "cpu"
+           else llama.llama_1b(remat="dots_attn_out", max_seq_len=SEQ_S))
+    return dataclasses.replace(cfg, num_layers=layers)
+
+
+def _moe_cfg(layers: int, device=None):
+    import dataclasses
+
+    from dlrover_tpu_torch.models import llama
+
+    cfg = (llama.llama_moe_tiny() if device == "cpu"
+           else llama.llama_1b(remat="dots_attn_out", **MOE))
+    return dataclasses.replace(cfg, num_layers=layers)
+
+
+def _run_steps(t, batches, cuda: bool) -> dict:
+    """Each batch's step, timed one by one: losses, step and collective
+    ms, the bytes ppermute and all_to_all sent, the kernels' launches by
+    shape, peak memory."""
+    import torch
+
+    from dlrover_tpu_torch.trainer import distributed as coll
+
+    run = {"losses": [], "step_ms": [], "collective_ms": [],
+           "sent_bytes": []}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    before = _shape_launches()
+    for mb in batches:
+        coll.collective_bytes(reset=True)
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = t.train_step(mb)
+        if cuda:
+            torch.cuda.synchronize()
+        run["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        run["collective_ms"].append(t.reduce_seconds * 1e3)
+        run["sent_bytes"].append(coll.collective_bytes())
+        run["losses"].append(loss.item())
+    after = _shape_launches()
+    run["launches"] = {k: n - before.get(k, 0) for k, n in after.items()
+                       if n != before.get(k, 0)}
+    run["peak_mem_gb"] = (torch.cuda.max_memory_allocated() / 2**30
+                          if cuda else None)
+    return run
+
+
+def _ring_alone(mesh, device) -> dict:
+    """The ring Function at RING_SMALL on the card (the kernels) against
+    the same Function on host copies (their plain versions): the output
+    and the gradients of q, k, v under the kernels' element rule."""
+    import torch
+
+    from dlrover_tpu_torch.parallel import context_parallel as cp
+    from dlrover_tpu_torch.parallel.mesh import SEQ_AXIS, axis_index
+
+    b, s, h, kvh, d = (RING_SMALL[k] for k in ("b", "s", "h", "kvh", "d"))
+    gen = torch.Generator().manual_seed(3)
+    full = [torch.randn(b, s, n, d, generator=gen).to(torch.bfloat16)
+            for n in (h, kvh, kvh, h)]
+    i, s_loc = axis_index(mesh, SEQ_AXIS), s // 2
+    q, k, v, do = (x[:, i * s_loc:(i + 1) * s_loc] for x in full)
+
+    def run(dev):
+        leaves = [x.to(dev).requires_grad_() for x in (q, k, v)]
+        o = cp.ring_attention(*leaves, mesh)
+        return [o] + list(torch.autograd.grad(o, leaves, do.to(dev)))
+
+    got = run(device or "cuda")
+    want = run("cpu")
+    errors = {label: closeness(label, g.cpu(), w)
+              for label, g, w in zip(("o", "dq", "dk", "dv"), got, want)}
+    return {"shape": RING_SMALL, "errors": errors,
+            "ok": all(e["ok"] for e in errors.values())}
+
+
+def sequence_rank(work: str, layers: int, device=None) -> None:
+    """One rank of phase "sequence" (``python -c``): the ring Function
+    alone, then the "sequence" trainer on (seq 2) with each attention of
+    SEQ_RUNS (the planted ring drops every chunk but the diagonal); one
+    JSON result file."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.ops.cuda import flash_attention as fa
+    from dlrover_tpu_torch.parallel import context_parallel as cp
+    from dlrover_tpu_torch.parallel.mesh import create_mesh
+    from dlrover_tpu_torch.trainer import distributed as coll
+    from dlrover_tpu_torch.trainer.sharded import (
+        adamw, make_trainer_for_llama)
+
+    env = coll.init_from_env(timeout_s=120, backend="gloo", device=device)
+    cuda = device != "cpu"
+    cfg = _seq_cfg(layers, device)
+    data = np.load(os.path.join(work, "batches.npz"))
+    mesh = create_mesh([("seq", 2)], device=device)
+    out = {"rank": env.rank, "routes": {
+        op: coll.collective_route(dist.group.WORLD, op,
+                                  "cuda" if cuda else "cpu")
+        for op in coll.GLOO_CUDA_ROUTES},
+        "ring_alone": _ring_alone(mesh, device), "runs": {}}
+    init = torch.load(os.path.join(work, "init.pt"), map_location="cpu")
+    ref = torch.load(os.path.join(work, "reference.pt"), map_location="cpu")
+    sound_case = fa._chunk_case
+
+    def diagonal_only(q_start, k_start, s_loc, causal):
+        case = sound_case(q_start, k_start, s_loc, causal)
+        return case if q_start == k_start else "masked"
+
+    for kind in SEQ_RUNS:
+        if cuda:
+            torch.cuda.empty_cache()
+        attn = (cp.make_context_parallel_attn(mesh, "ulysses")
+                if kind == "ulysses" else None)
+        t = make_trainer_for_llama(
+            cfg, device=device, strategy="sequence", mesh=mesh,
+            attn_fn=attn, optimizer=adamw(MESH_LR, b1=0.9, b2=0.95))
+        t.init(seed=0)
+        batches = [t.shard_batch(t.microbatch(t.split_batch(
+            (data["tokens"][i], data["targets"][i]))))
+            for i in range(len(data["tokens"]))]
+        fa._chunk_case = (diagonal_only if kind == "ring_planted"
+                          else sound_case)
+        try:
+            run = _run_steps(t, batches, cuda)
+        finally:
+            fa._chunk_case = sound_case
+        run["device"] = str(t.local_shards()[0][2].device)
+        run.update(_against_reference(t, ref, init, len(batches)))
+        out["runs"][kind] = run
+        del t, batches
+        dist.barrier()
+    with open(os.path.join(work, f"rank{env.rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _one_process_steps(cfg, work: str, batches, device=None,
+                       record_moe: bool = False) -> dict:
+    """The port's one-process step from seed 0 on ``batches``: its
+    initial parameters to ``init.pt``, those after the last step to
+    ``reference.pt``, and the run's readings (:func:`_run_steps`); with
+    ``record_moe`` first the routing of layer 0 on the first batch and
+    the auxiliary loss (no step)."""
+    import torch
+
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.trainer.sharded import (
+        adamw, make_trainer_for_llama)
+
+    t = make_trainer_for_llama(cfg, device=device,
+                               optimizer=adamw(MESH_LR, b1=0.9, b2=0.95))
+    t.init(seed=0)
+    torch.save({n: p.detach().cpu() for n, p in t.model.named_parameters()},
+               os.path.join(work, "init.pt"))
+    mbs = [t.shard_batch(t.microbatch(b)) for b in batches]
+    out = _moe_routing(t, mbs[0]) if record_moe else {}
+    out.update(_run_steps(t, mbs, device != "cpu"))
+    torch.save({n: p.detach().cpu() for n, p in t.model.named_parameters()},
+               os.path.join(work, "reference.pt"))
+    del t, mbs
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _sequence_gates(ranks, reference: dict, layers: int, cuda: bool,
+                    failed: list) -> None:
+    """Phase "sequence"'s gates on the ranks' results."""
+    want = reference["losses"]
+    for r, res in enumerate(ranks):
+        if not res["ring_alone"]["ok"]:
+            failed.append(f"rank {r}: the ring Function against its plain "
+                          f"version: {res['ring_alone']['errors']}")
+        for kind, run in res["runs"].items():
+            bad = []
+            if any(abs(a - b) > MESH_LOSS_RTOL * abs(b)
+                   for a, b in zip(run["losses"], want)):
+                bad.append(f"losses {run['losses']} vs {want}")
+            if run["param_within_2lr_share"] < MESH_WITHIN_SHARE:
+                bad.append(f"parameters {run['param_within_2lr_share']:.5%}"
+                           " within 2 lr and one ulp")
+            if run["param_diff_lr"]["per_step"] > 2.0 * len(want):
+                bad.append(f"parameters {run['param_diff_lr']['per_step']}"
+                           " lr beyond one ulp a step")
+            planted = kind.endswith("_planted")
+            if planted and not bad:
+                failed.append(f"rank {r}: the planted {kind} passes the "
+                              "gates")
+            elif not planted:
+                failed += [f"{kind} rank {r}: {b}" for b in bad]
+            if not cuda or planted:
+                continue
+            steps = len(run["losses"])
+            if kind == "ring":
+                # rank r holds the diagonal and r earlier chunks
+                expect = {_shape_key(k, RING_CHUNK): layers * steps
+                          for k in REPLACES}
+                if r:
+                    expect.update({_shape_key(k, RING_FULL): r * layers
+                                   * steps for k in REPLACES})
+            else:
+                expect = {_shape_key(k, ULYSSES): layers * steps
+                          for k in REPLACES}
+            if run["launches"] != expect:
+                failed.append(f"{kind} rank {r}: launches "
+                              f"{run['launches']}, want {expect}")
+            if run["device"] != "cuda:0":
+                failed.append(f"{kind} rank {r} on {run['device']}")
+
+
+def run_sequence(layers: int = MESH_LAYERS, device=None) -> dict:
+    """Phase "sequence"'s body at ``layers`` layers: the one-process
+    reference, the two ranks (:func:`sequence_rank`), the gates; returns
+    the readings and the failed gates. ``device="cpu"`` runs llama_tiny
+    at SEQ_S_CPU tokens on CPU ranks (the logic alone: the ring's chunks
+    on the kernels' plain versions)."""
+    import numpy as np
+
+    cfg = _seq_cfg(layers, device)
+    s = SEQ_S_CPU if device == "cpu" else SEQ_S
+    work = tempfile.mkdtemp(prefix="dlrover_seq_")
+    failed = []
+    try:
+        steps = SEQ_WARMUP + SEQ_TIMED
+        tokens = np.random.default_rng(13).integers(
+            0, cfg.vocab_size, (steps, 1, s + 1))
+        batches = [(x[:, :-1], x[:, 1:]) for x in tokens]
+        np.savez(os.path.join(work, "batches.npz"), tokens=tokens[:, :, :-1],
+                 targets=tokens[:, :, 1:])
+        t0 = time.time()
+        reference = _one_process_steps(cfg, work, batches, device)
+        reference_s = time.time() - t0
+        t0 = time.time()
+        ranks, _ = _rank_group(work, 2, f"sequence_rank({work!r}, {layers}, "
+                               f"{device!r})", "sequence")
+        ranks_s = time.time() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    _sequence_gates(ranks, reference, layers, device != "cpu", failed)
+
+    def med(xs):
+        return statistics.median(xs[SEQ_WARMUP:])
+
+    runs = {}
+    for kind in SEQ_RUNS:
+        per_rank = [r["runs"][kind] for r in ranks]
+        runs[kind] = {
+            "losses": per_rank[0]["losses"],
+            "loss_rel": max(abs(a - b) / abs(b) for run in per_rank
+                            for a, b in zip(run["losses"],
+                                            reference["losses"])),
+            "step_ms": [med(run["step_ms"]) for run in per_rank],
+            "collective_ms": [med(run["collective_ms"]) for run in per_rank],
+            "sent_bytes_per_step": [run["sent_bytes"][-1]
+                                    for run in per_rank],
+            "launches_per_step": [
+                {k: n / len(run["losses"]) for k, n in
+                 run["launches"].items()} for run in per_rank],
+            "peak_mem_gb": [run["peak_mem_gb"] for run in per_rank],
+            "param_within_2lr_share": min(
+                run["param_within_2lr_share"] for run in per_rank),
+            "param_diff_lr": {k: max(run["param_diff_lr"][k]
+                                     for run in per_rank)
+                              for k in per_rank[0]["param_diff_lr"]},
+            "update_rel_err": math.sqrt(
+                sum(run["param_diff_sq"] for run in per_rank)
+                / max(sum(run["reference_update_sq"] for run in per_rank),
+                      1e-300)),
+        }
+    launches = {}
+    for kind in ("ring", "ulysses"):
+        for r in ranks:
+            for k, n in r["runs"][kind]["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+    return {"readings": {
+        "reference": {"losses": reference["losses"],
+                      "step_ms": med(reference["step_ms"]),
+                      "peak_mem_gb": reference["peak_mem_gb"]},
+        "runs": runs, "routes": ranks[0]["routes"],
+        "ring_alone": [r["ring_alone"] for r in ranks],
+        "reference_s": reference_s, "ranks_s": ranks_s,
+        "launches": launches}, "failed": failed}
+
+
+def phase_sequence() -> dict:
+    """Long context on the card: the docstring's phase 15."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    got = run_sequence(MESH_LAYERS)
+    emit({"phase": "sequence", "model": "llama_1b", "layers": MESH_LAYERS,
+          "batch": 1, "seq": SEQ_S, "mesh": {"seq": 2}, "lr": MESH_LR,
+          "warmup": SEQ_WARMUP, "timed": SEQ_TIMED, "backend": "gloo",
+          "phase_s": time.time() - t0, **got["readings"],
+          "nvidia_smi": nvidia_smi_line()})
+    if got["failed"]:
+        raise AssertionError("sequence: " + "; ".join(got["failed"]))
+    return got["readings"]
+
+
+def _moe_routing(t, mb) -> dict:
+    """Layer 0's global routing on ``mb``'s first microbatch (int32 [N,
+    E]: each token's slot in each expert's queue, -1 where it was not
+    dispatched) and the auxiliary loss, in a forward without grad."""
+    import torch
+
+    from dlrover_tpu_torch.models import llama
+
+    block = t.model.blocks[0]
+    block.record_routing = []
+    try:
+        with torch.no_grad():
+            _, _, aux = llama.next_token_sums(t.model,
+                                              tuple(x[0] for x in mb))
+        routing = block.record_routing[0]
+    finally:
+        block.record_routing = None
+    k = t.model.cfg.moe_top_k
+    kept = int((routing >= 0).sum())
+    return {"routing_sum": int(routing.long().sum()),
+            "routing": routing.cpu().numpy().tolist(), "aux": aux.item(),
+            "dropped_share": 1.0 - kept / (routing.shape[0] * k)}
+
+
+def moe_rank(work: str, layers: int, device=None) -> None:
+    """One rank of phase "moe" (``python -c``): tp_fsdp on (expert 2),
+    layer 0's routing of the first batch, then the steps; one JSON
+    result file."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.parallel.mesh import create_mesh
+    from dlrover_tpu_torch.trainer import distributed as coll
+    from dlrover_tpu_torch.trainer.sharded import (
+        adamw, make_trainer_for_llama)
+
+    env = coll.init_from_env(timeout_s=120, backend="gloo", device=device)
+    cuda = device != "cpu"
+    cfg = _moe_cfg(layers, device)
+    data = np.load(os.path.join(work, "batches.npz"))
+    t = make_trainer_for_llama(
+        cfg, device=device, strategy="tp_fsdp",
+        mesh=create_mesh([("expert", 2)], device=device),
+        optimizer=adamw(MESH_LR, b1=0.9, b2=0.95))
+    t.init(seed=0)
+    batches = [t.shard_batch(t.microbatch(t.split_batch(
+        (data["tokens"][i], data["targets"][i]))))
+        for i in range(len(data["tokens"]))]
+    run = _moe_routing(t, batches[0])
+    run.update(_run_steps(t, batches, cuda))
+    run["expert_bytes"] = sum(
+        x.numel() * x.element_size() for name, _, x in t.local_shards()
+        if name.split(".")[-1] in ("w_gate", "w_up", "w_down"))
+    run["device"] = str(t.local_shards()[0][2].device)
+    run.update(_against_reference(
+        t, torch.load(os.path.join(work, "reference.pt"), map_location="cpu"),
+        torch.load(os.path.join(work, "init.pt"), map_location="cpu"),
+        len(batches)))
+    run["rank"] = env.rank
+    with open(os.path.join(work, f"rank{env.rank}.json"), "w") as f:
+        json.dump(run, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def run_moe(layers: int = MESH_LAYERS, device=None) -> dict:
+    """Phase "moe"'s body at ``layers`` layers: the one-process run, the
+    two tp_fsdp ranks on (expert 2) (:func:`moe_rank`), the gates;
+    returns the readings and the failed gates. ``device="cpu"`` runs
+    llama_moe_tiny on CPU ranks (the logic alone)."""
+    import numpy as np
+
+    from dlrover_tpu_torch.auto.device_context import peak_flops_per_chip
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.trainer.profiler import utilization
+
+    cfg = _moe_cfg(layers, device)
+    b, s = SLICE["b"], (SLICE["s"] if device != "cpu" else 64)
+    work = tempfile.mkdtemp(prefix="dlrover_moe_")
+    failed = []
+    try:
+        steps = MOE_WARMUP + MOE_TIMED
+        tokens = np.random.default_rng(17).integers(
+            0, cfg.vocab_size, (steps, b, s + 1))
+        batches = [(x[:, :-1], x[:, 1:]) for x in tokens]
+        np.savez(os.path.join(work, "batches.npz"), tokens=tokens[:, :, :-1],
+                 targets=tokens[:, :, 1:])
+        t0 = time.time()
+        solo = _one_process_steps(cfg, work, batches, device,
+                                  record_moe=True)
+        solo_s = time.time() - t0
+        t0 = time.time()
+        ranks, _ = _rank_group(work, 2, f"moe_rank({work!r}, {layers}, "
+                               f"{device!r})", "moe")
+        ranks_s = time.time() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    cuda = device != "cpu"
+    whole = (3 * layers * cfg.num_experts * cfg.hidden_size
+             * cfg.intermediate_size * cfg.dtype.itemsize)
+    want = solo["losses"]
+    for r, run in enumerate(ranks):
+        if run["routing"] != solo["routing"]:
+            failed.append(f"rank {r}: layer 0's dispatch differs from the "
+                          "one process's")
+        if any(abs(a - x) > MESH_LOSS_RTOL * abs(x)
+               for a, x in zip(run["losses"], want)):
+            failed.append(f"rank {r}: losses {run['losses']} vs {want}")
+        if run["param_within_2lr_share"] < MESH_WITHIN_SHARE:
+            failed.append(f"rank {r}: parameters "
+                          f"{run['param_within_2lr_share']:.5%} within 2 lr "
+                          "and one ulp")
+        if run["param_diff_lr"]["per_step"] > 2.0 * len(want):
+            failed.append(f"rank {r}: parameters "
+                          f"{run['param_diff_lr']['per_step']} lr beyond "
+                          "one ulp a step")
+        if 2 * run["expert_bytes"] != whole:
+            failed.append(f"rank {r}: expert bytes {run['expert_bytes']}, "
+                          f"half of {whole} expected")
+        if cuda:
+            steps = len(run["losses"])
+            expect = {_shape_key(k, SLICE): layers * steps
+                      for k in REPLACES}
+            if run["launches"] != expect or run["device"] != "cuda:0":
+                failed.append(f"rank {r}: launches {run['launches']} on "
+                              f"{run['device']}, want {expect}")
+    peak = peak_flops_per_chip() if cuda else 0.0
+    flops = llama.flops_per_token(cfg, s) * b * s
+
+    def med(xs):
+        return statistics.median(xs[MOE_WARMUP:])
+
+    def line(run):
+        step_s = med(run["step_ms"]) / 1e3
+        return {"losses": run["losses"], "aux": run["aux"],
+                "dropped_share": run["dropped_share"],
+                "step_ms": step_s * 1e3,
+                "collective_ms": med(run["collective_ms"]),
+                "mfu_percent": utilization(flops, step_s, peak),
+                "peak_mem_gb": run["peak_mem_gb"]}
+
+    return {"readings": {
+        "one_process": line(solo),
+        "ranks": [dict(line(run), expert_bytes=run["expert_bytes"],
+                       param_within_2lr_share=run["param_within_2lr_share"],
+                       param_diff_lr=run["param_diff_lr"],
+                       routing_equal=run["routing"] == solo["routing"])
+                  for run in ranks],
+        "expert_bytes_whole": whole, "model_flops_per_step": flops,
+        "params": llama.param_count(cfg), "solo_s": solo_s,
+        "ranks_s": ranks_s}, "failed": failed}
+
+
+def phase_moe() -> dict:
+    """The MoE Llama on the card: the docstring's phase 16."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    got = run_moe(MESH_LAYERS)
+    emit({"phase": "moe", "model": "llama_1b", **MOE, "layers": MESH_LAYERS,
+          "batch": SLICE["b"], "seq": SLICE["s"], "mesh": {"expert": 2},
+          "strategy": "tp_fsdp", "lr": MESH_LR, "warmup": MOE_WARMUP,
+          "timed": MOE_TIMED, "backend": "gloo",
+          "phase_s": time.time() - t0, **got["readings"],
+          "nvidia_smi": nvidia_smi_line()})
+    if got["failed"]:
+        raise AssertionError("moe: " + "; ".join(got["failed"]))
+    return got["readings"]
+
+
 def main() -> int:
     if not (ROOT / "dlrover_tpu_torch" / "__init__.py").exists():
         print("chip_smoke: dlrover_tpu_torch is not beside this script",
@@ -3592,16 +4205,27 @@ def main() -> int:
     timed("drain", phase_drain)
     world = timed("world", phase_world)
     mesh = timed("mesh", phase_mesh)
+    sequence = timed("sequence", phase_sequence)
+    timed("moe", phase_moe)
     # wall seconds per phase, from main's start (the interpreter's start
     # and torch's import before it are not counted)
     emit({"phase_seconds": seconds, "total_s": time.perf_counter() - t0})
     line = []
+
+    def seq_launches(shape):
+        return {k: sequence["launches"].get(_shape_key(k, shape), 0)
+                for k in REPLACES}
+
     # each shape's launches: its main path's run (the count reset just
-    # before it), the Llama step of "slice", the tp ranks of "mesh" and
-    # the GPT step of "families"
+    # before it), the Llama step of "slice", the tp ranks of "mesh", the
+    # GPT step of "families", and the ring and Ulysses runs of
+    # "sequence" (both ranks)
     for shape, counts in (("llama_1b", launches),
                           ("llama_1b_tp", mesh["launches"]["tp"]),
-                          ("gpt2_xl", gpt_launches)):
+                          ("gpt2_xl", gpt_launches),
+                          ("ring_chunk", seq_launches(RING_CHUNK)),
+                          ("ring_chunk_full", seq_launches(RING_FULL)),
+                          ("ulysses", seq_launches(ULYSSES))):
         for name, r in kernels[shape].items():
             line.append({
                 "name": name if shape == "llama_1b" else f"{name}@{shape}",

@@ -63,7 +63,9 @@ and seconds.
 ``--strategy`` (default ``fsdp``, the JAX example's) picks the
 ``ShardedTrainer`` strategy on the JAX example's mesh, ``[(data, 1),
 (fsdp, world)]``: every rank is a data-parallel rank there, so ``tp``
-and ``tp_fsdp`` degrade to replication on it, as in JAX. At world > 1
+and ``tp_fsdp`` degrade to replication on it, as in JAX, and
+``sequence`` runs tp_fsdp's layout with ring attention over a seq axis
+of one rank (whole sequences). At world > 1
 (the launcher's ranks; ``--dist-backend gloo`` for ranks that share one
 card) each rank fetches its own shards of ``--batch-size`` rows from the
 master, and the loss and its gradients are the masked mean over the

@@ -1,4 +1,4 @@
-"""Llama-family decoder transformer, dense path, in PyTorch.
+"""Llama-family decoder transformer in PyTorch, dense and MoE.
 
 Counterpart of ``dlrover_tpu/models/llama.py``. The JAX model keeps its
 weights in one pytree with scan-stacked blocks and ``[in, out]``
@@ -20,6 +20,21 @@ runs on the rank's heads and MLP columns with the Megatron collectives
 of ``parallel/tensor_parallel.py``, and the loss is vocab-parallel.
 ``param_axes`` gives each parameter its logical axes, and
 ``jax_coordinates`` the JAX leaf, layer and dimension order it maps to.
+
+With ``num_experts > 0`` every block's MLP is the top-k routed expert
+SwiGLU of ``parallel/moe.py``: a router ``nn.Linear`` and the experts'
+stacked weights in the JAX order (``[experts, hidden, mlp]``,
+``[experts, mlp, hidden]``). A block returns its MoE auxiliary loss
+beside its output (None for a dense block), the model sums it over the
+layers, and ``next_token_sums`` hands it to its caller, which adds it
+once to the mean loss, as the JAX loss does. Under the trainer's
+strategies a block's ``moe_shard`` says which experts and tokens the
+rank holds.
+
+Under the "sequence" strategy the trainer sets ``seq_shard``
+(``parallel/context_parallel.py``): the rank holds one chunk of each
+sequence, and its RoPE tables start at the chunk's first position, as
+the slice of the JAX program's global tables does.
 
 Activation checkpointing (``remat``), as in the JAX model:
 ``"dots_attn_out"`` checkpoints the segments before and after attention
@@ -46,6 +61,7 @@ from torch.utils.checkpoint import (
 
 from dlrover_tpu_torch.auto.device_context import resolve_device
 from dlrover_tpu_torch.ops.attention import flash_attention
+from dlrover_tpu_torch.parallel.moe import moe_mlp
 from dlrover_tpu_torch.parallel.tensor_parallel import (
     copy_to_tensor,
     reduce_from_tensor,
@@ -71,17 +87,15 @@ class LlamaConfig:
     remat: str = "dots"
     # chunked cross-entropy over this many tokens at a time (0 = off)
     loss_chunk: int = 0
-    # MoE is not ported: any value > 0 raises
+    # MoE (0 = dense): every block's MLP a top-k routed expert SwiGLU
+    # (parallel/moe.py); experts shard on the expert axis
     num_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
 
     def __post_init__(self):
         if self.remat not in _REMAT:
             raise ValueError(f"unknown remat policy {self.remat!r}")
-        if self.num_experts > 0:
-            raise NotImplementedError(
-                "MoE Llama is not ported yet (ROADMAP.md, queue A, "
-                "'Parallelism': moe.py top-k gating and the MoE Llama)"
-            )
 
     @property
     def head_dim(self) -> int:
@@ -114,6 +128,12 @@ def llama_1b(**kw) -> LlamaConfig:
     )
 
 
+def llama_moe_tiny(**kw) -> LlamaConfig:
+    """Test-sized MoE config (4 experts, top-2)."""
+    kw.setdefault("num_experts", 4)
+    return llama_tiny(**kw)
+
+
 def llama_tiny(**kw) -> LlamaConfig:
     """Test-sized config that still exercises GQA and remat."""
     kw.setdefault("vocab_size", 256)
@@ -129,18 +149,27 @@ def llama_tiny(**kw) -> LlamaConfig:
 def param_count(cfg: LlamaConfig) -> int:
     L, h, m = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
     nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if cfg.num_experts > 0:
+        mlp = h * cfg.num_experts + 3 * h * m * cfg.num_experts
+    else:
+        mlp = 3 * h * m  # SwiGLU
     per_layer = (
         2 * h  # norms
         + h * nh * hd + 2 * h * nkv * hd + nh * hd * h  # attention
-        + 3 * h * m  # SwiGLU
+        + mlp
     )
     return cfg.vocab_size * h * 2 + h + L * per_layer
 
 
 def flops_per_token(cfg: LlamaConfig, seq_len: int) -> float:
-    """Approximate training FLOPs per token (6N + attention quadratic),
-    the JAX package's formula."""
+    """Approximate training FLOPs per token (6N_active + attention
+    quadratic), the JAX package's formula: under MoE only the top-k
+    routed experts run per token, so N leaves the others out."""
     n = param_count(cfg) - cfg.vocab_size * cfg.hidden_size
+    if cfg.num_experts > 0:
+        L, h, m = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
+        inactive = cfg.num_experts - min(cfg.moe_top_k, cfg.num_experts)
+        n -= L * 3 * h * m * inactive
     attn = 12 * cfg.num_layers * cfg.hidden_size * seq_len
     return 6.0 * n + attn
 
@@ -156,11 +185,15 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
 
 
 def rope_tables(seq_len: int, head_dim: int, theta: float,
-                device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                device=None, start: int = 0
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos and sin [seq_len, head_dim/2] of positions ``start`` on: rows
+    ``start:start + seq_len`` of the JAX tables, bit for bit."""
     exponent = torch.arange(
         0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
     freqs = 1.0 / (theta ** exponent)
-    t = torch.arange(seq_len, dtype=torch.float32, device=device)
+    t = torch.arange(start, start + seq_len, dtype=torch.float32,
+                     device=device)
     angles = torch.outer(t, freqs)  # [seq, head_dim/2]
     return torch.cos(angles), torch.sin(angles)
 
@@ -200,7 +233,8 @@ def remat_block(block: nn.Module, remat: str, x, attn_fn, *args):
     """``block(x, *args, attn_fn)`` under the remat policy ``remat``;
     ``"dots_attn_out"`` runs its two segments, ``block._pre_attn(x,
     *args) -> (q, k, v)`` and ``block._post_attn(x, attn)``, each saving
-    its matmul outputs, with the attention call between them."""
+    its matmul outputs, with the attention call between them. What the
+    block returns comes back as it is (the Llama block's ``(x, aux)``)."""
     if remat == "dots_attn_out":
         q, k, v = _save_dots(block._pre_attn, x, *args)
         return _save_dots(block._post_attn, x, attn_fn(q, k, v))
@@ -212,8 +246,9 @@ def remat_block(block: nn.Module, remat: str, x, attn_fn, *args):
 
 
 class Block(nn.Module):
-    """One dense decoder block: RMSNorm, q/k/v projections, RoPE,
-    attention, output projection, RMSNorm, SwiGLU."""
+    """One decoder block: RMSNorm, q/k/v projections, RoPE, attention,
+    output projection, RMSNorm, SwiGLU (dense) or the routed expert
+    SwiGLU (MoE)."""
 
     def __init__(self, cfg: LlamaConfig, device: torch.device):
         super().__init__()
@@ -238,9 +273,27 @@ class Block(nn.Module):
         self.wv = linear(h, nkv * hd)
         self.wo = linear(nh * hd, h)
         self.mlp_norm = norm()
-        self.w_gate = linear(h, m)
-        self.w_up = linear(h, m)
-        self.w_down = linear(m, h)
+        if cfg.num_experts > 0:
+            E = cfg.num_experts
+
+            def experts(*shape):
+                return nn.Parameter(torch.empty(
+                    E, *shape, device=device, dtype=cfg.dtype))
+
+            self.router = linear(h, E)
+            self.w_gate = experts(h, m)
+            self.w_up = experts(h, m)
+            self.w_down = experts(m, h)
+            #: which experts and tokens this rank holds (moe.ExpertShard;
+            #: None: all of them)
+            self.moe_shard = None
+            #: a list to append each forward's global routing to
+            #: (``moe.moe_mlp``'s ``routing``), or None
+            self.record_routing = None
+        else:
+            self.w_gate = linear(h, m)
+            self.w_up = linear(h, m)
+            self.w_down = linear(m, h)
 
     def _pre_attn(self, x, cos, sin):
         """Segment 1: attn-norm, q/k/v projections, RoPE."""
@@ -255,26 +308,33 @@ class Block(nn.Module):
         return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
     def _post_attn(self, x, attn):
-        """Segment 2: output projection, residual, SwiGLU MLP."""
+        """Segment 2: output projection, residual, SwiGLU MLP (dense) or
+        the expert SwiGLU. Returns (x, the MoE auxiliary loss or None)."""
         b, s, _ = x.shape
-        tp = self.tp_group
+        cfg, tp = self.cfg, self.tp_group
         x = x + reduce_from_tensor(self.wo(attn.reshape(b, s, -1)), tp)
-        y = copy_to_tensor(rms_norm(x, self.mlp_norm, self.cfg.norm_eps),
-                           tp)
+        if cfg.num_experts > 0:
+            out, aux = moe_mlp(
+                rms_norm(x, self.mlp_norm, cfg.norm_eps),
+                self.router.weight.t(), self.w_gate, self.w_up, self.w_down,
+                k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor,
+                shard=self.moe_shard, routing=self.record_routing)
+            return x + out, aux
+        y = copy_to_tensor(rms_norm(x, self.mlp_norm, cfg.norm_eps), tp)
         return x + reduce_from_tensor(
-            self.w_down(F.silu(self.w_gate(y)) * self.w_up(y)), tp)
+            self.w_down(F.silu(self.w_gate(y)) * self.w_up(y)), tp), None
 
     def forward(self, x, cos, sin, attn_fn):
         q, k, v = self._pre_attn(x, cos, sin)
         return self._post_attn(x, attn_fn(q, k, v))
 
     def run(self, x, cos, sin, attn_fn):
-        """The block under the config's remat policy."""
+        """The block under the config's remat policy: (x, aux or None)."""
         return remat_block(self, self.cfg.remat, x, attn_fn, cos, sin)
 
 
 class Llama(nn.Module):
-    """The dense Llama model. Its parameters are left uninitialized:
+    """The Llama model. Its parameters are left uninitialized:
     ``init_params`` draws them, ``params_from_jax`` loads them."""
 
     def __init__(self, cfg: LlamaConfig, device=None):
@@ -294,21 +354,38 @@ class Llama(nn.Module):
         #: vocab row of this rank's embedding and lm_head shards
         self.tp_group = None
         self.vocab_start = 0
+        #: under sequence parallelism: the rank's chunk of each sequence
+        #: (context_parallel.SeqShard; None: whole sequences)
+        self.seq_shard = None
+
+    def hidden_states_and_aux(self, tokens: torch.Tensor,
+                              attn_fn: Optional[Callable] = None
+                              ) -> Tuple[torch.Tensor,
+                                         Optional[torch.Tensor]]:
+        """(final-norm hidden states [batch, seq, hidden] of int tokens
+        [batch, seq], the MoE auxiliary loss summed over the layers; None
+        for a dense model)."""
+        if attn_fn is None:
+            attn_fn = partial(flash_attention, causal=True)
+        cfg = self.cfg
+        s = tokens.shape[1]
+        start = 0 if self.seq_shard is None else self.seq_shard.start(s)
+        cos, sin = rope_tables(s, cfg.head_dim, cfg.rope_theta,
+                               device=tokens.device, start=start)
+        x = vocab_parallel_embedding(tokens, self.embed, self.vocab_start,
+                                     self.tp_group)
+        aux_sum = None
+        for block in self.blocks:
+            x, aux = block.run(x, cos, sin, attn_fn)
+            if aux is not None:
+                aux_sum = aux if aux_sum is None else aux_sum + aux
+        return rms_norm(x, self.final_norm, cfg.norm_eps), aux_sum
 
     def hidden_states(self, tokens: torch.Tensor,
                       attn_fn: Optional[Callable] = None) -> torch.Tensor:
         """Final-norm hidden states [batch, seq, hidden] of int tokens
         [batch, seq]."""
-        if attn_fn is None:
-            attn_fn = partial(flash_attention, causal=True)
-        cfg = self.cfg
-        cos, sin = rope_tables(tokens.shape[1], cfg.head_dim,
-                               cfg.rope_theta, device=tokens.device)
-        x = vocab_parallel_embedding(tokens, self.embed, self.vocab_start,
-                                     self.tp_group)
-        for block in self.blocks:
-            x = block.run(x, cos, sin, attn_fn)
-        return rms_norm(x, self.final_norm, cfg.norm_eps)
+        return self.hidden_states_and_aux(tokens, attn_fn)[0]
 
     def forward(self, tokens: torch.Tensor,
                 attn_fn: Optional[Callable] = None) -> torch.Tensor:
@@ -335,6 +412,10 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device=None) -> Llama:
             if isinstance(module, nn.Linear):
                 w = module.weight  # [out, in]: fan_in is dim 1
                 w.copy_(normal(w.shape, w.shape[1] ** -0.5))
+            elif isinstance(module, Block) and cfg.num_experts > 0:
+                for w in (module.w_gate, module.w_up, module.w_down):
+                    # [experts, in, out]: fan_in is dim 1
+                    w.copy_(normal(w.shape, w.shape[1] ** -0.5))
     return model
 
 
@@ -383,27 +464,34 @@ def _chunked_ce(x: torch.Tensor, lm_head: torch.Tensor,
 
 def next_token_sums(model: Llama, batch: Tuple[torch.Tensor, torch.Tensor],
                     attn_fn: Optional[Callable] = None
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(summed next-token cross entropy, count of unmasked targets).
-    batch = (tokens, targets), int [batch, seq]; a target < 0 masks its
-    position out."""
+                    ) -> Tuple[torch.Tensor, torch.Tensor,
+                               Optional[torch.Tensor]]:
+    """(summed next-token cross entropy, count of unmasked targets, the
+    MoE auxiliary loss or None for a dense model). batch = (tokens,
+    targets), int [batch, seq]; a target < 0 masks its position out.
+    The caller adds the auxiliary loss, already scaled, once to the mean
+    (:func:`next_token_loss`, the trainer)."""
     tokens, targets = batch
-    x = model.hidden_states(tokens, attn_fn=attn_fn)
+    x, aux = model.hidden_states_and_aux(tokens, attn_fn=attn_fn)
     if model.tp_group is not None:
-        return vocab_parallel_nll(
+        sums = vocab_parallel_nll(
             x, model.lm_head.weight, targets, model.vocab_start,
             model.tp_group, chunk=model.cfg.loss_chunk)
-    if model.cfg.loss_chunk > 0:
-        return _chunked_ce(
+    elif model.cfg.loss_chunk > 0:
+        sums = _chunked_ce(
             x, model.lm_head.weight, targets, model.cfg.loss_chunk)
-    return _masked_nll(model.lm_head(x).float(), targets)
+    else:
+        sums = _masked_nll(model.lm_head(x).float(), targets)
+    return sums + (aux,)
 
 
 def next_token_loss(model: Llama, batch: Tuple[torch.Tensor, torch.Tensor],
                     attn_fn: Optional[Callable] = None) -> torch.Tensor:
-    """Mean next-token cross entropy (see :func:`next_token_sums`)."""
-    nll_sum, cnt = next_token_sums(model, batch, attn_fn=attn_fn)
-    return nll_sum / cnt.clamp(min=1.0)
+    """Mean next-token cross entropy, plus the MoE auxiliary loss (see
+    :func:`next_token_sums`)."""
+    nll_sum, cnt, aux = next_token_sums(model, batch, attn_fn=attn_fn)
+    loss = nll_sum / cnt.clamp(min=1.0)
+    return loss if aux is None else loss + aux
 
 
 def make_trainer(cfg: LlamaConfig, device=None, strategy: str = "ddp",
@@ -428,6 +516,7 @@ def example_batch(cfg, global_batch: int, seq_len: int = 1):
 
 _MATRICES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 _NORMS = ("attn_norm", "mlp_norm")
+_EXPERTS = ("w_gate", "w_up", "w_down")
 
 
 def _tensor(a) -> torch.Tensor:
@@ -454,11 +543,19 @@ def params_from_jax(np_tree: Dict, cfg: LlamaConfig, device=None) -> Llama:
         "final_norm": _tensor(np_tree["final_norm"]),
         "lm_head.weight": _tensor(np_tree["lm_head"]).T,
     }
+    moe = cfg.num_experts > 0
     for i in range(cfg.num_layers):
         for name in _NORMS:
             state[f"blocks.{i}.{name}"] = _tensor(blocks[name][i])
         for name in _MATRICES:
-            state[f"blocks.{i}.{name}.weight"] = _tensor(blocks[name][i]).T
+            if moe and name in _EXPERTS:  # stacked experts keep JAX's order
+                state[f"blocks.{i}.{name}"] = _tensor(blocks[name][i])
+            else:
+                state[f"blocks.{i}.{name}.weight"] = _tensor(
+                    blocks[name][i]).T
+        if moe:
+            state[f"blocks.{i}.router.weight"] = _tensor(
+                blocks["router"][i]).T
     model = Llama(cfg, device)
     model.load_state_dict(state)
     return model
@@ -479,6 +576,13 @@ _BLOCK_AXES = {
     "w_up.weight": ("mlp", "embed"),
     "w_down.weight": ("embed", "mlp"),
 }
+#: an MoE block's router and experts (the experts in JAX's order)
+_MOE_AXES = {
+    "router.weight": (None, "embed"),
+    "w_gate": ("expert", "embed", "mlp"),
+    "w_up": ("expert", "embed", "mlp"),
+    "w_down": ("expert", "mlp", "embed"),
+}
 
 
 def param_axes(cfg: LlamaConfig) -> Dict[str, Tuple[str, ...]]:
@@ -491,8 +595,13 @@ def param_axes(cfg: LlamaConfig) -> Dict[str, Tuple[str, ...]]:
         "final_norm": ("norm",),
         "lm_head.weight": ("vocab", "embed"),
     }
+    block = dict(_BLOCK_AXES)
+    if cfg.num_experts > 0:
+        for name in _EXPERTS:
+            del block[f"{name}.weight"]
+        block.update(_MOE_AXES)
     for i in range(cfg.num_layers):
-        for name, ax in _BLOCK_AXES.items():
+        for name, ax in block.items():
             axes[f"blocks.{i}.{name}"] = ax
     return axes
 
@@ -548,9 +657,13 @@ def jax_coordinates(cfg: LlamaConfig, name: str) -> JaxLeaf:
         return JaxLeaf(("lm_head",), (h, v), None, (1, 0))
     _, layer, leaf = name.split(".", 2)
     key = leaf.split(".")[0]
-    L = cfg.num_layers
+    L, E = cfg.num_layers, cfg.num_experts
     if key in _NORMS:
         return JaxLeaf(("blocks", key), (L, h), int(layer), (1,))
+    if E > 0 and key in _EXPERTS:
+        shape = (E, m, h) if key == "w_down" else (E, h, m)
+        return JaxLeaf(("blocks", key), (L,) + shape, int(layer), (1, 2, 3))
     shapes = {"wq": (h, q), "wk": (h, kv), "wv": (h, kv), "wo": (q, h),
-              "w_gate": (h, m), "w_up": (h, m), "w_down": (m, h)}
+              "w_gate": (h, m), "w_up": (h, m), "w_down": (m, h),
+              "router": (h, E)}
     return JaxLeaf(("blocks", key), (L,) + shapes[key], int(layer), (2, 1))

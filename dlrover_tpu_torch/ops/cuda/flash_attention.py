@@ -14,6 +14,12 @@ k, v ``[batch, seq, kv_heads, d]``, and query head i reads kv head
 ``[batch, heads, seq]``; the TPU kernels' ``[b*kvh, g, 1, seq]`` shape
 was a tiling artifact.
 
+``RingFlashAttentionFn`` runs the same three kernels per chunk of a
+sequence split over ranks (``parallel/context_parallel.py``'s ring
+attention): the forward kernel causal on the diagonal chunk and
+non-causal on an earlier one, and the backward kernels given the lse
+and delta of the merged output.
+
 Numerics follow the TPU kernels: S = Q K^T from bf16 operands into fp32
 times ``scale``, masked to ``NEG_INF``; P rounded to the value dtype
 before P V, dS to the key/query dtype before dS K and dS^T Q, P before
@@ -26,10 +32,13 @@ import torch
 
 from dlrover_tpu_torch.ops.cuda import schedule
 from dlrover_tpu_torch.ops.cuda.build import load_library
+from dlrover_tpu_torch.trainer.distributed import ppermute
 
 NEG_INF = -1e30
 #: kernel launches per kernel, counted where each wrapper launches
 LAUNCHES: Dict[str, int] = {"fwd": 0, "dq": 0, "dkv": 0}
+#: the same launches by (kernel, (b, s, h, kvh, d), causal)
+SHAPE_LAUNCHES: Dict[tuple, int] = {}
 #: head dims the kernels are built for (template instances in csrc/)
 KERNEL_HEAD_DIMS = (64, 128)
 #: the sequence must be a multiple of this, as in the JAX package's
@@ -42,6 +51,13 @@ _SCHEDULES: Dict[tuple, Tuple[torch.Tensor, int]] = {}
 def reset_launches() -> None:
     for key in LAUNCHES:
         LAUNCHES[key] = 0
+    SHAPE_LAUNCHES.clear()
+
+
+def _count(kernel: str, q, k, causal: bool) -> None:
+    LAUNCHES[kernel] += 1
+    key = (kernel, _dims(q, k), bool(causal))
+    SHAPE_LAUNCHES[key] = SHAPE_LAUNCHES.get(key, 0) + 1
 
 
 # ---------------------------------------------------------------------------
@@ -231,7 +247,7 @@ def fwd(q, k, v, causal: bool, scale: float
             sched.data_ptr(), n_ctas, _stream(q),
         )
     _raise_on(err, "fwd")
-    LAUNCHES["fwd"] += 1
+    _count("fwd", q, k, causal)
     return o, lse
 
 
@@ -254,7 +270,7 @@ def dq(q, k, v, do, lse, delta, causal: bool, scale: float
             n_ctas, _stream(q),
         )
     _raise_on(err, "dq")
-    LAUNCHES["dq"] += 1
+    _count("dq", q, k, causal)
     return out
 
 
@@ -284,7 +300,7 @@ def dkv(q, k, v, do, lse, delta, causal: bool, scale: float
             _stream(q),
         )
     _raise_on(err, "dkv")
-    LAUNCHES["dkv"] += 1
+    _count("dkv", q, k, causal)
     return dk, dv
 
 
@@ -326,3 +342,113 @@ def flash_attention_cuda(
     return FlashAttentionFn.apply(
         q.contiguous(), k.contiguous(), v.contiguous(), causal, scale
     )
+
+
+# ---------------------------------------------------------------------------
+# ring attention: the kernels per chunk of a sequence split over ranks
+
+def _chunk_case(q_start: int, k_start: int, s_loc: int, causal: bool
+                ) -> str:
+    """How ``s_loc`` queries from position ``q_start`` see the ``s_loc``
+    keys from ``k_start`` under the global mask: ``"causal"`` (the same
+    positions: the causal kernel), ``"full"`` (every key before every
+    query, or no mask: the non-causal kernel) or ``"masked"`` (every key
+    after every query: no launch, an lse of NEG_INF)."""
+    if not causal or k_start + s_loc <= q_start:
+        return "full"
+    if k_start == q_start:
+        return "causal"
+    if k_start >= q_start + s_loc:
+        return "masked"
+    raise ValueError(f"chunks at {q_start} and {k_start} of {s_loc} "
+                     "positions overlap in part")
+
+
+class RingFlashAttentionFn(torch.autograd.Function):
+    """Ring attention over ``group`` with the three kernels per chunk,
+    the JAX package's ``_ring_local`` (``parallel/context_parallel.py``)
+    in one Function, so that every rank issues its ppermutes in the
+    same fixed order, whichever chunks it skips.
+
+    The forward holds this rank's queries (positions from ``q_start``)
+    and, at ring step r, the K/V chunk whose positions start at
+    ``k_starts[r]``: the forward kernel on it (causal on the diagonal,
+    non-causal on an earlier chunk, no launch on a later one), each
+    chunk's (o, lse) folded into running fp32 accumulators with JAX's
+    NEG_INF-safe weights, K/V (kvh-sized, stacked into one message)
+    shifted one rank on. It saves the merged output and its lse. The
+    backward runs the ring again: per chunk the dQ and dK/dV kernels,
+    given the merged lse and delta = rowsum(dO * O) of the merged
+    output; each chunk's fp32 dK/dV sum travels with the chunk and is
+    shifted home after the last step."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, group, q_start: int, k_starts, causal: bool,
+                scale: float):
+        b, s_loc, h, d = q.shape
+        num = torch.zeros(b, s_loc, h, d, device=q.device,
+                          dtype=torch.float32)
+        den = torch.zeros(b, h, s_loc, device=q.device, dtype=torch.float32)
+        m_run = torch.full_like(den, NEG_INF)
+        kv = torch.stack([k, v])
+        for r, k_start in enumerate(k_starts):
+            case = _chunk_case(q_start, k_start, s_loc, causal)
+            if case != "masked":
+                o_r, lse_r = fwd(q, kv[0], kv[1], case == "causal", scale)
+                m_new = torch.maximum(m_run, lse_r)
+                alpha = torch.where(m_run <= NEG_INF, 0.0,
+                                    torch.exp(m_run - m_new))
+                w = torch.where(lse_r <= NEG_INF, 0.0,
+                                torch.exp(lse_r - m_new))
+                num = (num * alpha.transpose(1, 2)[..., None]
+                       + o_r.float() * w.transpose(1, 2)[..., None])
+                den = den * alpha + w
+                m_run = m_new
+            if r + 1 < len(k_starts):
+                kv = ppermute(kv, group, 1)
+        den = torch.where(den == 0.0, 1.0, den)
+        out = (num / den.transpose(1, 2)[..., None]).to(q.dtype)
+        lse = (m_run + torch.log(den)).contiguous()
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.ring = (group, q_start, tuple(k_starts), causal, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        group, q_start, k_starts, causal, scale = ctx.ring
+        s_loc = q.shape[1]
+        do = do.contiguous()
+        delta = attention_delta(out, do)
+        dq_sum = torch.zeros_like(q, dtype=torch.float32)
+        kv = torch.stack([k, v])
+        dkv_sum = torch.zeros_like(kv, dtype=torch.float32)
+        for r, k_start in enumerate(k_starts):
+            case = _chunk_case(q_start, k_start, s_loc, causal)
+            if case != "masked":
+                args = (q, kv[0], kv[1], do, lse, delta, case == "causal",
+                        scale)
+                dq_sum += dq(*args).float()
+                dk_r, dv_r = dkv(*args)
+                dkv_sum[0] += dk_r.float()
+                dkv_sum[1] += dv_r.float()
+            if r + 1 < len(k_starts):
+                kv = ppermute(kv, group, 1)
+            dkv_sum = ppermute(dkv_sum, group, 1)
+        return (dq_sum.to(q.dtype), dkv_sum[0].to(k.dtype),
+                dkv_sum[1].to(v.dtype),
+                None, None, None, None, None)
+
+
+def ring_flash_attention(q, k, v, group, q_start: int, k_starts,
+                         causal: bool = True,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """:class:`RingFlashAttentionFn` on this rank's q ``[b, s_loc, h, d]``
+    and K/V chunk ``[b, s_loc, kvh, d]``: ``k_starts[r]`` is the first
+    position of the chunk it holds at ring step r (one step per rank of
+    ``group``). The kernels on CUDA tensors, their plain versions on the
+    CPU; differentiable."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    return RingFlashAttentionFn.apply(
+        q.contiguous(), k.contiguous(), v.contiguous(), group, q_start,
+        tuple(k_starts), causal, scale)

@@ -133,7 +133,6 @@ STRATEGIES = {
 #: what ``trainer/sharded.py`` cannot run yet, and the queue item that
 #: brings it (ROADMAP.md, queue A)
 NOT_PORTED = {
-    "sequence": "A.1.3 (context parallelism: ring and Ulysses attention)",
     "pipeline": "A.1.4 (pipeline parallelism: GPipe and interleaved)",
 }
 

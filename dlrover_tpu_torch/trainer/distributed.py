@@ -22,17 +22,24 @@ tensors (the checkpoint's consensus, the example's barriers) run on
 persistent compile cache has no counterpart yet.
 
 The sharding strategies (``trainer/sharded.py``) move their tensors
-through one collective layer: :func:`all_reduce_`, :func:`reduce_scatter`
-and :func:`all_gather` on a mesh axis's group (``parallel/mesh.py``),
-along any tensor dimension. Each takes the ranks' tensors as they are,
-CUDA tensors included, under nccl and under gloo alike:
-:func:`collective_route` says so for a group's backend, and the mesh's
-user prints it. Whether gloo takes CUDA tensors for
-``reduce_scatter_tensor`` and ``all_gather_into_tensor`` was probed on
-an H100 (torch 2.11): it does, so nothing is staged through host buffers
-(gloo copies through the host inside the call). Every collective of the
-layer adds its seconds to :func:`collective_seconds`, the device
-synchronized on both sides, as the ddp step's ``reduce_seconds``.
+through one collective layer on a mesh axis's group
+(``parallel/mesh.py``), along any tensor dimension: :func:`all_reduce_`,
+:func:`reduce_scatter` and :func:`all_gather`, and for context
+parallelism :func:`ppermute` (a shift around the group's ring) and
+:func:`all_to_all` (JAX's tiled ``lax.all_to_all``). The last two are
+differentiable: the backward of each is its transpose, the reverse
+shift and the inverse all-to-all. How an op moves CUDA tensors is a
+constant per backend and op, :func:`collective_route`, written from
+``trainer/collective_probe.py``'s answers on an H100 (torch 2.11): nccl
+takes them by design; gloo takes them for all_reduce,
+``reduce_scatter_tensor``, ``all_gather_into_tensor`` and
+``all_to_all_single`` (copying through the host inside the call), and
+refuses them for send and recv, so a ppermute on gloo stages its
+tensor through a host buffer. Nothing falls back by catching an
+exception. Every collective of the layer adds its seconds to
+:func:`collective_seconds`, the device synchronized on both sides, as
+the ddp step's ``reduce_seconds``; ppermute and all_to_all add the
+bytes this rank sends to :func:`collective_bytes`.
 """
 
 import datetime
@@ -186,18 +193,36 @@ def init_from_env(timeout_s: int = 300, device=None,
 
 #: seconds spent in the layer's collectives since the last reset
 _COLLECTIVE_S = [0.0]
+#: bytes this rank sent to other ranks by ppermute and all_to_all
+_COLLECTIVE_BYTES = {"ppermute": 0, "all_to_all": 0}
+#: how each op of the layer moves CUDA tensors under gloo ("direct": as
+#: they are; "host": through a host buffer), from collective_probe.py on
+#: an H100 (torch 2.11)
+GLOO_CUDA_ROUTES = {
+    "all_reduce": "direct",
+    "reduce_scatter": "direct",
+    "all_gather": "direct",
+    "all_to_all": "direct",
+    "ppermute": "host",
+}
 
 
-def collective_route(group) -> str:
-    """How the layer moves a group's tensors: ``"direct"`` -- the ranks'
-    tensors, on the card or not, go to the collective as they are. The
-    backend decides it, never a caught exception: nccl takes CUDA
-    tensors by design, gloo takes them for all_reduce, reduce_scatter
-    and all_gather (probed on an H100, torch 2.11), and copies through
-    the host inside the call."""
+def collective_route(group, op: str = "all_reduce",
+                     device_type: str = "cuda") -> str:
+    """How the layer moves ``op``'s tensors of ``device_type`` on a
+    group: ``"direct"`` -- as they are, to the collective -- or
+    ``"host"`` -- copied to a host buffer and back around it. The
+    backend decides it, never a caught exception: nccl and the CPU take
+    every op direct, gloo takes CUDA tensors as
+    :data:`GLOO_CUDA_ROUTES` says."""
+    if op not in GLOO_CUDA_ROUTES:
+        raise ValueError(f"no collective {op!r}; one of "
+                         f"{sorted(GLOO_CUDA_ROUTES)}")
     backend = dist.get_backend(group) if group is not None else "none"
     if backend not in BACKENDS + ("none",):
         raise ValueError(f"no collective route for backend {backend!r}")
+    if backend == "gloo" and device_type == "cuda":
+        return GLOO_CUDA_ROUTES[op]
     return "direct"
 
 
@@ -208,6 +233,16 @@ def collective_seconds(reset: bool = False) -> float:
     if reset:
         _COLLECTIVE_S[0] = 0.0
     return total
+
+
+def collective_bytes(reset: bool = False) -> dict:
+    """{op: bytes this rank sent to other ranks} of ppermute and
+    all_to_all since the last reset; ``reset`` starts anew."""
+    out = dict(_COLLECTIVE_BYTES)
+    if reset:
+        for op in _COLLECTIVE_BYTES:
+            _COLLECTIVE_BYTES[op] = 0
+    return out
 
 
 class _Timed:
@@ -258,3 +293,88 @@ def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     with _Timed([x]):
         dist.all_gather_into_tensor(out, src, group=group)
     return out.movedim(0, dim).contiguous()
+
+
+def _ppermute(x: torch.Tensor, group, shift: int) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    if shift % n == 0:
+        return x
+    me = dist.get_rank(group)
+    ranks = dist.get_process_group_ranks(group)
+    host = collective_route(group, "ppermute", x.device.type) == "host"
+    with _Timed([x]):
+        send = (x.cpu() if host else x).contiguous()
+        got = torch.empty_like(send)
+        req = dist.isend(send, ranks[(me + shift) % n], group=group)
+        dist.recv(got, ranks[(me - shift) % n], group=group)
+        req.wait()
+        out = got.to(x.device) if host else got
+    _COLLECTIVE_BYTES["ppermute"] += send.numel() * send.element_size()
+    return out
+
+
+def _all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int,
+                group) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    src = x.movedim(split_dim, 0)
+    if src.shape[0] % n:
+        raise ValueError(f"dim {split_dim} of {tuple(x.shape)} does not "
+                         f"split over {n} ranks")
+    host = collective_route(group, "all_to_all", x.device.type) == "host"
+    with _Timed([x]):
+        send = src.reshape((n, src.shape[0] // n) + tuple(src.shape[1:]))
+        send = (send.cpu() if host else send).contiguous()
+        got = torch.empty_like(send)
+        dist.all_to_all_single(got, send, group=group)
+        got = got.to(x.device) if host else got
+    _COLLECTIVE_BYTES["all_to_all"] += (
+        send.numel() * send.element_size() * (n - 1) // n)
+    # got[i] is rank i's chunk for this rank, split dim in front
+    return torch.cat([p.movedim(0, split_dim) for p in got.unbind(0)],
+                     dim=concat_dim)
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return _ppermute(x, group, shift)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _ppermute(grad, ctx.group, -ctx.shift), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim, group):
+        ctx.dims, ctx.group = (split_dim, concat_dim), group
+        return _all_to_all(x, split_dim, concat_dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        split_dim, concat_dim = ctx.dims
+        return (_all_to_all(grad, concat_dim, split_dim, ctx.group), None,
+                None, None)
+
+
+def ppermute(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
+    """JAX's ``lax.ppermute`` over ``group``'s ring: rank i (in group
+    order) sends ``x`` to rank ``i + shift`` and returns what rank ``i -
+    shift`` sent (nothing moves for no group). Differentiable: the
+    gradient goes back by ``-shift``."""
+    if group is None:
+        return x
+    return _PPermute.apply(x, group, shift)
+
+
+def all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int,
+               group) -> torch.Tensor:
+    """JAX's tiled ``lax.all_to_all`` over ``group``: ``x`` split into
+    group-size chunks along ``split_dim``, chunk j sent to rank j, the
+    chunks that arrive concatenated along ``concat_dim`` in group-rank
+    order. Differentiable: the gradient takes the inverse all-to-all
+    (``concat_dim`` split, ``split_dim`` concatenated)."""
+    if group is None:
+        return x
+    return _AllToAll.apply(x, split_dim, concat_dim, group)

@@ -4,13 +4,16 @@ Counterpart of ``dlrover_tpu/trainer/sharded.py``. The class keeps its
 name so that readers find the counterpart. A trainer runs one strategy
 of the rule tables (``parallel/sharding.py``) on a mesh
 (``parallel/mesh.py``; by default JAX's ``[(data, 1), (fsdp, world)]``).
-The batch is split over the data-parallel ranks (``batch_axes``: data
-and fsdp): each of them steps on its own rows, and the ranks of one
-``tensor`` group see the same rows. The JAX loss is the masked mean
-over the global batch, so a loss function returns its masked sum and
-the count it averages over, and each rank divides its sum by the count
-summed over the data-parallel ranks; their quotients sum to the JAX
-loss.
+The batch's rows are split over the data-parallel ranks (``batch_axes``:
+data and fsdp), and under "sequence" each row's tokens over the ``seq``
+ranks too: each rank steps on its own tokens, and the ranks of one
+``tensor`` (or ``expert``) group see the same tokens. The JAX loss is
+the masked mean over the global batch, so a loss function returns its
+masked sum and the count it averages over, and each rank divides its
+sum by the count summed over the ranks that hold other tokens
+(``sum_axes``: the batch axes, and ``seq``); their quotients sum to the
+JAX loss. A third term of the loss function, the MoE auxiliary loss
+(the same on every rank), is added once over those ranks.
 
 * ``"ddp"``: parameters and optimizer state replicated; between
   ``backward`` and the update the gradients and losses are summed over
@@ -41,14 +44,22 @@ loss.
   each rank holds and steps its column/row/vocab shard, and the model
   runs the collectives of ``parallel/tensor_parallel.py``.
 * ``"tp_fsdp"``: ``tensor`` shards as under tp, and ``fsdp`` shards the
-  ``embed`` dims of those shards, gathered before use as under fsdp.
+  ``embed`` dims of those shards, gathered before use as under fsdp. An
+  MoE model's experts split over ``expert``: each rank runs its own
+  experts on the global routing (``parallel/moe.py``).
+* ``"sequence"``: tp_fsdp's parameter layout, and each sequence split
+  over ``seq`` (``parallel/context_parallel.py``): the model's RoPE
+  tables start at the rank's chunk, attention is ring attention (the
+  default of ``make_trainer_for_llama``) or Ulysses, and the gradients
+  and the loss's count are summed over ``seq`` as over the batch axes.
 
-"sequence" and "pipeline" raise (ROADMAP queue A.1.3 and A.1.4). Every
-collective goes through ``trainer/distributed.py``'s layer, on the
-mesh's groups. A mesh axis of the rule table's ``batch`` entry splits
-the batch and reduces the gradients, and a parameter dim sharded over
-it is gathered before use (fsdp); a dim sharded over any other axis is
-used as the rank holds it (tensor, and fsdp under rowwise). The
+"pipeline" raises (ROADMAP queue A.1.4). Every collective goes through
+``trainer/distributed.py``'s layer, on the mesh's groups. A mesh axis
+of the rule table's ``batch`` entry splits the batch's rows and reduces
+the gradients, and a parameter dim sharded over it is gathered before
+use (fsdp); ``seq`` splits the rows' tokens and reduces the gradients;
+a dim sharded over any other axis is used as the rank holds it
+(tensor, expert, and fsdp under rowwise). The
 strategies other than ddp need the model's logical axes
 (``make_trainer_for_llama`` and ``models/dlrm.py``'s ``make_trainer``
 give them), and their :meth:`ShardedTrainer.train_state` is the JAX
@@ -105,9 +116,11 @@ from dlrover_tpu_torch.parallel import sharding as shd
 from dlrover_tpu_torch.trainer import distributed as coll
 
 #: the strategies a trainer runs
-STRATEGIES = ("ddp", "rowwise", "zero1", "zero2", "fsdp", "tp", "tp_fsdp")
+STRATEGIES = ("ddp", "rowwise", "zero1", "zero2", "fsdp", "tp", "tp_fsdp",
+              "sequence")
 #: the strategies that shard a parameter or its optimizer state
-SHARDED = ("rowwise", "zero1", "zero2", "fsdp", "tp", "tp_fsdp")
+SHARDED = ("rowwise", "zero1", "zero2", "fsdp", "tp", "tp_fsdp",
+           "sequence")
 
 
 def allreduce_sum_(tensors: List[torch.Tensor], group) -> None:
@@ -135,7 +148,8 @@ class _Layout:
     pairs along which the stored shard is all-gathered into the
     parameter the forward uses (the batch axes: fsdp); ``scatter``, those
     along which the gradient is reduce-scattered to the optimizer's box;
-    ``reduce_axes``, the batch axes it is all-reduced over besides."""
+    ``reduce_axes``, the axes of ``sum_axes`` it is all-reduced over
+    besides."""
 
     name: str
     shape: Tuple[int, ...]
@@ -193,13 +207,15 @@ class ShardedTrainer:
         loss summed over the batch, and the count of unmasked targets it
         is a mean over (``next_token_sums`` of the LMs, ``loss_sums`` of
         the CNN and DLRM); the step's loss is their quotient, over the
-        global batch above one rank.
+        global batch above one rank. A third element, if there is one
+        and not None, is added to that mean once (the MoE Llama's
+        auxiliary loss).
       init_fn: ``init_fn(seed, device) -> nn.Module``. Under a sharded
         strategy a parameter may come as the rank's box of its forward
         (a rowwise table's rows, ``models/dlrm.py``) instead of whole.
       device: where to train; ``None`` is the GPU.
       strategy: one of :data:`STRATEGIES` (see the module docstring);
-        "sequence" and "pipeline" raise ``NotImplementedError``.
+        "pipeline" raises ``NotImplementedError``.
       optimizer: a factory from parameters to an optimizer (default
         ``adamw(3e-4)``, the JAX trainer's default); :meth:`train_state`
         carries :func:`adamw`, :func:`adam`, :func:`adagrad` and the
@@ -273,13 +289,20 @@ class ShardedTrainer:
                 device=self.device)
         self.mesh = mesh
         self.rules = shd.get_rules(strategy)
+
+        def rule_axes(logical):
+            return tuple(a for a in shd.spec_axes(self.rules.get(logical))
+                         if mesh_lib.axis_size(mesh, a) > 1)
+
         #: the data-parallel axes (the rule table's batch axes of size
-        #: > 1) and their group: the batch is split, and the loss, its
-        #: count and the gradients summed, over these ranks only
-        self.batch_axes = tuple(
-            a for a in shd.spec_axes(self.rules.get("batch"))
-            if mesh_lib.axis_size(mesh, a) > 1)
-        self._dp_group = mesh_lib.axes_group(mesh, self.batch_axes)
+        #: > 1): the batch's rows are split over these ranks
+        self.batch_axes = rule_axes("batch")
+        #: the seq axis under "sequence": each row's tokens split over it
+        self.seq_axes = rule_axes("seq")
+        #: the ranks that hold other tokens, and their group: the loss,
+        #: its count and the gradients are summed over these ranks only
+        self.sum_axes = self.batch_axes + self.seq_axes
+        self._sum_group = mesh_lib.axes_group(mesh, self.sum_axes)
         self._tp_group = mesh_lib.axes_group(mesh, (mesh_lib.TENSOR_AXIS,))
         self.model: Optional[nn.Module] = None
         self.optimizer = None
@@ -315,13 +338,21 @@ class ShardedTrainer:
         return idx
 
     def split_batch(self, batch):
-        """This rank's rows of a global batch (leaves [global, ...]):
-        the data-parallel ranks split it, the ranks of one tensor group
-        (or, under rowwise, of one fsdp group) share a part."""
+        """This rank's part of a global batch (leaves [global, ...]):
+        the data-parallel ranks split its rows, the ranks of one tensor
+        group (or, under rowwise, of one fsdp group) share a part; under
+        "sequence" the seq ranks split dim 1 of each row."""
         dp = self.data_parallel_size
         i = self.data_parallel_index()
-        return tuple(x[i * (x.shape[0] // dp):(i + 1) * (x.shape[0] // dp)]
-                     for x in batch)
+        out = tuple(x[i * (x.shape[0] // dp):(i + 1) * (x.shape[0] // dp)]
+                    for x in batch)
+        if not self.seq_axes:
+            return out
+        sp = math.prod(mesh_lib.axis_size(self.mesh, a)
+                       for a in self.seq_axes)
+        j = mesh_lib.axis_index(self.mesh, self.seq_axes[0])
+        return tuple(x[:, j * (x.shape[1] // sp):(j + 1) * (x.shape[1] // sp)]
+                     for x in out)
 
     def init(self, seed: int = 0, model: Optional[nn.Module] = None):
         """Initialize (model, optimizer): ``init_fn(seed)``, or the given
@@ -334,6 +365,7 @@ class ShardedTrainer:
             self._shard_model()
         else:
             self._stored = self._opt_params = self._trained()
+            self._place_model({})
         if self.accum_steps == 1:
             self.optimizer = self._make_optimizer(self._opt_params)
             if isinstance(self.optimizer, torch.optim.AdamW):
@@ -379,7 +411,7 @@ class ShardedTrainer:
         scatter = _over(opt, self.batch_axes)
         return _Layout(
             name, tuple(shape), store, opt, _over(store, self.batch_axes),
-            scatter, tuple(a for a in self.batch_axes
+            scatter, tuple(a for a in self.sum_axes
                            if a not in {a for _, a in scatter}))
 
     @torch.no_grad()
@@ -420,12 +452,41 @@ class ShardedTrainer:
             self._layouts.append(lay)
             self._stored.append(stored)
             self._opt_params.append(opt_param)
-        if self._tp_group is not None:
-            self.model.tp_group = self._tp_group
-            self.model.vocab_start = used_box["embed"][0][0]
-            for module in self.model.modules():
+        self._place_model(used_box)
+
+    def _place_model(self, used_box: Dict[str, list]) -> None:
+        """Tell the model where the rank sits: the tensor group and its
+        vocab rows, its chunk of each sequence (``seq_shard``), and each
+        MoE block's experts and token groups (``moe_shard``).
+        ``used_box``: each parameter's box of the forward (empty when the
+        strategy shards none)."""
+        from dlrover_tpu_torch.parallel.context_parallel import seq_shard
+        from dlrover_tpu_torch.parallel.moe import ExpertShard
+
+        mesh, model = self.mesh, self.model
+        if self._tp_group is not None and used_box:
+            model.tp_group = self._tp_group
+            model.vocab_start = used_box["embed"][0][0]
+            for module in model.modules():
                 if hasattr(module, "tp_group"):
                     module.tp_group = self._tp_group
+        if self.seq_axes and hasattr(model, "seq_shard"):
+            model.seq_shard = seq_shard(mesh, self.seq_axes[0])
+        used = {lay.name: _used_part(lay.store, self.batch_axes)
+                for lay in self._layouts}
+        for name, module in model.named_modules():
+            if not hasattr(module, "moe_shard"):
+                continue
+            # the axes that split the experts' work: the expert dim's and
+            # the mlp dim's of the forward's w_gate
+            spec = used.get(f"{name}.w_gate", ())
+            module.moe_shard = ExpertShard(
+                expert_start=(used_box[f"{name}.w_gate"][0][0]
+                              if used_box else 0),
+                expert_group=mesh_lib.axes_group(
+                    mesh, [a for e in spec for a in shd.spec_axes(e)]),
+                seq_group=mesh_lib.axes_group(mesh, self.seq_axes),
+                batch_group=mesh_lib.axes_group(mesh, self.batch_axes))
 
     def _gather_params(self) -> None:
         """fsdp: the parameters the forward uses, from the ranks' shards."""
@@ -549,9 +610,9 @@ class ShardedTrainer:
         data-parallel ranks (a copy), then :meth:`_global_norm`."""
         grads = [g if g is not None else torch.zeros_like(p)
                  for g, p in zip(grads, self._trained())]
-        if self._dp_group is not None:
+        if self._sum_group is not None:
             grads = [g.clone() for g in grads]
-            allreduce_sum_(grads, self._dp_group)
+            allreduce_sum_(grads, self._sum_group)
         if not self.sharded:
             return self._global_norm(grads, [()] * len(grads))
         return self._global_norm(grads, [
@@ -765,7 +826,7 @@ class ShardedTrainer:
         if self.sharded:
             return self._sharded_step(batch)
         accum = self.accum_steps
-        reduced = self._dp_group is not None
+        reduced = self._sum_group is not None
         params = self._trained()
         if not isinstance(self.optimizer, Fp32GradAdamW):
             loss, grads = self._loss_and_grads(tuple(x[0] for x in batch))
@@ -835,8 +896,8 @@ class ShardedTrainer:
                 sums = self._reduce_to_opt(sums)
             grads = [acc.div_(accum) for acc in sums]
             loss = loss / accum
-        if self._dp_group is not None:
-            loss = coll.all_reduce_(loss.clone(), self._dp_group)
+        if self._sum_group is not None:
+            loss = coll.all_reduce_(loss.clone(), self._sum_group)
         self._release_params()
         if self.before_update is not None:
             self.before_update()
@@ -851,16 +912,24 @@ class ShardedTrainer:
         self.reduce_seconds = coll.collective_seconds()
         return loss
 
-    def _mean_loss(self, batch) -> torch.Tensor:
+    def _mean_loss(self, batch, global_count: bool = True
+                   ) -> torch.Tensor:
         """The loss's masked sum over its count (at least 1), as the JAX
-        loss; above one data-parallel rank the count is the global
-        batch's, so the ranks' quotients sum to the JAX loss on the
-        global batch."""
-        total, count = self._loss_fn(self.model, batch)
-        if self._dp_group is not None:
+        loss; above one rank of ``sum_axes`` the count is the global
+        batch's (``global_count``), so the ranks' quotients sum to the
+        JAX loss on the global batch. An auxiliary term of the loss
+        function is added divided by those ranks, so it counts once in
+        the sum."""
+        total, count, *rest = self._loss_fn(self.model, batch)
+        if self._sum_group is not None and global_count:
             count = count.detach().clone()
-            coll.all_reduce_(count, self._dp_group)
-        return total / count.clamp(min=1.0)
+            coll.all_reduce_(count, self._sum_group)
+        loss = total / count.clamp(min=1.0)
+        aux = rest[0] if rest else None
+        if aux is not None:
+            loss = loss + aux / math.prod(
+                mesh_lib.axis_size(self.mesh, a) for a in self.sum_axes)
+        return loss
 
     def _reduce(self, grads: List[torch.Tensor],
                 loss: torch.Tensor) -> torch.Tensor:
@@ -871,7 +940,7 @@ class ShardedTrainer:
         self._sync()
         t0 = time.perf_counter()
         loss = loss.clone()
-        allreduce_sum_(grads + [loss], self._dp_group)
+        allreduce_sum_(grads + [loss], self._sum_group)
         self._sync()
         self.reduce_seconds = time.perf_counter() - t0
         return loss
@@ -892,10 +961,9 @@ class ShardedTrainer:
         params = self._trained()
         try:
             for i in range(self.accum_steps):
-                total, count = self._loss_fn(
-                    self.model, tuple(x[i] for x in batch))
-                torch.autograd.grad(total / count.clamp(min=1.0), params,
-                                    allow_unused=True)
+                loss = self._mean_loss(tuple(x[i] for x in batch),
+                                       global_count=False)
+                torch.autograd.grad(loss, params, allow_unused=True)
         finally:
             if self.sharded:
                 self._release_params()
@@ -956,8 +1024,21 @@ def make_trainer_for_llama(
     default strategy stays "ddp" (the JAX default is "fsdp"), which the
     port's callers before the mesh rely on; ``mesh=None`` is the JAX
     default mesh, ``[(data, 1), (fsdp, world)]``; ``value_and_grad`` is
-    :class:`ShardedTrainer`'s hook."""
+    :class:`ShardedTrainer`'s hook. Under "sequence" without an
+    ``attn_fn`` attention is ring attention over the mesh's seq axis,
+    as in the JAX package (``parallel/context_parallel.py``)."""
     from dlrover_tpu_torch.models import llama
+
+    if attn_fn is None and strategy == "sequence":
+        from dlrover_tpu_torch.parallel.context_parallel import (
+            make_context_parallel_attn,
+        )
+
+        if mesh is None:
+            mesh = mesh_lib.create_mesh(
+                [(mesh_lib.DATA_AXIS, 1), (mesh_lib.FSDP_AXIS, -1)],
+                device=resolve_device(device))
+        attn_fn = make_context_parallel_attn(mesh, kind="ring")
 
     def loss(model, batch):
         return llama.next_token_sums(model, batch, attn_fn=attn_fn)

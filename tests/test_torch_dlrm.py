@@ -277,7 +277,7 @@ def test_strategies():
     cannot take rowwise."""
     cfg = _configs()[1]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dlrm.make_trainer(cfg, device="cpu", strategy="sequence")
+        dlrm.make_trainer(cfg, device="cpu", strategy="pipeline")
     assert dlrm.make_trainer(cfg, device="cpu", strategy="fsdp").sharded
     assert make_trainer_for(cfg, device="cpu", strategy="ddp").strategy \
         == "ddp"
