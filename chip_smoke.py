@@ -14,7 +14,8 @@ Phases, each of which raises on failure:
    heads split over two tensor ranks (16 over 2), at phase "sequence"'s
    (the ring's chunk of 8,192 tokens, causal and non-causal; Ulysses'
    16,384 tokens at 16 over 2 heads: their plain versions a kv-head
-   group at a time) and at one small non-causal shape, element by
+   group at a time), at phase "pipeline"'s microbatch (one row of 2,048
+   tokens) and at one small non-causal shape, element by
    element; planted faults that the same rule must reject (at the train
    steps' and the tp shape); each kernel launched twice at every timed
    shape, which must give the same bits; times there beside the
@@ -206,10 +207,32 @@ Phases, each of which raises on failure:
     each kernel a rank a step. Printed: the dropped share of layer 0's
     choices, aux, step ms, MFU from the MoE ``flops_per_token``, peak
     memory;
-17. the wall seconds of each phase, then the kernels line (one JSON
+17. pipeline: pipeline parallelism (``parallel/pipeline.py``), the same
+    llama_1b cut to 4 layers, batch 4 x 2048 in 4 pipeline microbatches
+    of one row, AdamW(1e-4, 0.9, 0.95), 1 warm-up and 2 timed steps, in
+    two gloo ranks on ``cuda:0`` under "pipeline" on (pipe 2): GPipe
+    (rank 0 holds layers 0-1, rank 1 layers 2-3), then the interleaved
+    schedule with two chunks a stage (rank 0 layers 0 and 2, rank 1
+    layers 1 and 3), each against the port's one-process step from the
+    same seed, then GPipe with a planted fault: the embedding's
+    gradient, which arises on stage 0, not summed over pipe. Gates:
+    losses within MESH_LOSS_RTOL and phase "mesh"'s parameter gates;
+    the replicated leaves (embed, final norm, head) equal to the bit on
+    both ranks; each rank holding its stage's layers; the bytes each
+    rank sends a step (the activations' and dX's sends of one
+    microbatch, 8,388,608 bytes each, the outputs' all-reduce, the
+    embedding gradient's) and the measured bubble (0.2, 1/9) as the
+    schedule says; per rank per step 2 x 4 x 2 launches of the forward
+    kernel (remat "dots" recomputes attention) and 4 x 2 of dQ and dK/dV
+    at the microbatch's shape (1, 2048, 32, 4, 64); the planted run must
+    fail. Printed per rank: step and collective ms, bytes by op, the
+    measured and predicted bubble, launches per step by shape, peak
+    memory;
+18. the wall seconds of each phase, then the kernels line (one JSON
     object; each kernel at both train steps' shapes, at the tp shape of
-    "mesh", with ``mesh_launches``, and at the shapes of "sequence"), then
-    the card's name and power limit, then the device line, last.
+    "mesh", with ``mesh_launches``, at the shapes of "sequence" and at
+    the microbatch shape of "pipeline"), then the card's name and power
+    limit, then the device line, last.
 
 Exits non-zero, and prints no result, when there is no CUDA device or
 when the package is not beside this file.
@@ -663,9 +686,10 @@ def check_kernels(shape, timed: bool, planted: bool = True):
 def phase_kernels():
     """{shape name: check_kernels' dicts} at the Llama-1.1B step's shape,
     at its heads split over 2 tensor ranks (phase "mesh"'s tp and
-    tp_fsdp), at GPT-2 XL's, and at phase "sequence"'s -- the ring's
-    chunk causal and non-causal, Ulysses' whole sequence -- all timed
-    (no planted faults at the last three)."""
+    tp_fsdp), at GPT-2 XL's, at phase "sequence"'s -- the ring's chunk
+    causal and non-causal, Ulysses' whole sequence -- and at phase
+    "pipeline"'s microbatch, all timed (no planted faults at the last
+    four)."""
     import torch
 
     # the plain versions' fp32 products must not drop to TF32
@@ -676,7 +700,7 @@ def phase_kernels():
     for name, shape in (("llama_1b", SLICE), ("llama_1b_tp", SLICE_TP),
                         ("gpt2_xl", GPT), ("ring_chunk", RING_CHUNK),
                         ("ring_chunk_full", RING_FULL),
-                        ("ulysses", ULYSSES)):
+                        ("ulysses", ULYSSES), ("pipeline_mb", PIPE_MB)):
         t0 = time.perf_counter()
         results[name] = check_kernels(
             shape, timed=True,
@@ -4171,6 +4195,274 @@ def phase_moe() -> dict:
     return got["readings"]
 
 
+# ---------------------------------------------------------------------------
+# phase "pipeline": GPipe and the interleaved schedule over (pipe 2)
+
+#: batch 4 x 2048 in 4 pipeline microbatches of one row (the flash
+#: kernels' shape in each stage, PIPE_MB), 1 warm-up and 2 timed steps
+PIPE_B, PIPE_M = 4, 4
+PIPE_WARMUP, PIPE_TIMED = 1, 2
+#: (run, chunks a stage): GPipe, the interleaved schedule, and GPipe with
+#: the planted fault (the embedding's gradient not summed over pipe)
+PIPE_RUNS = (("gpipe", 1), ("interleaved", 2), ("gpipe_planted", 1))
+PIPE_MB = dict(b=1, s=2048, h=32, kvh=4, d=64, causal=True)
+#: on CPU ranks (a dry run of the phase's logic): llama_tiny's sequence
+PIPE_S_CPU = 64
+#: the pipeline's own collectives, by collective_bytes' label
+PIPE_OPS = ("ppermute", "pipeline_outputs", "pipeline_feed")
+
+
+def _digest(t) -> str:
+    import hashlib
+
+    import torch
+
+    return hashlib.sha256(t.detach().cpu().contiguous().view(
+        torch.uint8).numpy().tobytes()).hexdigest()
+
+
+def _pipe_expected(cfg, chunks: int, rank: int, s: int) -> dict:
+    """What the schedule says of one rank's step on (pipe 2): its
+    activation sends (forward to the next stage unless final, dX back to
+    the stage that fed it), their bytes, the bytes of the outputs'
+    all-reduce and of the embedding gradient's, the launches of each
+    kernel (the forward twice: remat "dots" recomputes attention), and
+    the bubble."""
+    from dlrover_tpu_torch.parallel import pipeline
+
+    pp, layers = 2, cfg.num_layers
+    local = layers // pp
+    mb = PIPE_B // PIPE_M
+    act = mb * s * cfg.hidden_size * cfg.dtype.itemsize
+    ticks = PIPE_M * chunks + pp - 1
+    sends = 0
+    for t in range(ticks):
+        w = pipeline._work(t, rank, pp, PIPE_M, chunks)
+        if w is not None and not (rank == pp - 1 and w[1] == chunks - 1):
+            sends += 1  # forward
+        if w is not None and not (rank == 0 and w[1] == 0):
+            sends += 1  # backward, to the feeding stage
+    return {"sends": sends, "bytes": {
+        "ppermute": sends * act,
+        "pipeline_outputs": PIPE_B * s * cfg.hidden_size * cfg.dtype.itemsize,
+        "pipeline_feed": cfg.vocab_size * cfg.hidden_size
+        * cfg.dtype.itemsize},
+        "launches": {"fwd": 2 * PIPE_M * local, "dq": PIPE_M * local,
+                     "dkv": PIPE_M * local},
+        "bubble": pipeline.bubble_fraction(pp, PIPE_M, chunks)}
+
+
+def pipeline_rank(work: str, layers: int, device=None) -> None:
+    """One rank of phase "pipeline" (``python -c``): the "pipeline"
+    trainer on (pipe 2) under each of PIPE_RUNS, against the one-process
+    reference; one JSON result file."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.parallel.mesh import create_mesh
+    from dlrover_tpu_torch.trainer import distributed as coll
+    from dlrover_tpu_torch.trainer.sharded import (
+        adamw, make_trainer_for_llama)
+
+    env = coll.init_from_env(timeout_s=120, backend="gloo", device=device)
+    cuda = device != "cpu"
+    cfg = _mesh_cfg(layers, device)
+    data = np.load(os.path.join(work, "batches.npz"))
+    mesh = create_mesh([("pipe", 2)], device=device)
+    init = torch.load(os.path.join(work, "init.pt"), map_location="cpu")
+    ref = torch.load(os.path.join(work, "reference.pt"), map_location="cpu")
+    out = {"rank": env.rank, "runs": {}}
+    for kind, chunks in PIPE_RUNS:
+        if cuda:
+            torch.cuda.empty_cache()
+        t = make_trainer_for_llama(
+            cfg, device=device, strategy="pipeline", mesh=mesh,
+            num_microbatches=PIPE_M, num_chunks=chunks,
+            optimizer=adamw(MESH_LR, b1=0.9, b2=0.95))
+        t.init(seed=0)
+        if kind.endswith("_planted"):
+            for lay in t._layouts:
+                lay.reduce_axes = tuple(a for a in lay.reduce_axes
+                                        if a != "pipe")
+        batches = [t.shard_batch(t.microbatch(t.split_batch(
+            (data["tokens"][i], data["targets"][i]))))
+            for i in range(len(data["tokens"]))]
+        run = _run_steps(t, batches, cuda)
+        run["layers_held"] = sorted(
+            int(n.split(".")[1]) for n, _ in t.model.named_parameters()
+            if n.endswith("attn_norm"))
+        run["state_bytes"] = t.state_bytes()
+        run["device"] = str(t.local_shards()[0][2].device)
+        run["replicated"] = {n: _digest(p) for n, p in
+                             t.model.named_parameters()
+                             if not n.startswith("blocks.")}
+        run.update(_against_reference(t, ref, init, len(batches)))
+        with torch.no_grad():
+            _, _, stats = t.model.hidden_states_and_aux(
+                batches[0][0][0], schedule_stats=True)
+        run["stats"] = stats
+        out["runs"][kind] = run
+        del t, batches
+        dist.barrier()
+    with open(os.path.join(work, f"rank{env.rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _pipeline_gates(ranks, reference: dict, cfg, s: int, cuda: bool,
+                    failed: list) -> None:
+    """Phase "pipeline"'s gates on the ranks' results."""
+    want = reference["losses"]
+    for kind, chunks in PIPE_RUNS:
+        runs = [res["runs"][kind] for res in ranks]
+        bad = []
+        for r, run in enumerate(runs):
+            if any(abs(a - b) > MESH_LOSS_RTOL * abs(b)
+                   for a, b in zip(run["losses"], want)):
+                bad.append(f"rank {r}: losses {run['losses']} vs {want}")
+            if run["param_within_2lr_share"] < MESH_WITHIN_SHARE:
+                bad.append(f"rank {r}: parameters "
+                           f"{run['param_within_2lr_share']:.5%} within 2 "
+                           "lr and one ulp")
+            if run["param_diff_lr"]["per_step"] > 2.0 * len(want):
+                bad.append(f"rank {r}: parameters "
+                           f"{run['param_diff_lr']['per_step']} lr beyond "
+                           "one ulp a step")
+        if runs[0]["replicated"] != runs[1]["replicated"]:
+            bad.append("the replicated leaves differ across the ranks")
+        if kind.endswith("_planted"):
+            if not bad:
+                failed.append(f"the planted {kind} passes the gates")
+            continue
+        failed += [f"{kind}: {b}" for b in bad]
+        from dlrover_tpu_torch.parallel import pipeline
+
+        for r, run in enumerate(runs):
+            expect = _pipe_expected(cfg, chunks, r, s)
+            if run["layers_held"] != pipeline.stage_layers(
+                    cfg.num_layers, 2, r, chunks):
+                failed.append(f"{kind} rank {r} holds layers "
+                              f"{run['layers_held']}")
+            sent = {op: run["sent_bytes"][-1].get(op, 0) for op in PIPE_OPS}
+            if sent != expect["bytes"]:
+                failed.append(f"{kind} rank {r}: bytes a step {sent}, want "
+                              f"{expect['bytes']}")
+            if abs(run["stats"]["bubble_measured"] - expect["bubble"]) > 1e-9:
+                failed.append(f"{kind} rank {r}: bubble "
+                              f"{run['stats']['bubble_measured']}, want "
+                              f"{expect['bubble']}")
+            if not cuda:
+                continue
+            steps = len(run["losses"])
+            want_launches = {_shape_key(k, PIPE_MB): n * steps
+                             for k, n in expect["launches"].items()}
+            if run["launches"] != want_launches:
+                failed.append(f"{kind} rank {r}: launches {run['launches']}, "
+                              f"want {want_launches}")
+            if run["device"] != "cuda:0":
+                failed.append(f"{kind} rank {r} on {run['device']}")
+
+
+def run_pipeline(layers: int = MESH_LAYERS, device=None) -> dict:
+    """Phase "pipeline"'s body at ``layers`` layers: the one-process
+    reference, the two ranks (:func:`pipeline_rank`), the gates; returns
+    the readings and the failed gates. ``device="cpu"`` runs llama_tiny
+    at PIPE_S_CPU tokens on CPU ranks (the logic alone)."""
+    import numpy as np
+
+    cfg = _mesh_cfg(layers, device)
+    s = PIPE_S_CPU if device == "cpu" else SLICE["s"]
+    work = tempfile.mkdtemp(prefix="dlrover_pipe_")
+    failed = []
+    try:
+        steps = PIPE_WARMUP + PIPE_TIMED
+        tokens = np.random.default_rng(19).integers(
+            0, cfg.vocab_size, (steps, PIPE_B, s + 1))
+        batches = [(x[:, :-1], x[:, 1:]) for x in tokens]
+        np.savez(os.path.join(work, "batches.npz"), tokens=tokens[:, :, :-1],
+                 targets=tokens[:, :, 1:])
+        t0 = time.time()
+        reference = _one_process_steps(cfg, work, batches, device)
+        reference_s = time.time() - t0
+        t0 = time.time()
+        ranks, _ = _rank_group(work, 2, f"pipeline_rank({work!r}, {layers}, "
+                               f"{device!r})", "pipeline")
+        ranks_s = time.time() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    _pipeline_gates(ranks, reference, cfg, s, device != "cpu", failed)
+
+    def med(xs):
+        return statistics.median(xs[PIPE_WARMUP:])
+
+    runs = {}
+    for kind, chunks in PIPE_RUNS:
+        per_rank = [r["runs"][kind] for r in ranks]
+        runs[kind] = {
+            "chunks": chunks,
+            "losses": per_rank[0]["losses"],
+            "loss_rel": max(abs(a - b) / abs(b) for run in per_rank
+                            for a, b in zip(run["losses"],
+                                            reference["losses"])),
+            "step_ms": [med(run["step_ms"]) for run in per_rank],
+            "collective_ms": [med(run["collective_ms"]) for run in per_rank],
+            "sent_bytes_per_step": [run["sent_bytes"][-1]
+                                    for run in per_rank],
+            "bubble_measured": [run["stats"]["bubble_measured"]
+                                for run in per_rank],
+            "bubble_predicted": _pipe_expected(cfg, chunks, 0, s)["bubble"],
+            "launches_per_step": [
+                {k: n / len(run["losses"]) for k, n in
+                 run["launches"].items()} for run in per_rank],
+            "layers_held": [run["layers_held"] for run in per_rank],
+            "state_bytes": [run["state_bytes"] for run in per_rank],
+            "peak_mem_gb": [run["peak_mem_gb"] for run in per_rank],
+            "replicated_equal": (per_rank[0]["replicated"]
+                                 == per_rank[1]["replicated"]),
+            "param_within_2lr_share": [run["param_within_2lr_share"]
+                                       for run in per_rank],
+            "param_diff_lr": {k: max(run["param_diff_lr"][k]
+                                     for run in per_rank)
+                              for k in per_rank[0]["param_diff_lr"]},
+        }
+    launches = {k: 0 for k in REPLACES}
+    for kind, _ in PIPE_RUNS:
+        if kind.endswith("_planted"):
+            continue
+        for r in ranks:
+            for k, n in r["runs"][kind]["launches"].items():
+                name = k.split("@")[0]
+                if k == _shape_key(name, PIPE_MB):
+                    launches[name] += n
+    return {"readings": {
+        "reference": {"losses": reference["losses"],
+                      "step_ms": med(reference["step_ms"]),
+                      "peak_mem_gb": reference["peak_mem_gb"]},
+        "runs": runs, "reference_s": reference_s, "ranks_s": ranks_s,
+        "launches": launches}, "failed": failed}
+
+
+def phase_pipeline() -> dict:
+    """Pipeline parallelism on the card: the docstring's phase 17."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    got = run_pipeline(MESH_LAYERS)
+    emit({"phase": "pipeline", "model": "llama_1b", "layers": MESH_LAYERS,
+          "batch": PIPE_B, "seq": SLICE["s"], "microbatches": PIPE_M,
+          "mesh": {"pipe": 2}, "strategy": "pipeline", "lr": MESH_LR,
+          "warmup": PIPE_WARMUP, "timed": PIPE_TIMED, "backend": "gloo",
+          "phase_s": time.time() - t0, **got["readings"],
+          "nvidia_smi": nvidia_smi_line()})
+    if got["failed"]:
+        raise AssertionError("pipeline: " + "; ".join(got["failed"]))
+    return got["readings"]
+
+
 def main() -> int:
     if not (ROOT / "dlrover_tpu_torch" / "__init__.py").exists():
         print("chip_smoke: dlrover_tpu_torch is not beside this script",
@@ -4207,6 +4499,7 @@ def main() -> int:
     mesh = timed("mesh", phase_mesh)
     sequence = timed("sequence", phase_sequence)
     timed("moe", phase_moe)
+    pipe = timed("pipeline", phase_pipeline)
     # wall seconds per phase, from main's start (the interpreter's start
     # and torch's import before it are not counted)
     emit({"phase_seconds": seconds, "total_s": time.perf_counter() - t0})
@@ -4219,13 +4512,15 @@ def main() -> int:
     # each shape's launches: its main path's run (the count reset just
     # before it), the Llama step of "slice", the tp ranks of "mesh", the
     # GPT step of "families", and the ring and Ulysses runs of
-    # "sequence" (both ranks)
+    # "sequence" (both ranks), and the microbatch shape of "pipeline"
+    # (both ranks, GPipe and interleaved)
     for shape, counts in (("llama_1b", launches),
                           ("llama_1b_tp", mesh["launches"]["tp"]),
                           ("gpt2_xl", gpt_launches),
                           ("ring_chunk", seq_launches(RING_CHUNK)),
                           ("ring_chunk_full", seq_launches(RING_FULL)),
-                          ("ulysses", seq_launches(ULYSSES))):
+                          ("ulysses", seq_launches(ULYSSES)),
+                          ("pipeline_mb", pipe["launches"])):
         for name, r in kernels[shape].items():
             line.append({
                 "name": name if shape == "llama_1b" else f"{name}@{shape}",

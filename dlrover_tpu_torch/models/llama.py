@@ -36,6 +36,14 @@ Under the "sequence" strategy the trainer sets ``seq_shard``
 sequence, and its RoPE tables start at the chunk's first position, as
 the slice of the JAX program's global tables does.
 
+Under the "pipeline" strategy the trainer sets ``pipe_stage``
+(``parallel/pipeline.py``), the model's stage view: the model holds the
+blocks of its stage only (``layers=``; the others are
+:class:`AbsentBlock`, with no parameters, so the names of the blocks it
+holds stay ``blocks.<layer>``), and its forward runs the block stack as
+the stage's pipeline schedule, with embed, final norm and ``lm_head``
+outside it on every stage.
+
 Activation checkpointing (``remat``), as in the JAX model:
 ``"dots_attn_out"`` checkpoints the segments before and after attention
 and saves their matmul outputs, with the attention call outside both so
@@ -47,7 +55,7 @@ everything.
 
 import dataclasses
 from functools import partial
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -333,19 +341,39 @@ class Block(nn.Module):
         return remat_block(self, self.cfg.remat, x, attn_fn, cos, sin)
 
 
+class AbsentBlock(nn.Module):
+    """The place of a block another pipeline stage holds: no parameters,
+    and no forward."""
+
+
+def _block_draws(cfg: LlamaConfig):
+    """The shapes ``init_params`` draws for a block, in its order."""
+    h, m, E = cfg.hidden_size, cfg.intermediate_size, cfg.num_experts
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    attn = [(q, h), (kv, h), (kv, h), (h, q)]
+    if E > 0:  # the block's experts, then its nn.Linear children
+        return [(E, h, m), (E, h, m), (E, m, h)] + attn + [(E, h)]
+    return attn + [(m, h), (m, h), (h, m)]
+
+
 class Llama(nn.Module):
     """The Llama model. Its parameters are left uninitialized:
-    ``init_params`` draws them, ``params_from_jax`` loads them."""
+    ``init_params`` draws them, ``params_from_jax`` loads them.
+    ``layers``: the blocks it holds (None: all of them; a pipeline
+    stage's), the others :class:`AbsentBlock`."""
 
-    def __init__(self, cfg: LlamaConfig, device=None):
+    def __init__(self, cfg: LlamaConfig, device=None,
+                 layers: Optional[Sequence[int]] = None):
         super().__init__()
         device = resolve_device(device)
         h = cfg.hidden_size
         self.cfg = cfg
         self.embed = nn.Parameter(torch.empty(
             cfg.vocab_size, h, device=device, dtype=cfg.dtype))
+        held = set(range(cfg.num_layers) if layers is None else layers)
         self.blocks = nn.ModuleList(
-            Block(cfg, device) for _ in range(cfg.num_layers))
+            Block(cfg, device) if i in held else AbsentBlock()
+            for i in range(cfg.num_layers))
         self.final_norm = nn.Parameter(
             torch.ones(h, device=device, dtype=torch.float32))
         self.lm_head = nn.Linear(h, cfg.vocab_size, bias=False,
@@ -357,14 +385,25 @@ class Llama(nn.Module):
         #: under sequence parallelism: the rank's chunk of each sequence
         #: (context_parallel.SeqShard; None: whole sequences)
         self.seq_shard = None
+        #: under pipelining: the rank's stage (pipeline.PipeStage; None:
+        #: the whole stack here)
+        self.pipe_stage = None
+
+    def keep_layers(self, layers: Sequence[int]) -> None:
+        """Drop every block but ``layers`` (a pipeline stage's)."""
+        held = set(layers)
+        for i in range(len(self.blocks)):
+            if i not in held:
+                self.blocks[i] = AbsentBlock()
 
     def hidden_states_and_aux(self, tokens: torch.Tensor,
-                              attn_fn: Optional[Callable] = None
-                              ) -> Tuple[torch.Tensor,
-                                         Optional[torch.Tensor]]:
+                              attn_fn: Optional[Callable] = None,
+                              schedule_stats: bool = False):
         """(final-norm hidden states [batch, seq, hidden] of int tokens
         [batch, seq], the MoE auxiliary loss summed over the layers; None
-        for a dense model)."""
+        for a dense model). Under a pipeline stage the aux is the mean
+        over its microbatches, and ``schedule_stats`` appends the
+        schedule's stats (``PipeStage.run``)."""
         if attn_fn is None:
             attn_fn = partial(flash_attention, causal=True)
         cfg = self.cfg
@@ -374,6 +413,12 @@ class Llama(nn.Module):
                                device=tokens.device, start=start)
         x = vocab_parallel_embedding(tokens, self.embed, self.vocab_start,
                                      self.tp_group)
+        if self.pipe_stage is not None:
+            x, aux_sum, *stats = self.pipe_stage.run(
+                self.blocks, x, cos, sin, attn_fn, cfg.remat,
+                schedule_stats=schedule_stats)
+            return (rms_norm(x, self.final_norm, cfg.norm_eps), aux_sum,
+                    *stats)
         aux_sum = None
         for block in self.blocks:
             x, aux = block.run(x, cos, sin, attn_fn)
@@ -393,12 +438,15 @@ class Llama(nn.Module):
         return self.lm_head(self.hidden_states(tokens, attn_fn)).float()
 
 
-def init_params(cfg: LlamaConfig, seed: int = 0, device=None) -> Llama:
+def init_params(cfg: LlamaConfig, seed: int = 0, device=None,
+                layers: Optional[Sequence[int]] = None) -> Llama:
     """A model with the JAX package's initial distributions, drawn from a
     ``torch.Generator`` seeded with ``seed`` on the model's device:
     embed N(0, 0.02), matrices N(0, 1/fan_in) drawn in fp32 and cast,
-    norms 1. The numbers differ from ``jax.random``'s."""
-    model = Llama(cfg, device)
+    norms 1. The numbers differ from ``jax.random``'s. ``layers``: the
+    blocks to hold (a pipeline stage's); an absent block's draws are made
+    and dropped, so each block held has the whole model's values."""
+    model = Llama(cfg, device, layers=layers)
     dev = model.embed.device
     gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -409,7 +457,10 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device=None) -> Llama:
     with torch.no_grad():
         model.embed.copy_(normal(model.embed.shape, 0.02))
         for module in model.modules():
-            if isinstance(module, nn.Linear):
+            if isinstance(module, AbsentBlock):
+                for shape in _block_draws(cfg):
+                    normal(shape, 1.0)
+            elif isinstance(module, nn.Linear):
                 w = module.weight  # [out, in]: fan_in is dim 1
                 w.copy_(normal(w.shape, w.shape[1] ** -0.5))
             elif isinstance(module, Block) and cfg.num_experts > 0:

@@ -19,7 +19,8 @@ them, or None). :func:`placements` turns it into DTensor placements on a
 Logical axis conventions, as in the JAX package:
   batch, seq, embed, mlp, heads, kv_heads, head_dim (never sharded),
   vocab, expert, layers (the JAX model's stacked layer dim; the port's
-  blocks are not stacked), norm.
+  blocks are not stacked: under "pipeline" a stage holds its own blocks,
+  ``parallel/pipeline.py``), norm.
 """
 
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -132,9 +133,7 @@ STRATEGIES = {
 
 #: what ``trainer/sharded.py`` cannot run yet, and the queue item that
 #: brings it (ROADMAP.md, queue A)
-NOT_PORTED = {
-    "pipeline": "A.1.4 (pipeline parallelism: GPipe and interleaved)",
-}
+NOT_PORTED: Dict[str, str] = {}
 
 # the ZeRO optimizer state: every param logical axis over fsdp
 _ZERO_OPT_RULES = {
@@ -271,18 +270,23 @@ def local_slices(spec: Spec, shape: Sequence[int], mesh: Mesh,
     return out
 
 
-def global_boxes(spec: Spec, shape: Sequence[int], mesh: Mesh
+def global_boxes(spec: Spec, shape: Sequence[int], mesh: Mesh,
+                 where: Optional[Dict[str, int]] = None
                  ) -> List[Tuple[List[Tuple[int, int]], List[int]]]:
-    """Every distinct box of a tensor under ``spec`` over the whole mesh,
-    with the ranks that hold it, in rank order: ``[(box, ranks)]``."""
+    """Every distinct box of a tensor under ``spec`` over the whole mesh
+    (or over the ranks at the coordinates ``where``, axis name -> index:
+    a pipeline stage's), with the ranks that hold it, in rank order:
+    ``[(box, ranks)]``."""
     import numpy as np
 
     names = axis_names(mesh)
     ranks = mesh.mesh.cpu().numpy() if names else np.zeros((), np.int64)
     boxes: Dict[Tuple, List[int]] = {}
     for at in np.ndindex(*ranks.shape):
-        box = tuple(local_slices(spec, shape, mesh,
-                                 coord=dict(zip(names, at))))
+        coord = dict(zip(names, at))
+        if any(coord.get(a, 0) != i for a, i in (where or {}).items()):
+            continue
+        box = tuple(local_slices(spec, shape, mesh, coord=coord))
         boxes.setdefault(box, []).append(int(ranks[at]))
     return sorted(((list(b), sorted(r)) for b, r in boxes.items()),
                   key=lambda br: br[1][0])

@@ -25,10 +25,11 @@ The sharding strategies (``trainer/sharded.py``) move their tensors
 through one collective layer on a mesh axis's group
 (``parallel/mesh.py``), along any tensor dimension: :func:`all_reduce_`,
 :func:`reduce_scatter` and :func:`all_gather`, and for context
-parallelism :func:`ppermute` (a shift around the group's ring) and
+parallelism and pipelining :func:`ppermute` (JAX's ``lax.ppermute``
+over an explicit permutation, or a shift around the group's ring) and
 :func:`all_to_all` (JAX's tiled ``lax.all_to_all``). The last two are
 differentiable: the backward of each is its transpose, the reverse
-shift and the inverse all-to-all. How an op moves CUDA tensors is a
+permutation and the inverse all-to-all. How an op moves CUDA tensors is a
 constant per backend and op, :func:`collective_route`, written from
 ``trainer/collective_probe.py``'s answers on an H100 (torch 2.11): nccl
 takes them by design; gloo takes them for all_reduce,
@@ -39,14 +40,15 @@ tensor through a host buffer. Nothing falls back by catching an
 exception. Every collective of the layer adds its seconds to
 :func:`collective_seconds`, the device synchronized on both sides, as
 the ddp step's ``reduce_seconds``; ppermute and all_to_all add the
-bytes this rank sends to :func:`collective_bytes`.
+bytes this rank sends to :func:`collective_bytes`, and an all-reduce
+given a ``label`` adds its tensor's bytes there under that label.
 """
 
 import datetime
 import os
 import time
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -193,7 +195,8 @@ def init_from_env(timeout_s: int = 300, device=None,
 
 #: seconds spent in the layer's collectives since the last reset
 _COLLECTIVE_S = [0.0]
-#: bytes this rank sent to other ranks by ppermute and all_to_all
+#: bytes this rank sent to other ranks by ppermute and all_to_all, and
+#: the bytes of the labelled all-reduces
 _COLLECTIVE_BYTES = {"ppermute": 0, "all_to_all": 0}
 #: how each op of the layer moves CUDA tensors under gloo ("direct": as
 #: they are; "host": through a host buffer), from collective_probe.py on
@@ -237,11 +240,12 @@ def collective_seconds(reset: bool = False) -> float:
 
 def collective_bytes(reset: bool = False) -> dict:
     """{op: bytes this rank sent to other ranks} of ppermute and
-    all_to_all since the last reset; ``reset`` starts anew."""
+    all_to_all, and {label: bytes} of the labelled all-reduces, since
+    the last reset; ``reset`` starts anew."""
     out = dict(_COLLECTIVE_BYTES)
     if reset:
-        for op in _COLLECTIVE_BYTES:
-            _COLLECTIVE_BYTES[op] = 0
+        _COLLECTIVE_BYTES.clear()
+        _COLLECTIVE_BYTES.update(ppermute=0, all_to_all=0)
     return out
 
 
@@ -260,13 +264,17 @@ class _Timed:
         _COLLECTIVE_S[0] += time.perf_counter() - self.t0
 
 
-def all_reduce_(t: torch.Tensor, group, op=dist.ReduceOp.SUM
-                ) -> torch.Tensor:
-    """``t`` reduced over ``group`` in place (nothing for no group)."""
+def all_reduce_(t: torch.Tensor, group, op=dist.ReduceOp.SUM,
+                label: Optional[str] = None) -> torch.Tensor:
+    """``t`` reduced over ``group`` in place (nothing for no group);
+    ``label`` counts its bytes in :func:`collective_bytes`."""
     if group is None:
         return t
     with _Timed([t]):
         dist.all_reduce(t, op=op, group=group)
+    if label is not None:
+        _COLLECTIVE_BYTES[label] = (_COLLECTIVE_BYTES.get(label, 0)
+                                    + t.numel() * t.element_size())
     return t
 
 
@@ -295,22 +303,62 @@ def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return out.movedim(0, dim).contiguous()
 
 
-def _ppermute(x: torch.Tensor, group, shift: int) -> torch.Tensor:
+#: a permutation of a group's ranks: (source, destination) pairs in
+#: group-rank order, or a shift around the group's ring
+Perm = Union[int, Sequence[Tuple[int, int]]]
+
+
+def _pairs(group, perm: Perm) -> List[Tuple[int, int]]:
+    """``perm`` as (source, destination) pairs, each rank at most once
+    on either side."""
     n = dist.get_world_size(group)
-    if shift % n == 0:
-        return x
+    if isinstance(perm, int):
+        return [] if perm % n == 0 else [(i, (i + perm) % n)
+                                          for i in range(n)]
+    pairs = [(int(a), int(b)) for a, b in perm]
+    srcs, dsts = [a for a, _ in pairs], [b for _, b in pairs]
+    if (len(set(srcs)) < len(srcs) or len(set(dsts)) < len(dsts)
+            or not all(0 <= r < n for r in srcs + dsts)):
+        raise ValueError(f"not a permutation of {n} ranks: {perm}")
+    return pairs
+
+
+def exchange(x: Optional[torch.Tensor], group, pairs, like: torch.Tensor
+             ) -> Optional[torch.Tensor]:
+    """One round of point-to-point sends over ``group``: this rank
+    sends ``x`` where ``pairs`` (group ranks) make it a source, and
+    returns what its source sent, shaped as ``like`` (None when no rank
+    sends to it). A rank in no pair moves nothing."""
     me = dist.get_rank(group)
+    dst = next((b for a, b in pairs if a == me), None)
+    src = next((a for a, b in pairs if b == me), None)
+    if dst is None and src is None:
+        return None
     ranks = dist.get_process_group_ranks(group)
-    host = collective_route(group, "ppermute", x.device.type) == "host"
-    with _Timed([x]):
-        send = (x.cpu() if host else x).contiguous()
-        got = torch.empty_like(send)
-        req = dist.isend(send, ranks[(me + shift) % n], group=group)
-        dist.recv(got, ranks[(me - shift) % n], group=group)
-        req.wait()
-        out = got.to(x.device) if host else got
-    _COLLECTIVE_BYTES["ppermute"] += send.numel() * send.element_size()
-    return out
+    host = collective_route(group, "ppermute", like.device.type) == "host"
+    with _Timed([like]):
+        req = None
+        if dst is not None:
+            send = (x.cpu() if host else x).contiguous()
+            req = dist.isend(send, ranks[dst], group=group)
+            _COLLECTIVE_BYTES["ppermute"] += (send.numel()
+                                              * send.element_size())
+        got = None
+        if src is not None:
+            got = torch.empty(like.shape, dtype=like.dtype,
+                              device="cpu" if host else like.device)
+            dist.recv(got, ranks[src], group=group)
+            got = got.to(like.device) if host else got
+        if req is not None:
+            req.wait()
+    return got
+
+
+def _ppermute(x: torch.Tensor, group, perm: Perm) -> torch.Tensor:
+    got = exchange(x, group, _pairs(group, perm), x)
+    if isinstance(perm, int) and perm % dist.get_world_size(group) == 0:
+        return x
+    return got if got is not None else torch.zeros_like(x)
 
 
 def _all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int,
@@ -336,13 +384,16 @@ def _all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int,
 
 class _PPermute(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, shift):
-        ctx.group, ctx.shift = group, shift
-        return _ppermute(x, group, shift)
+    def forward(ctx, x, group, perm):
+        ctx.group, ctx.perm = group, perm
+        return _ppermute(x, group, perm)
 
     @staticmethod
     def backward(ctx, grad):
-        return _ppermute(grad, ctx.group, -ctx.shift), None, None
+        perm = ctx.perm
+        back = (-perm if isinstance(perm, int)
+                else [(b, a) for a, b in _pairs(ctx.group, perm)])
+        return _ppermute(grad, ctx.group, back), None, None
 
 
 class _AllToAll(torch.autograd.Function):
@@ -358,14 +409,17 @@ class _AllToAll(torch.autograd.Function):
                 None, None)
 
 
-def ppermute(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
-    """JAX's ``lax.ppermute`` over ``group``'s ring: rank i (in group
-    order) sends ``x`` to rank ``i + shift`` and returns what rank ``i -
-    shift`` sent (nothing moves for no group). Differentiable: the
-    gradient goes back by ``-shift``."""
+def ppermute(x: torch.Tensor, group, perm: Perm = 1) -> torch.Tensor:
+    """JAX's ``lax.ppermute`` over ``group``: ``perm`` is JAX's list of
+    (source, destination) pairs of group ranks -- each rank sends ``x``
+    to its destination, if it has one, and returns what its source
+    sent, or zeros where no rank sends to it -- or an int shift around
+    the ring (rank i sends to ``i + shift``). Nothing moves for no
+    group. Differentiable: the gradient goes back by the reverse
+    permutation. Only the ranks named in ``perm`` communicate."""
     if group is None:
         return x
-    return _PPermute.apply(x, group, shift)
+    return _PPermute.apply(x, group, perm)
 
 
 def all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int,

@@ -52,8 +52,18 @@ JAX loss. A third term of the loss function, the MoE auxiliary loss
   tables start at the rank's chunk, attention is ring attention (the
   default of ``make_trainer_for_llama``) or Ulysses, and the gradients
   and the loss's count are summed over ``seq`` as over the batch axes.
+* ``"pipeline"``: tp_fsdp's layout within a stage, and the layers over
+  ``pipe`` (``parallel/pipeline.py``): each rank holds and steps its
+  stage's blocks only (the model's ``pipe_stage``; GPipe, or the
+  interleaved schedule's chunks), and the loss runs the block stack as
+  the stage's pipeline schedule (``pipeline_llama_forward``'s path),
+  embed, final norm and head on every stage. The embedding's gradient,
+  which arises on the first stage, is summed over ``pipe``; the head's
+  and the final norm's are the same on every stage. ``pipe`` is neither
+  a batch axis nor summed over otherwise. A model without a stage view
+  (DLRM), or a mesh without a pipe axis, runs as tp_fsdp.
 
-"pipeline" raises (ROADMAP queue A.1.4). Every collective goes through
+Every collective goes through
 ``trainer/distributed.py``'s layer, on the mesh's groups. A mesh axis
 of the rule table's ``batch`` entry splits the batch's rows and reduces
 the gradients, and a parameter dim sharded over it is gathered before
@@ -80,7 +90,7 @@ AdamW, as the JAX step hands it to optax. ``value_and_grad=`` replaces
 the step's autograd call, as the JAX trainer's does (``optim/wsam.py``).
 """
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import math
@@ -112,21 +122,24 @@ from dlrover_tpu_torch.optim.state import (
     per_param_leaves,
 )
 from dlrover_tpu_torch.parallel import mesh as mesh_lib
+from dlrover_tpu_torch.parallel import pipeline
 from dlrover_tpu_torch.parallel import sharding as shd
 from dlrover_tpu_torch.trainer import distributed as coll
 
 #: the strategies a trainer runs
 STRATEGIES = ("ddp", "rowwise", "zero1", "zero2", "fsdp", "tp", "tp_fsdp",
-              "sequence")
+              "sequence", "pipeline")
 #: the strategies that shard a parameter or its optimizer state
 SHARDED = ("rowwise", "zero1", "zero2", "fsdp", "tp", "tp_fsdp",
-           "sequence")
+           "sequence", "pipeline")
 
 
-def allreduce_sum_(tensors: List[torch.Tensor], group) -> None:
+def allreduce_sum_(tensors: List[torch.Tensor], group,
+                   label: Optional[str] = None) -> None:
     """Sum ``tensors`` over the ranks of ``group`` in place: one
     ``all_reduce`` per dtype on a flattened bucket, so every rank ends
-    with the same bits."""
+    with the same bits; ``label`` counts the bytes
+    (``collective_bytes``)."""
     if not tensors:
         return
     by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
@@ -135,7 +148,7 @@ def allreduce_sum_(tensors: List[torch.Tensor], group) -> None:
     for dtype in sorted(by_dtype, key=str):
         bucket = by_dtype[dtype]
         flat = _flatten_dense_tensors(bucket)
-        coll.all_reduce_(flat, group)
+        coll.all_reduce_(flat, group, label=label)
         for t, r in zip(bucket, _unflatten_dense_tensors(flat, bucket)):
             t.copy_(r)
 
@@ -158,6 +171,8 @@ class _Layout:
     gather: List[Tuple[int, str]]
     scatter: List[Tuple[int, str]]
     reduce_axes: Tuple[str, ...]
+    #: held by one pipeline stage only (a block's parameter)
+    staged: bool = False
 
 
 def _over(spec: shd.Spec, axes) -> List[Tuple[int, str]]:
@@ -214,8 +229,7 @@ class ShardedTrainer:
         strategy a parameter may come as the rank's box of its forward
         (a rowwise table's rows, ``models/dlrm.py``) instead of whole.
       device: where to train; ``None`` is the GPU.
-      strategy: one of :data:`STRATEGIES` (see the module docstring);
-        "pipeline" raises ``NotImplementedError``.
+      strategy: one of :data:`STRATEGIES` (see the module docstring).
       optimizer: a factory from parameters to an optimizer (default
         ``adamw(3e-4)``, the JAX trainer's default); :meth:`train_state`
         carries :func:`adamw`, :func:`adam`, :func:`adagrad` and the
@@ -235,6 +249,10 @@ class ShardedTrainer:
         then reduces as its own. A hook with ``bind(loss, grad_norm)``
         is bound at :meth:`init` to the trainer's loss on the rank's
         rows and to the norm of the data-parallel sum of gradients.
+      pipe_stage: under "pipeline", the rank's stage
+        (``parallel/pipeline.py``'s ``pipe_stage``; None: no pipeline):
+        the model keeps the stage's blocks, and its forward runs the
+        stage's schedule.
     """
 
     def __init__(
@@ -249,6 +267,7 @@ class ShardedTrainer:
         param_axes: Optional[Callable] = None,
         jax_coordinates: Optional[Callable] = None,
         value_and_grad: Optional[Callable] = None,
+        pipe_stage=None,
     ):
         if strategy in shd.NOT_PORTED:
             raise NotImplementedError(
@@ -289,6 +308,7 @@ class ShardedTrainer:
                 device=self.device)
         self.mesh = mesh
         self.rules = shd.get_rules(strategy)
+        self.pipe_stage = pipe_stage if strategy == "pipeline" else None
 
         def rule_axes(logical):
             return tuple(a for a in shd.spec_axes(self.rules.get(logical))
@@ -361,6 +381,9 @@ class ShardedTrainer:
         if model is None:
             model = self._init_fn(seed, self.device)
         self.model = model.to(self.device)
+        if self.pipe_stage is not None:
+            self.model.keep_layers(self.pipe_stage.layers(
+                len(self.model.blocks)))
         if self.sharded:
             self._shard_model()
         else:
@@ -409,10 +432,16 @@ class ShardedTrainer:
                                       "over a model axis unlike the "
                                       "parameter")
         scatter = _over(opt, self.batch_axes)
+        reduce_axes = tuple(a for a in self.sum_axes
+                            if a not in {a for _, a in scatter})
+        staged = False
+        if self.pipe_stage is not None:
+            staged = self._jax_coordinates(name).layer is not None
+            if name in pipeline.FEED_PARAMS:  # its gradient: stage 0's
+                reduce_axes += (mesh_lib.PIPE_AXIS,)
         return _Layout(
             name, tuple(shape), store, opt, _over(store, self.batch_axes),
-            scatter, tuple(a for a in self.sum_axes
-                           if a not in {a for _, a in scatter}))
+            scatter, reduce_axes, staged)
 
     @torch.no_grad()
     def _shard_model(self) -> None:
@@ -472,6 +501,8 @@ class ShardedTrainer:
                     module.tp_group = self._tp_group
         if self.seq_axes and hasattr(model, "seq_shard"):
             model.seq_shard = seq_shard(mesh, self.seq_axes[0])
+        if hasattr(model, "pipe_stage"):
+            model.pipe_stage = self.pipe_stage
         used = {lay.name: _used_part(lay.store, self.batch_axes)
                 for lay in self._layouts}
         for name, module in model.named_modules():
@@ -521,7 +552,10 @@ class ShardedTrainer:
             if lay.reduce_axes:
                 buckets.setdefault(lay.reduce_axes, []).append(g)
         for axes, tensors in buckets.items():
-            allreduce_sum_(tensors, mesh_lib.axes_group(self.mesh, axes))
+            # the pipeline's feed (the embedding), counted apart
+            allreduce_sum_(tensors, mesh_lib.axes_group(self.mesh, axes),
+                           label=("pipeline_feed" if mesh_lib.PIPE_AXIS in axes
+                                  else None))
         return out
 
     def _publish_params(self) -> None:
@@ -583,13 +617,19 @@ class ShardedTrainer:
                      specs: List[shd.Spec]) -> torch.Tensor:
         """The norm of the global tensors whose boxes, laid out by
         ``specs``, the ranks hold: each box's square counted once over
-        the ranks that hold a copy of it, summed over the mesh. On the
-        device, without a host sync."""
+        the ranks that hold a copy of it (a block's, under "pipeline",
+        only its stage's ranks), summed over the mesh. On the device,
+        without a host sync."""
         ranks = math.prod(self.mesh.mesh.shape) if self.sharded else 1
+        stages = (mesh_lib.axis_size(self.mesh, mesh_lib.PIPE_AXIS)
+                  if self.pipe_stage is not None else 1)
+        staged = [lay.staged for lay in self._layouts] or [False] * len(
+            tensors)
         total = torch.zeros((), dtype=torch.float32, device=self.device)
-        for t, spec in zip(tensors, specs):
+        for t, spec, own in zip(tensors, specs, staged):
             parts = math.prod(mesh_lib.axis_size(self.mesh, a)
                               for e in spec for a in shd.spec_axes(e))
+            parts *= stages if own else 1
             total = total + _norm_sq(t) * (parts / ranks)
         if ranks > 1:
             coll.all_reduce_(total, dist.group.WORLD)
@@ -613,6 +653,11 @@ class ShardedTrainer:
         if self._sum_group is not None:
             grads = [g.clone() for g in grads]
             allreduce_sum_(grads, self._sum_group)
+        if self.pipe_stage is not None:  # the feed's, over the stages
+            for i, lay in enumerate(self._layouts):
+                if mesh_lib.PIPE_AXIS in lay.reduce_axes:
+                    grads[i] = coll.all_reduce_(grads[i].clone(),
+                                                self.pipe_stage.group)
         if not self.sharded:
             return self._global_norm(grads, [()] * len(grads))
         return self._global_norm(grads, [
@@ -658,7 +703,7 @@ class ShardedTrainer:
         parameter is a box of its leaf (a layer of a stacked leaf,
         transposed for a matrix), viewed in JAX order; the leaf's domains
         are every rank's boxes of every parameter in it, with the ranks
-        that hold each."""
+        that hold each (a pipeline stage's layers: its ranks alone)."""
         from dlrover_tpu_torch.trainer.ckpt_store import ShardedLeaf
 
         root: Dict = {}
@@ -671,11 +716,22 @@ class ShardedTrainer:
             if sl is None:
                 sl = node[leaf.path[-1]] = ShardedLeaf(
                     tuple(leaf.shape), t.dtype, [], [])
+                if lay.staged:  # every layer's boxes, on its stage's ranks
+                    sl.domains += [
+                        {"idx": replace(leaf, layer=i).index(b),
+                         "replicas": r}
+                        for i in range(leaf.shape[0])
+                        for b, r in shd.global_boxes(
+                            spec, lay.shape, self.mesh,
+                            where={mesh_lib.PIPE_AXIS: self.pipe_stage.owner(
+                                i, leaf.shape[0])})]
             box = shd.local_slices(spec, lay.shape, self.mesh)
             sl.pieces.append((leaf.index(box), leaf.to_jax(t.detach())))
-            sl.domains += [
-                {"idx": leaf.index(b), "replicas": r}
-                for b, r in shd.global_boxes(spec, lay.shape, self.mesh)]
+            if not lay.staged:
+                sl.domains += [
+                    {"idx": leaf.index(b), "replicas": r}
+                    for b, r in shd.global_boxes(spec, lay.shape,
+                                                 self.mesh)]
         return _as_lists(root)
 
     def _jax_state(self) -> Dict[str, Any]:
@@ -992,15 +1048,15 @@ def family_trainer(cfg, loss_fn: Callable, init_fn: Callable,
                    optimizer: Optional[OptimizerFactory] = None,
                    mesh=None, param_axes: Optional[Callable] = None,
                    jax_coordinates: Optional[Callable] = None,
-                   value_and_grad: Optional[Callable] = None
-                   ) -> ShardedTrainer:
+                   value_and_grad: Optional[Callable] = None,
+                   pipe_stage=None) -> ShardedTrainer:
     """A family's trainer (each family's ``make_trainer``), logged with
     its config and size."""
     trainer = ShardedTrainer(
         loss_fn, init_fn, device=device, strategy=strategy,
         optimizer=optimizer, accum_steps=accum_steps, mesh=mesh,
         param_axes=param_axes, jax_coordinates=jax_coordinates,
-        value_and_grad=value_and_grad,
+        value_and_grad=value_and_grad, pipe_stage=pipe_stage,
     )
     logger.info(
         "ShardedTrainer: %s params=%.1fM device=%s mesh=%s strategy=%s "
@@ -1019,6 +1075,8 @@ def make_trainer_for_llama(
     attn_fn=None,
     mesh=None,
     value_and_grad: Optional[Callable] = None,
+    num_microbatches: int = 4,
+    num_chunks: int = 1,
 ) -> ShardedTrainer:
     """Trainer for the Llama model; ``device=None`` is the GPU. The
     default strategy stays "ddp" (the JAX default is "fsdp"), which the
@@ -1026,29 +1084,40 @@ def make_trainer_for_llama(
     default mesh, ``[(data, 1), (fsdp, world)]``; ``value_and_grad`` is
     :class:`ShardedTrainer`'s hook. Under "sequence" without an
     ``attn_fn`` attention is ring attention over the mesh's seq axis,
-    as in the JAX package (``parallel/context_parallel.py``)."""
+    as in the JAX package (``parallel/context_parallel.py``). Under
+    "pipeline" the loss runs ``pipeline_llama_forward``'s pipeline over
+    the mesh's pipe axis with ``num_microbatches`` microbatches and
+    ``num_chunks`` chunks a stage (1: GPipe), and each rank builds only
+    its stage's blocks; without a pipe axis it runs as tp_fsdp."""
     from dlrover_tpu_torch.models import llama
 
+    if mesh is None and strategy in ("sequence", "pipeline"):
+        mesh = mesh_lib.create_mesh(
+            [(mesh_lib.DATA_AXIS, 1), (mesh_lib.FSDP_AXIS, -1)],
+            device=resolve_device(device))
     if attn_fn is None and strategy == "sequence":
         from dlrover_tpu_torch.parallel.context_parallel import (
             make_context_parallel_attn,
         )
 
-        if mesh is None:
-            mesh = mesh_lib.create_mesh(
-                [(mesh_lib.DATA_AXIS, 1), (mesh_lib.FSDP_AXIS, -1)],
-                device=resolve_device(device))
         attn_fn = make_context_parallel_attn(mesh, kind="ring")
+    stage = None
+    if strategy == "pipeline":
+        stage = pipeline.pipe_stage(mesh, num_microbatches, num_chunks)
+    if stage is not None:
+        pipeline.check_schedule(cfg.num_layers, stage)
 
     def loss(model, batch):
         return llama.next_token_sums(model, batch, attn_fn=attn_fn)
 
     def init(seed, dev):
-        return llama.init_params(cfg, seed=seed, device=dev)
+        return llama.init_params(
+            cfg, seed=seed, device=dev,
+            layers=None if stage is None else stage.layers(cfg.num_layers))
 
     return family_trainer(
         cfg, loss, init, llama.param_count(cfg), device=device,
         strategy=strategy, accum_steps=accum_steps, optimizer=optimizer,
         mesh=mesh, param_axes=lambda model: llama.param_axes(cfg),
         jax_coordinates=lambda name: llama.jax_coordinates(cfg, name),
-        value_and_grad=value_and_grad)
+        value_and_grad=value_and_grad, pipe_stage=stage)

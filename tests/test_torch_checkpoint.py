@@ -34,6 +34,8 @@ from dlrover_tpu_torch.trainer.checkpoint import (
 )
 from dlrover_tpu_torch.trainer.sharded import adamw, make_trainer_for_llama
 
+from tests.test_torch_llama import one_thread  # noqa: F401
+
 TOPOLOGY = {"n_processes": 1, "process_index": 0}
 
 

@@ -5,7 +5,11 @@ layer of every sharded leaf, each owned by the one rank that holds it,
 and one domain with both ranks as replicas for every norm; it restores
 bitwise into fresh ranks on the same mesh (the next step's loss equal to
 the bit), whole into one rank, and the JAX loader reads it. A JAX
-``fsdp`` state two virtual JAX processes saved is read by the port.
+``fsdp`` state two virtual JAX processes saved is read by the port. A
+"pipeline" step of the same two ranks on (pipe 2) with two chunks a
+stage (rank 0 holds layers 0 and 2, rank 1 layers 1 and 3) holds each
+layer's box once, on the rank of its stage, and the embedding on both;
+it restores whole into one rank.
 Cases of test_torch_ckpt_world.py's style; the two ranks are
 test_torch_strategies.py's, which run this module's job after their
 cases."""
@@ -28,6 +32,7 @@ from dlrover_tpu_torch.trainer import ckpt_store
 from dlrover_tpu_torch.trainer.checkpoint import FlashCheckpointer
 from dlrover_tpu_torch.trainer.sharded import adamw, make_trainer_for_llama
 
+from tests.test_torch_llama import one_thread  # noqa: F401
 from tests.test_torch_strategies import rank_groups
 
 STEP = 2
@@ -84,6 +89,28 @@ _JOB = textwrap.dedent("""
         reader.close()
 
     ckpt_job(work, env.rank)
+
+    def pipe_ckpt_job(work, rank):
+        from dlrover_tpu_torch.trainer.checkpoint import FlashCheckpointer
+        cfg = llama.llama_tiny(num_layers=4)
+        data = np.load(f"{work}/ckpt_batches.npz")
+        t = make_trainer_for_llama(
+            cfg, device="cpu", strategy="pipeline", num_chunks=2,
+            mesh=create_mesh([("pipe", 2)], device="cpu"),
+            optimizer=adamw(1e-3, b1=0.9, b2=0.95))
+        t.init(seed=0)
+        for i in range(STEP):
+            t.train_step(t.shard_batch(t.microbatch(
+                (data["tokens"][i], data["targets"][i]))))
+        saver = FlashCheckpointer(f"{work}/pipe_store",
+                                  ram_dir=f"{work}/pipe_ram{rank}",
+                                  persist_interval=STEP, commit_timeout=20)
+        saver.save(STEP, {**t.train_state(), "step": STEP, "data": ""})
+        saver.close()
+        torch.save({n: p.clone() for n, p in t.gathered_params().items()},
+                   f"{work}/pipe_ckpt_rank{rank}.pt")
+
+    pipe_ckpt_job(work, env.rank)
 """).replace("STEP", str(STEP))
 
 
@@ -252,3 +279,39 @@ def test_two_rank_step_read_by_jax(two_ranks, tmp_path):
         assert box.tobytes() == want.view(torch.int16 if p.element_size()
                                           == 2 else torch.int32
                                           ).numpy().tobytes(), name
+
+
+def test_pipeline_save_restores_whole_into_one_rank(two_ranks, tmp_path):
+    """The (pipe 2) save of two chunks a stage: each layer's box held and
+    owned by its stage's rank alone, the replicated leaves by both; read
+    whole into a one-rank trainer, every parameter equal to the bit to
+    the stage's that holds it."""
+    work, _ = two_ranks
+    store = ckpt_store.get_store(str(work / "pipe_store"))
+    assert ckpt_store.committed_steps(store) == [STEP]
+    leaves = _leaves(ckpt_store.step_manifest(store, STEP))
+    for tree in ("model", "optimizer/mu", "optimizer/nu"):
+        wq = leaves[f"{tree}/blocks/wq"]
+        assert sorted((d["idx"][0][0], d["replicas"], d["owner"])
+                      for d in wq["domains"]) == [
+            (layer, [layer % 2], layer % 2) for layer in range(4)]
+        assert [d["replicas"] for d in leaves[f"{tree}/embed"]["domains"]
+                ] == [[0, 1]]
+    saved = {}
+    for r in range(2):
+        saved.update(torch.load(work / f"pipe_ckpt_rank{r}.pt"))
+    cfg = llama.llama_tiny(num_layers=4)
+    trainer = make_trainer_for_llama(cfg, device="cpu", strategy="pipeline",
+                                     optimizer=adamw(1e-3, b1=0.9, b2=0.95))
+    trainer.init(seed=5)
+    solo = FlashCheckpointer(str(work / "pipe_store"),
+                             ram_dir=str(tmp_path / "ram-solo"))
+    got, step = solo.restore(
+        target={**trainer.train_state(), "step": 0, "data": ""})
+    solo.close()
+    assert step == STEP
+    trainer.load_train_state(got)
+    gathered = trainer.gathered_params()
+    assert gathered.keys() == saved.keys()
+    for name, p in gathered.items():
+        assert torch.equal(p, saved[name]), name

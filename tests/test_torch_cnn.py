@@ -25,6 +25,7 @@ from dlrover_tpu_torch.models import model_module_for
 from dlrover_tpu_torch.trainer.sharded import adam
 
 from tests.test_torch_gpt import FAST_COMPILE
+from tests.test_torch_llama import one_thread  # noqa: F401
 from tests.test_torch_trainer import _assert_adam_close
 
 RTOL, ATOL = 1e-4, 1e-5

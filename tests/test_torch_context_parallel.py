@@ -50,7 +50,8 @@ from dlrover_tpu_torch.trainer.checkpoint import FlashCheckpointer
 from dlrover_tpu_torch.trainer.sharded import adamw, make_trainer_for_llama
 
 from tests.test_torch_gpt import FAST_COMPILE
-from tests.test_torch_llama import _as_port_layout, _batch
+from tests.test_torch_llama import (  # noqa: F401
+    _as_port_layout, _batch, one_thread)
 from tests.test_torch_strategies import _FastJax, _free_port
 from tests.test_torch_trainer import _assert_adam_close
 

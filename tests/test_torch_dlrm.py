@@ -272,12 +272,18 @@ def test_lookup_and_its_gradient_match_a_dense_gather():
 
 
 def test_strategies():
-    """DLRM gives its logical axes, so every ported strategy builds; the
-    unported ones name their ROADMAP item, and a model without axes
-    cannot take rowwise."""
+    """DLRM gives its logical axes, so every strategy builds -- "pipeline"
+    too, which without a ``layers`` axis runs as tp_fsdp, as JAX's -- and
+    a model without axes cannot take rowwise."""
     cfg = _configs()[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dlrm.make_trainer(cfg, device="cpu", strategy="pipeline")
+    losses = []
+    for strategy in ("pipeline", "tp_fsdp"):
+        t = dlrm.make_trainer(cfg, device="cpu", strategy=strategy)
+        assert t.sharded and t.pipe_stage is None
+        t.init(seed=0)
+        losses.append(t.train_step(t.shard_batch(t.microbatch(
+            _batch(cfg)))).item())
+    assert losses[0] == losses[1]
     assert dlrm.make_trainer(cfg, device="cpu", strategy="fsdp").sharded
     assert make_trainer_for(cfg, device="cpu", strategy="ddp").strategy \
         == "ddp"

@@ -58,6 +58,7 @@ from dlrover_tpu_torch.trainer.sharded import adamw, make_trainer_for_llama
 
 from tests.test_torch_control_plane import PACKAGES, run_repointed
 from tests.test_torch_launcher import launch, step_losses
+from tests.test_torch_llama import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -42,7 +42,7 @@ from dlrover_tpu_torch.trainer.sharded import (
     make_trainer_for_llama,
 )
 
-from tests.test_torch_llama import _as_port_layout
+from tests.test_torch_llama import _as_port_layout, one_thread  # noqa: F401
 from tests.test_torch_trainer import _assert_adam_close, _port_params
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -29,6 +29,8 @@ from dlrover_tpu_torch.models import llama
 from dlrover_tpu_torch.trainer.elastic import ElasticTrainer
 from dlrover_tpu_torch.trainer.sharded import adamw, make_trainer_for_llama
 
+from tests.test_torch_llama import one_thread  # noqa: F401
+
 
 @pytest.fixture()
 def master():

@@ -26,6 +26,8 @@ from dlrover_tpu_torch.trainer.evaluator import (
 )
 from dlrover_tpu_torch.trainer.sharded import make_trainer_for_llama
 
+from tests.test_torch_gpt import FAST_COMPILE
+
 #: the JAX example's held-out seed (``examples/eval_loop.py:37``)
 HELD_OUT_SEED = 9999
 
@@ -115,18 +117,29 @@ def test_llama_held_out_loss_of_a_saved_step_matches_jax(tmp_path):
     is the JAX forward's on the same weights within 1e-5."""
     jcfg = jax_llama.llama_tiny(dtype=np.float32, remat="off")
     cfg = llama.llama_tiny(dtype=torch.float32, remat="off")
-    params = jax_llama.init_params(jax.random.key(0), jcfg)
+    # compiled with XLA's cheap codegen: op by op, the first init, grad,
+    # update and forward take seconds to dispatch
+    def jit(fn):
+        return jax.jit(fn, compiler_options=FAST_COMPILE)
+
+    params = jit(lambda key: jax_llama.init_params(key, jcfg))(
+        jax.random.key(0))
     opt = optax.adamw(1e-3)
     opt_state = opt.init(params)
-    grad_fn = jax.value_and_grad(
-        lambda p, b: jax_llama.next_token_loss(p, b, jcfg))
+
+    @jit
+    def step(params, opt_state, batch):
+        grads = jax.grad(
+            lambda p: jax_llama.next_token_loss(p, batch, jcfg))(params)
+        updates, opt_state = opt.update(grads, opt_state, params)
+        return optax.apply_updates(params, updates), opt_state
+
     for start in (0, 2):
         batch = synth.synth_batch(start, start + 2, 32, jcfg.vocab_size)
-        _, grads = grad_fn(params, batch)
-        updates, opt_state = opt.update(grads, opt_state, params)
-        params = optax.apply_updates(params, updates)
+        params, opt_state = step(params, opt_state, batch)
     held_out = _held_out(cfg)
-    want = float(jax_llama.next_token_loss(params, held_out, jcfg))
+    want = float(jit(lambda p, b: jax_llama.next_token_loss(p, b, jcfg))(
+        params, held_out))
 
     trained = make_trainer_for_llama(cfg, device="cpu")
     trained.init(model=llama.params_from_jax(

@@ -19,6 +19,8 @@ from dlrover_tpu.ops.pallas.flash_attention import _fwd, flash_attention_tpu
 from dlrover_tpu_torch.ops import attention
 from dlrover_tpu_torch.ops.cuda import flash_attention as fa
 
+from tests.test_torch_llama import one_thread  # noqa: F401
+
 BLOCK = 64  # Pallas blocks at seq 128: two q and two k blocks
 
 

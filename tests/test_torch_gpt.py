@@ -33,6 +33,7 @@ from dlrover_tpu_torch.models import (
 from dlrover_tpu_torch.ops.cuda import flash_attention as fa
 from dlrover_tpu_torch.trainer.sharded import adamw
 
+from tests.test_torch_llama import one_thread  # noqa: F401
 from tests.test_torch_trainer import _assert_adam_close
 
 RTOL, ATOL = 1e-4, 1e-5

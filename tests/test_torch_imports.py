@@ -67,7 +67,9 @@ def test_the_multi_process_modules_are_under_the_rule():
 def test_the_mesh_modules_are_under_the_rule():
     ported = {str(p.relative_to(PORT)) for p in FILES if p.is_relative_to(PORT)}
     assert {"parallel/mesh.py", "parallel/sharding.py",
-            "parallel/tensor_parallel.py", "trainer/sharded.py"} <= ported
+            "parallel/tensor_parallel.py", "parallel/context_parallel.py",
+            "parallel/moe.py", "parallel/pipeline.py",
+            "trainer/sharded.py"} <= ported
 
 
 def test_the_optimizers_are_under_the_rule():
@@ -85,48 +87,39 @@ def test_no_jax_imports(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
-def test_importing_every_module_loads_no_jax():
-    modules = [
+def _every_module():
+    return [
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(
             ".__init__")
         for p in sorted(PORT.rglob("*.py"))
     ]
-    code = (
-        "import importlib, sys\n"
-        f"for m in {modules!r}:\n"
-        "    importlib.import_module(m)\n"
-        f"bad = [m for m in sys.modules if any(m == f or m.startswith(f + '.')"
-        f" for f in {FORBIDDEN!r})]\n"
-        "assert not bad, bad\n"
-        "print(len(" f"{modules!r}" "))\n"
-    )
-    out = subprocess.run(
-        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
-        text=True, timeout=120,
-    )
+
+
+def test_importing_every_module_loads_no_jax(interpreters):
+    modules = _every_module()
+    out = interpreters["every_module"]
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) == len(modules) >= 10
 
 
 def _run_smoke(cwd):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    return subprocess.run(
-        [sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True,
-        text=True, timeout=120, env=env,
+    return subprocess.Popen(
+        [sys.executable, "chip_smoke.py"], cwd=cwd, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env,
     )
 
 
-def test_chip_smoke_alone_fails(tmp_path):
-    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
-    out = _run_smoke(tmp_path)
+def test_chip_smoke_alone_fails(interpreters):
+    out = interpreters["smoke_alone"]
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
 
 
-def test_chip_smoke_without_gpu_fails():
-    if torch.cuda.is_available():
+def test_chip_smoke_without_gpu_fails(interpreters):
+    if "smoke" not in interpreters:
         pytest.skip("this machine has a GPU: chip_smoke.py runs here")
-    out = _run_smoke(REPO)
+    out = interpreters["smoke"]
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr
     assert '"ok"' not in out.stdout
@@ -162,10 +155,9 @@ TORCH_FREE = (
 )
 
 
-def test_a_coworker_process_imports_no_torch():
-    """Unpickling and running an ElasticShmDataLoader's producer, as a
-    spawned coworker does, up to its first master call."""
-    code = (
+#: unpickling and running an ElasticShmDataLoader's producer, as a
+#: spawned coworker does, up to its first master call
+_COWORKER = (
         "import pickle, sys\n"
         "from dlrover_tpu_torch.data import elastic_shm, synth\n"
         "from dlrover_tpu_torch.data.shm_dataloader import _producer_main\n"
@@ -176,19 +168,39 @@ def test_a_coworker_process_imports_no_torch():
         "bad = [m for m in sys.modules if m == 'torch' "
         "or m.startswith('torch.')]\n"
         "assert not bad, bad[:5]\n"
-    )
-    out = subprocess.run(
-        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
-        text=True, timeout=120,
-    )
+)
+
+
+def test_a_coworker_process_imports_no_torch(interpreters):
+    out = interpreters["coworker"]
     assert out.returncode == 0, out.stderr
 
 
 @pytest.fixture(scope="module")
-def torch_free_imports():
-    """Each TORCH_FREE module imported alone in an interpreter of its
-    own, all started together: {module: (return code, stderr)}."""
-    procs = {}
+def interpreters(tmp_path_factory):
+    """The module's interpreters, all started together: every port
+    module imported in one ("every_module"), chip_smoke.py in a directory
+    that holds nothing else ("smoke_alone") and without a GPU ("smoke";
+    on a machine without one), a coworker's producer ("coworker"), and
+    each TORCH_FREE module alone; {name: completed process}."""
+    every = (
+        "import importlib, sys\n"
+        f"for m in {_every_module()!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"bad = [m for m in sys.modules if any(m == f or m.startswith(f + '.')"
+        f" for f in {FORBIDDEN!r})]\n"
+        "assert not bad, bad\n"
+        f"print(len({_every_module()!r}))\n"
+    )
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-c", code], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+        for name, code in (("every_module", every), ("coworker", _COWORKER))}
+    alone = tmp_path_factory.mktemp("smoke_alone")
+    shutil.copy(REPO / "chip_smoke.py", alone / "chip_smoke.py")
+    procs["smoke_alone"] = _run_smoke(alone)
+    if not torch.cuda.is_available():
+        procs["smoke"] = _run_smoke(REPO)
     for module in TORCH_FREE:
         code = (
             "import importlib, sys\n"
@@ -199,12 +211,13 @@ def torch_free_imports():
         )
         procs[module] = subprocess.Popen(
             [sys.executable, "-c", code], cwd=REPO,
-            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
         out = {}
-        for module, p in procs.items():
-            stderr = p.communicate(timeout=120)[1]
-            out[module] = (p.returncode, stderr)
+        for name, p in procs.items():
+            stdout, stderr = p.communicate(timeout=120)
+            out[name] = subprocess.CompletedProcess(p.args, p.returncode,
+                                                    stdout, stderr)
         return out
     finally:
         for p in procs.values():
@@ -213,7 +226,6 @@ def torch_free_imports():
 
 
 @pytest.mark.parametrize("module", TORCH_FREE)
-def test_agent_and_master_modules_load_without_torch(module,
-                                                      torch_free_imports):
-    returncode, stderr = torch_free_imports[module]
-    assert returncode == 0, stderr
+def test_agent_and_master_modules_load_without_torch(module, interpreters):
+    out = interpreters[module]
+    assert out.returncode == 0, out.stderr

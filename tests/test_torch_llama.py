@@ -29,6 +29,19 @@ def _configs(remat="off", dtype="float32", **kw):
     return jcfg, tcfg
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """A module's torch work in the test process on one thread (other
+    port test modules import this fixture). Their ops are small, and
+    while other processes load the cores (a test's ranks or workers, a
+    launch) torch's thread pool has taken up to 30 times a step's time
+    on them (llama_tiny: 2.6 s a step against 0.1 s on one thread)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _batch(cfg, b=2, s=64, seed=0, masked=True):
     rng = np.random.default_rng(seed)
     tokens = rng.integers(0, cfg.vocab_size, (b, s), dtype=np.int32)
@@ -69,8 +82,13 @@ def _loss_and_grads(model, batch, attn_fn=None):
 
 
 def _jax_loss_and_grads(params, batch, jcfg, attn_fn=None):
+    from tests.test_torch_gpt import FAST_COMPILE
+
     fn = partial(jax_llama.next_token_loss, cfg=jcfg, attn_fn=attn_fn)
-    loss, grads = jax.value_and_grad(fn)(
+    # compiled with XLA's cheap codegen: op by op, the first grad takes
+    # seconds to dispatch
+    loss, grads = jax.jit(jax.value_and_grad(fn),
+                          compiler_options=FAST_COMPILE)(
         params, tuple(jnp.asarray(x) for x in batch))
     return float(loss), _as_port_layout(grads, jcfg)
 
@@ -195,6 +213,21 @@ def test_init_params_distributions():
     assert w_down.std().item() == pytest.approx(512 ** -0.5, rel=0.05)
     assert torch.all(model.final_norm == 1)
     assert model.final_norm.dtype == torch.float32
+
+
+@pytest.mark.parametrize("make", [llama.llama_tiny, llama.llama_moe_tiny])
+def test_a_stage_holds_the_whole_models_values(make):
+    """A pipeline stage's model (``layers=``) allocates its blocks only,
+    each with the values of the whole model from the same seed: an
+    absent block's draws are made and dropped."""
+    cfg = make(num_layers=4)
+    whole = dict(llama.init_params(cfg, seed=3, device="cpu")
+                 .named_parameters())
+    stage = llama.init_params(cfg, seed=3, device="cpu", layers=[1, 3])
+    got = dict(stage.named_parameters())
+    assert {n.split(".")[1] for n in got if n.startswith("blocks.")} == {
+        "1", "3"}
+    assert all(torch.equal(p, whole[n]) for n, p in got.items())
 
 
 def test_unported_configs_raise():

@@ -39,7 +39,7 @@ from dlrover_tpu_torch.parallel import moe
 
 from dlrover_tpu.trainer import sharded as jax_sharded
 from tests.test_torch_gpt import FAST_COMPILE
-from tests.test_torch_llama import _batch
+from tests.test_torch_llama import _batch, one_thread  # noqa: F401
 from tests.test_torch_strategies import _FastJax, _free_port
 from tests.test_torch_trainer import _assert_adam_close
 

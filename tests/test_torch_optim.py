@@ -51,7 +51,7 @@ from dlrover_tpu_torch.trainer.ckpt_store import ShardedLeaf
 from dlrover_tpu_torch.trainer.sharded import adamw, make_trainer_for_llama
 
 from tests.test_torch_gpt import FAST_COMPILE
-from tests.test_torch_llama import _as_port_layout
+from tests.test_torch_llama import _as_port_layout, one_thread  # noqa: F401
 from tests.test_torch_strategies import _FastJax
 from tests.test_torch_trainer import _assert_adam_close
 

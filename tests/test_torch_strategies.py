@@ -1,8 +1,8 @@
 """Each sharding strategy of the port against the JAX ``ShardedTrainer``
 of the same strategy on a CPU mesh of the same shape: llama_tiny in
-fp32, three adamw steps on the same seeded global batches, the JAX
-starting weights carried over with ``params_from_jax`` and sharded by
-the port. Gloo CPU ranks (spawned once per rank count, every case in
+fp32, three adamw steps on the same seeded global batches from the
+same starting weights (the JAX tree drawn with numpy from a seed,
+carried over with ``params_from_jax`` and sharded by the port). Gloo CPU ranks (spawned once per rank count, every case in
 the same processes) hold the losses and the gathered parameters to the
 tolerances of test_torch_trainer.py::_assert_adam_close, every rank
 ends with the same gathered parameters, and each rank keeps the bytes
@@ -13,21 +13,33 @@ Cases: zero1, zero2 (also at two microbatches), fsdp and tp at two
 ranks, tp_fsdp at four (fsdp 2 x tensor 2), all under adamw; and zero1
 under the guarded ``bf16_adamw`` (fp32 masters and its moments the
 ZeRO slices, the guard's norm the global one) against JAX's
-``bf16_adamw``. The two ranks then run
-test_torch_ckpt_sharded.py's fsdp save and restore and
-test_torch_rowwise.py's rowwise cases (``rank_groups`` starts the groups
-once for the three modules)."""
+``bf16_adamw``. "pipeline" on (pipe 2) with GPipe and with two chunks a
+stage, and on (pipe 2, tensor 2) at four ranks, on llama_tiny cut to
+4 layers: each rank holds its stage's blocks only, the replicated
+leaves (embed, final norm, head) are equal to the bit on both stages,
+and the gathered blocks of the stages together are held to the JAX
+trainer's. An MoE "pipeline" case (llama_moe_tiny on (pipe 2)) gates
+per pipeline microbatch, as ``pipeline_llama_forward`` does, where the
+JAX trainer gates on the whole batch: it is held against a JAX
+``ShardedTrainer`` whose loss is ``pipeline_llama_forward(...,
+return_aux=True)``'s logits' cross entropy plus the aux. The two ranks
+then run test_torch_ckpt_sharded.py's fsdp and pipeline saves and
+restores and test_torch_rowwise.py's rowwise cases (``rank_groups``
+starts the groups once for the three modules)."""
 
+import contextlib
 import functools
+import multiprocessing
 import os
 import socket
 import subprocess
 import sys
 import textwrap
 import types
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
@@ -36,6 +48,7 @@ from jax.sharding import Mesh as JaxMesh
 
 from dlrover_tpu.models import llama as jax_llama
 from dlrover_tpu.optim import bf16 as jax_bf16
+from dlrover_tpu.parallel import pipeline as jax_pipeline
 from dlrover_tpu.trainer import sharded as jax_sharded
 from dlrover_tpu.trainer.sharded import (
     make_trainer_for_llama as jax_make_trainer,
@@ -44,26 +57,38 @@ from dlrover_tpu_torch.models import llama
 
 from tests.test_torch_ddp import _as_jax_microbatches
 from tests.test_torch_gpt import FAST_COMPILE
-from tests.test_torch_llama import _as_port_layout, _batch
+from tests.test_torch_llama import _batch
 from tests.test_torch_trainer import _assert_adam_close
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LR = 1e-3
 STEPS = 3
-#: (strategy, mesh, accum, optimizer) by rank count
+#: (strategy, mesh, accum, optimizer[, model and schedule]) by rank
+#: count; the last, as (key, value) pairs: "layers" cuts llama_tiny to
+#: that depth, "moe" takes llama_moe_tiny, "num_microbatches" and
+#: "num_chunks" set the pipeline's schedule
 CASES = {
     2: [("zero1", (("fsdp", 2),), 1, "adamw"),
         ("zero2", (("fsdp", 2),), 1, "adamw"),
         ("zero2", (("fsdp", 2),), 2, "adamw"),
         ("fsdp", (("fsdp", 2),), 1, "adamw"),
         ("tp", (("tensor", 2),), 1, "adamw"),
-        ("zero1", (("fsdp", 2),), 1, "bf16_adamw")],
-    4: [("tp_fsdp", (("fsdp", 2), ("tensor", 2)), 1, "adamw")],
+        ("zero1", (("fsdp", 2),), 1, "bf16_adamw"),
+        ("pipeline", (("pipe", 2),), 1, "adamw", (("layers", 4),)),
+        ("pipeline", (("pipe", 2),), 1, "adamw",
+         (("layers", 4), ("num_chunks", 2))),
+        ("pipeline", (("pipe", 2),), 1, "adamw",
+         (("moe", True), ("num_microbatches", 2)))],
+    4: [("tp_fsdp", (("fsdp", 2), ("tensor", 2)), 1, "adamw"),
+        ("pipeline", (("pipe", 2), ("tensor", 2)), 1, "adamw",
+         (("layers", 4),))],
 }
 #: optimizer state bytes per fp32 parameter byte: two fp32 moments;
 #: an fp32 master, a bf16 mu and an fp32 nu
 STATE_PER_BYTE = {"adamw": 2, "bf16_adamw": 2.5}
 ALL = [(n, c) for n in CASES for c in CASES[n]]
+#: worker processes of the JAX side
+JAX_WORKERS = 6
 
 _RANK = textwrap.dedent("""
     import sys, numpy as np, torch
@@ -77,15 +102,20 @@ _RANK = textwrap.dedent("""
     work, cases = sys.argv[1], eval(sys.argv[2])
     torch.set_num_threads(1)  # the ranks and the JAX runs share the cores
     env = init_from_env(timeout_s=60, device="cpu")
-    cfg = llama.llama_tiny(dtype=torch.float32, remat="off")
     data = np.load(f"{work}/batches.npz")
     out = {}
-    for i, (strategy, spec, accum, opt) in enumerate(cases):
+    for i, (strategy, spec, accum, opt, *kw) in enumerate(cases):
+        kw = dict(kw[0]) if kw else {}
+        cfg = (llama.llama_moe_tiny if kw.get("moe") else llama.llama_tiny)(
+            dtype=torch.float32, remat="off",
+            num_layers=kw.get("layers", 2))
         model = llama.Llama(cfg, device="cpu")
         model.load_state_dict(torch.load(f"{work}/start{i}.pt"))
         trainer = make_trainer_for_llama(
             cfg, device="cpu", strategy=strategy, accum_steps=accum,
             mesh=create_mesh(list(spec), device="cpu"),
+            num_microbatches=kw.get("num_microbatches", 4),
+            num_chunks=kw.get("num_chunks", 1),
             optimizer={"adamw": adamw, "bf16_adamw": lambda *a, **k:
                        bf16_adamw(*a, guard_nonfinite=True, **k)}[opt](
                 1e-3, b1=0.9, b2=0.95))
@@ -114,6 +144,15 @@ def _dp(spec) -> int:
     return int(np.prod([k for a, k in spec if a in ("data", "fsdp")]))
 
 
+def _cfg(kw, jax_side=False):
+    """A case's llama_tiny (or llama_moe_tiny), fp32, remat off."""
+    kw = dict(kw)
+    lib, dtype = (jax_llama, np.float32) if jax_side else (llama,
+                                                          torch.float32)
+    make = lib.llama_moe_tiny if kw.get("moe") else lib.llama_tiny
+    return make(dtype=dtype, remat="off", num_layers=kw.get("layers", 2))
+
+
 def _batches(spec, accum):
     """Each step's global batch in the order the ranks' microbatches make
     the JAX step's (for the port), and as the JAX step takes it."""
@@ -140,21 +179,88 @@ class _FastJax(types.ModuleType):
         return getattr(jax, name)
 
 
-def _jax_trainer(strategy, spec, accum, opt):
-    """The JAX trainer of a case and its initial (params, opt_state)."""
-    jcfg = jax_llama.llama_tiny(dtype=np.float32, remat="off")
+def _pipelined_moe_trainer(jcfg, mesh, optimizer, num_microbatches):
+    """A JAX trainer under "pipeline" whose loss runs
+    ``pipeline_llama_forward`` (its MoE gating per pipeline microbatch):
+    the cross entropy of its logits plus its aux."""
+    def loss(params, batch):
+        tokens, targets = batch
+        logits, aux = jax_pipeline.pipeline_llama_forward(
+            params, tokens, jcfg, mesh, num_microbatches=num_microbatches,
+            return_aux=True)
+        nll, cnt = jax_llama._masked_nll(logits, targets)
+        return nll / jnp.maximum(cnt, 1.0) + aux
+
+    return jax_sharded.ShardedTrainer(
+        loss, lambda rng: jax_llama.init_params(rng, jcfg),
+        jax_llama.param_axes(jcfg), mesh, strategy="pipeline",
+        optimizer=optimizer)
+
+
+def _np_start(jcfg, seed=0):
+    """Starting weights of the JAX parameter tree of ``jcfg``, drawn with
+    numpy from ``seed``: norms 1, the embedding N(0, 0.02), the other
+    matrices N(0, 1/fan_in)."""
+    shapes = jax.eval_shape(lambda key: jax_llama.init_params(key, jcfg),
+                            jax.random.key(0))
+    rng = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        name = jax.tree_util.keystr(path)
+        if "norm" in name:
+            return np.ones(leaf.shape, np.float32)
+        std = 0.02 if name == "['embed']" else leaf.shape[-2] ** -0.5
+        return (rng.standard_normal(leaf.shape) * std).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+def _jax_trainer(strategy, spec, accum, opt, kw=None):
+    """The JAX trainer of a case, its step built."""
+    kw = dict(kw or ())
+    jcfg = _cfg(kw, jax_side=True)
     n = int(np.prod([k for _, k in spec]))
     mesh = JaxMesh(np.asarray(jax.devices()[:n]).reshape(
         [k for _, k in spec]), tuple(a for a, _ in spec))
-    jtrainer = jax_make_trainer(jcfg, mesh, strategy=strategy,
-                                accum_steps=accum,
-                                optimizer=_JAX_OPTIMIZERS[opt](
-                                    LR, b1=0.9, b2=0.95))
+    optimizer = _JAX_OPTIMIZERS[opt](LR, b1=0.9, b2=0.95)
+    if kw.get("moe"):
+        jtrainer = _pipelined_moe_trainer(jcfg, mesh, optimizer,
+                                          kw["num_microbatches"])
+    else:
+        jtrainer = jax_make_trainer(jcfg, mesh, strategy=strategy,
+                                    accum_steps=accum, optimizer=optimizer)
     _ = jtrainer.train_step  # builds its jit now, with the cheap codegen
-    return jtrainer, jtrainer.init(jax.random.key(0))
+    return jtrainer
 
 
-def _jax_steps(spec, accum, jtrainer, state):
+@contextlib.contextmanager
+def _cheap_codegen():
+    """The JAX trainers' ``jit`` compiles with XLA's cheap codegen
+    (test_torch_gpt.py's FAST_COMPILE) while the block runs."""
+    fast = _FastJax("jax")
+    fast.jit = functools.partial(jax.jit, compiler_options=FAST_COMPILE)
+    saved, jax_sharded.jax = jax_sharded.jax, fast
+    try:
+        yield
+    finally:
+        jax_sharded.jax = saved
+
+
+def _jax_run(case, start):
+    """The JAX side of ``case`` (run in a worker process, whose JAX
+    trainer compiles with XLA's cheap codegen): the trainer from the
+    numpy weights ``start``, three steps: (losses, final params in the
+    port's layout)."""
+    with _cheap_codegen():
+        jtrainer = _jax_trainer(*case)
+    params = jax.device_put(start, jtrainer.param_shardings)
+    opt_state = jax.jit(jtrainer.optimizer.init,
+                        out_shardings=jtrainer.opt_shardings)(params)
+    return _jax_steps(case[1], case[2], jtrainer, (params, opt_state),
+                      *case[4:])
+
+
+def _jax_steps(spec, accum, jtrainer, state, kw=None):
     params, opt_state = state
     losses = []
     for batch in _batches(spec, accum)[1]:
@@ -162,9 +268,24 @@ def _jax_steps(spec, accum, jtrainer, state):
             params, opt_state,
             jtrainer.shard_batch(jtrainer.microbatch(batch)))
         losses.append(float(loss))
-    return losses, _as_port_layout(
-        jax.tree.map(np.asarray, params),
-        jax_llama.llama_tiny(dtype=np.float32, remat="off"))
+    return losses, _port_view(jax.tree.map(np.asarray, params),
+                              _cfg(kw or ()))
+
+
+def _port_view(tree, cfg):
+    """{port parameter name: its box of the JAX tree, in the port's
+    layout} (``jax_coordinates``)."""
+    out = {}
+    for name in llama.param_axes(cfg):
+        leaf = llama.jax_coordinates(cfg, name)
+        arr = tree
+        for k in leaf.path:
+            arr = arr[k]
+        arr = np.asarray(arr)
+        if leaf.layer is not None:
+            arr = arr[leaf.layer:leaf.layer + 1]
+        out[name] = leaf.from_jax(torch.from_numpy(np.array(arr))).numpy()
+    return out
 
 
 def _spawn(tmp, n, cases, job=""):
@@ -182,33 +303,43 @@ def _spawn(tmp, n, cases, job=""):
         for rank in range(n)]
 
 
+def _jax_case(case):
+    """The JAX side of a case: the JAX trainer under "pipeline" runs no
+    schedule, so the port's GPipe and interleaved cases share one."""
+    if len(case) < 5:
+        return case
+    return case[:4] + (tuple((k, v) for k, v in case[4]
+                             if k != "num_chunks"),)
+
+
 def _start(tmp_path_factory):
-    """Each case's JAX trainer and initial state (built on threads: their
-    compiles overlap), its starting weights in the port's layout and its
-    batches written for the ranks, the ranks started, and the JAX steps
-    started on threads. The two ranks also run
+    """Each case's starting weights (numpy, from a seed) in the port's
+    layout and its batches written for the ranks, the ranks started, and
+    the JAX cases started in JAX_WORKERS worker processes beside them
+    (tracing holds one process's interpreter; XLA's compiles of several
+    processes overlap). The two ranks also run
     test_torch_ckpt_sharded.py's and test_torch_rowwise.py's jobs after
     their cases."""
     from tests import test_torch_ckpt_sharded as ckpt
     from tests import test_torch_rowwise as rowwise
 
-    cfg = llama.llama_tiny(dtype=torch.float32, remat="off")
-    fast = _FastJax("jax")
-    fast.jit = functools.partial(jax.jit, compiler_options=FAST_COMPILE)
-    pool = ThreadPoolExecutor(len(ALL))
-    saved, jax_sharded.jax = jax_sharded.jax, fast
-    try:
-        built = dict(zip(ALL, pool.map(lambda nc: _jax_trainer(*nc[1]),
-                                       ALL)))
-    finally:
-        jax_sharded.jax = saved
+    jax_cases = list(dict.fromkeys(_jax_case(c) for _, c in ALL))
+    start_of = {c: _np_start(_cfg(c[4] if len(c) > 4 else (),
+                                  jax_side=True)) for c in jax_cases}
+    pool = ProcessPoolExecutor(
+        JAX_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    # the longest first: the pipelined MoE step's compile
+    stepped = {c: pool.submit(_jax_run, c, start_of[c])
+               for c in sorted(jax_cases, key=lambda c: "moe" not in str(c))}
+    pool.shutdown(wait=False)
     starts, procs, dirs = {}, {}, {}
     for n, cases in CASES.items():
         tmp = dirs[n] = tmp_path_factory.mktemp(f"strategies{n}")
         arrays = {}
-        for i, (_, spec, accum, _) in enumerate(cases):
-            start = jax.tree.map(np.array, built[n, cases[i]][1][0])
-            model = llama.params_from_jax(start, cfg, device="cpu")
+        for i, (_, spec, accum, _, *kw) in enumerate(cases):
+            start = start_of[_jax_case(cases[i])]
+            model = llama.params_from_jax(start, _cfg(kw[0] if kw else ()),
+                                          device="cpu")
             torch.save(model.state_dict(), tmp / f"start{i}.pt")
             port = _batches(spec, accum)[0]
             for j, leaf in enumerate(("tokens", "targets")):
@@ -221,9 +352,6 @@ def _start(tmp_path_factory):
         job = (ckpt.rank_job(tmp) + rowwise.rank_job(tmp) if n == 2
                else "")
         procs[n] = _spawn(tmp, n, cases, job)
-    stepped = {nc: pool.submit(_jax_steps, nc[1][1], nc[1][2], *built[nc])
-               for nc in ALL}
-    pool.shutdown(wait=False)
     return {"stepped": stepped, "starts": starts, "procs": procs,
             "dirs": dirs}
 
@@ -239,7 +367,8 @@ def _finish(stepped, starts, procs, dirs):
             ranks = [torch.load(dirs[n] / f"rank{r}.pt") for r in range(n)]
             for i, case in enumerate(CASES[n]):
                 out[n, case] = (starts[n, case],
-                                *stepped[n, case].result(timeout=120),
+                                *stepped[_jax_case(case)].result(
+                                    timeout=120),
                                 [r[i] for r in ranks])
         return out
     finally:
@@ -270,17 +399,29 @@ def runs(tmp_path_factory):
 
 @pytest.mark.parametrize("n,case", ALL, ids=[
     f"{c[0]}-accum{c[2]}-{'x'.join(f'{a}{k}' for a, k in c[1])}"
-    + ("" if c[3] == "adamw" else f"-{c[3]}") for _, c in ALL])
+    + ("" if c[3] == "adamw" else f"-{c[3]}")
+    + "".join(f"-{k}{v}" for k, v in (c[4] if len(c) > 4 else ()))
+    for _, c in ALL])
 def test_strategy_matches_the_jax_sharded_trainer(runs, n, case):
     start, jax_losses, want, ranks = runs[n, case]
     for run in ranks:
         assert run["losses"][0] == pytest.approx(jax_losses[0], rel=1e-5)
         assert run["losses"] == pytest.approx(jax_losses, rel=1e-4)
-    got = {k: v.numpy() for k, v in ranks[0]["params"].items()}
+    # the ranks' gathered parameters together (each pipeline stage
+    # gathers its own blocks)
+    whole = {}
+    for run in ranks:
+        for k, v in run["params"].items():
+            whole.setdefault(k, v)
+    got = {k: v.numpy() for k, v in whole.items()}
     _assert_adam_close(got, want, start, lr=LR)
-    for run in ranks[1:]:  # every rank gathers the same parameters
-        assert all(torch.equal(run["params"][k], ranks[0]["params"][k])
-                   for k in got)
+    for run in ranks:  # every rank gathers the same parameters
+        assert all(torch.equal(v, whole[k]) for k, v in run["params"].items())
+    if case[0] == "pipeline":  # a block on its stage's ranks only
+        for k in got:
+            held = [k in run["params"] for run in ranks]
+            assert all(held) if not k.startswith("blocks.") else (
+                sum(held) == len(ranks) // 2), k
 
 
 def test_bytes_per_rank_follow_the_layout(runs):
@@ -288,10 +429,26 @@ def test_bytes_per_rank_follow_the_layout(runs):
     stay whole under fsdp); the optimizer state halves under zero1,
     zero2 and fsdp; tp_fsdp at 2 x 2 keeps a quarter. bf16_adamw keeps
     10 bytes a parameter where AdamW keeps 8."""
-    cfg = llama.llama_tiny(dtype=torch.float32)
-    whole = 4 * llama.param_count(cfg)
-    norms = 4 * cfg.hidden_size * (2 * cfg.num_layers + 1)
-    for (n, (strategy, _, _, opt_name)), (*_, ranks) in runs.items():
+    for (n, (strategy, spec, _, opt_name, *kw)), (*_, ranks) in \
+            runs.items():
+        cfg = _cfg(kw[0] if kw else ())
+        whole = 4 * llama.param_count(cfg)
+        norms = 4 * cfg.hidden_size * (2 * cfg.num_layers + 1)
+        if strategy == "pipeline":
+            # a stage's blocks (half), embed, final norm and head whole;
+            # under tensor 2 every matrix's half
+            layer = (whole - 4 * (2 * cfg.vocab_size + 1) * cfg.hidden_size
+                     ) // cfg.num_layers
+            tp = dict(spec).get("tensor", 1)
+            layer_norms = 4 * 2 * cfg.hidden_size
+            held = (cfg.num_layers // 2 * (
+                (layer - layer_norms) // tp + layer_norms)
+                + 4 * 2 * cfg.vocab_size * cfg.hidden_size // tp
+                + 4 * cfg.hidden_size)
+            for run in ranks:
+                assert run["bytes"]["params"] == held
+                assert run["bytes"]["optimizer"] == 2 * held
+            continue
         for run in ranks:
             params, opt = run["bytes"]["params"], run["bytes"]["optimizer"]
             sharded = {"zero1": 1, "zero2": 1, "fsdp": 2, "tp": 2,

@@ -24,7 +24,8 @@ from dlrover_tpu_torch.trainer.sharded import (
     make_trainer_for_llama,
 )
 
-from tests.test_torch_llama import _as_port_layout, _batch
+from tests.test_torch_llama import (  # noqa: F401
+    _as_port_layout, _batch, one_thread)
 
 
 def _batches(cfg, n, b=4, s=32, masked=True):
@@ -300,11 +301,21 @@ def test_default_device_is_the_gpu():
         llama.init_params(cfg)
 
 
-def test_unported_strategy_raises():
-    for strategy, item in (("pipeline", "A.1.4"),):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-            make_trainer_for_llama(llama.llama_tiny(), device="cpu",
-                                   strategy=strategy)
+def test_pipeline_without_a_pipe_axis_runs_as_tp_fsdp():
+    """Under "pipeline" on a mesh without a pipe axis (the JAX example's)
+    the Llama trainer holds every block and steps as tp_fsdp does."""
+    cfg = llama.llama_tiny(dtype=torch.float32, remat="off")
+    tokens = np.random.default_rng(3).integers(0, 256, (2, 17))
+    losses, params = [], []
+    for strategy in ("pipeline", "tp_fsdp"):
+        t = make_trainer_for_llama(cfg, device="cpu", strategy=strategy)
+        assert t.pipe_stage is None and t.sharded
+        t.init(seed=0)
+        losses.append(t.train_step(t.shard_batch(t.microbatch(
+            (tokens[:, :-1], tokens[:, 1:])))).item())
+        params.append(t.gathered_params())
+    assert losses[0] == losses[1]
+    assert all(torch.equal(params[0][k], params[1][k]) for k in params[1])
 
 
 def test_make_trainer_for_dispatches_llama():
