@@ -15,9 +15,10 @@ Phases, each of which raises on failure:
    (the ring's chunk of 8,192 tokens, causal and non-causal; Ulysses'
    16,384 tokens at 16 over 2 heads: their plain versions a kv-head
    group at a time), at phase "pipeline"'s microbatch (one row of 2,048
-   tokens) and at one small non-causal shape, element by
+   tokens), at gpt2_small's heads over two tensor ranks (phase "auto")
+   and at one small non-causal shape, element by
    element; planted faults that the same rule must reject (at the train
-   steps' and the tp shape); each kernel launched twice at every timed
+   steps' and the tp shapes); each kernel launched twice at every timed
    shape, which must give the same bits; times there beside the
    kernel's bound and PyTorch's own ``scaled_dot_product_attention`` as
    a yardstick;
@@ -228,11 +229,34 @@ Phases, each of which raises on failure:
     fail. Printed per rank: step and collective ms, bytes by op, the
     measured and predicted bubble, launches per step by shape, peak
     memory;
-18. the wall seconds of each phase, then the kernels line (one JSON
+18. auto: the strategy search (``auto/``). One process: llama_1b
+    uncut at batch 3 x 2048 through ``auto_accelerate(dryrun_top_k=2)``
+    -- every candidate's report (the analytic time and memory, the
+    dryrun's ms and its peak ``max_memory_allocated``), no dryrun error
+    but out of memory or an indivisible split -- its winner's 3 steps
+    bitwise equal to ``make_trainer_for_llama``'s with the same strategy
+    and seed, their launches (22 a step of each kernel, the forward
+    twice where remat recomputes attention), ``dryrun_abstract``'s
+    argument, temp and output bytes, and how the analytic estimates
+    fare on the card; one step at batch 1 x ``SINGLE_CHIP_MAX_SEQ``
+    under 0.9 x the card's memory. Then two gloo ranks on ``cuda:0``:
+    ``auto_accelerate(global_batch=6, seq_len=2048, bo_iters=1)`` over
+    llama_1b cut to ``MESH_LAYERS`` -- both ranks the same winner and
+    the same agreed seconds -- its winner, a planned table (the planner
+    under three quarters of what the replicated plan needs), gpt2_xl cut
+    to 4 layers under fsdp on (fsdp 2), gpt2_small uncut under tp on
+    (tensor 2) at its 50,257 vocab (its rows split 25,129 and 25,128)
+    and the MNIST CNN under fsdp, 2 steps each against the one-process
+    step under "mesh"'s gates, and gpt2_small's 12 launches of each
+    kernel a rank a step at its tp shape (B=8, S=1024, H=KVH=6, D=64),
+    which phase 3 checks too;
+19. the wall seconds of each phase, then the kernels line (one JSON
     object; each kernel at both train steps' shapes, at the tp shape of
-    "mesh", with ``mesh_launches``, at the shapes of "sequence" and at
-    the microbatch shape of "pipeline"), then the card's name and power
-    limit, then the device line, last.
+    "mesh", with ``mesh_launches``, at the shapes of "sequence", at
+    the microbatch shape of "pipeline" and at gpt2_small's tp shape of
+    "auto"; the Llama step's rows carry ``auto_launches``, the winner's
+    of "auto"), then the card's name and power limit, then the device
+    line, last.
 
 Exits non-zero, and prints no result, when there is no CUDA device or
 when the package is not beside this file.
@@ -687,9 +711,10 @@ def phase_kernels():
     """{shape name: check_kernels' dicts} at the Llama-1.1B step's shape,
     at its heads split over 2 tensor ranks (phase "mesh"'s tp and
     tp_fsdp), at GPT-2 XL's, at phase "sequence"'s -- the ring's chunk
-    causal and non-causal, Ulysses' whole sequence -- and at phase
-    "pipeline"'s microbatch, all timed (no planted faults at the last
-    four)."""
+    causal and non-causal, Ulysses' whole sequence -- at phase
+    "pipeline"'s microbatch and at gpt2_small's heads over two tensor
+    ranks (phase "auto"), all timed (planted faults at the two train
+    steps' shapes and the two tp shapes)."""
     import torch
 
     # the plain versions' fp32 products must not drop to TF32
@@ -700,11 +725,13 @@ def phase_kernels():
     for name, shape in (("llama_1b", SLICE), ("llama_1b_tp", SLICE_TP),
                         ("gpt2_xl", GPT), ("ring_chunk", RING_CHUNK),
                         ("ring_chunk_full", RING_FULL),
-                        ("ulysses", ULYSSES), ("pipeline_mb", PIPE_MB)):
+                        ("ulysses", ULYSSES), ("pipeline_mb", PIPE_MB),
+                        ("gpt2_small_tp", GPT_TP)):
         t0 = time.perf_counter()
         results[name] = check_kernels(
             shape, timed=True,
-            planted=name in ("llama_1b", "llama_1b_tp", "gpt2_xl"))
+            planted=name in ("llama_1b", "llama_1b_tp", "gpt2_xl",
+                             "gpt2_small_tp"))
         torch.cuda.empty_cache()
         emit({"phase": "kernels", "shape": shape,
               "seconds": time.perf_counter() - t0})
@@ -2420,7 +2447,7 @@ def phase_world() -> dict:
     journal = os.path.join(tmp, "journal.jsonl")
     ckpt_dir = os.path.join(tmp, "ckpt")
     ram_dirs = [os.path.join(tmp, f"ram{r}") for r in range(2)]
-    outs, lost = [[], []], []
+    outs, lost, verdicts = [[], []], [], []
     t_phase = time.time()
     master = None
     try:
@@ -2451,6 +2478,16 @@ def phase_world() -> dict:
         def read(rank):
             for line in procs[rank].stdout:
                 outs[rank].append(line)
+                if rank == 0 and not verdicts and line.startswith("step "):
+                    # the agents train only once the pre-flight check
+                    # passed; ask for its verdict now, for the master
+                    # exits on its own soon after the launchers do
+                    try:
+                        verdicts.append(tuple(MasterClient(
+                            master_addr, node_id=0, node_type="worker",
+                            reconnect_timeout=30.0).network_check_success()))
+                    except Exception as e:  # noqa: BLE001 - reported below
+                        verdicts.append(repr(e))
                 if rank == 1 and line.startswith("INJECTED CRASH"):
                     # a replaced host comes back without its tmpfs
                     shutil.rmtree(ram_dirs[1], ignore_errors=True)
@@ -2470,8 +2507,7 @@ def phase_world() -> dict:
         for t in readers:
             t.join(timeout=30)
         world_s = time.time() - t_phase
-        verdict = MasterClient(master_addr, node_id=0,
-                               node_type="worker").network_check_success()
+        verdict = verdicts[0] if verdicts else "not asked: no step on rank 0"
         store = ckpt_store.get_store(os.path.join(ckpt_dir, "persist"))
         committed = ckpt_store.committed_steps(store)
         man8 = (ckpt_store.step_manifest(store, 2 * WORLD_SAVE)
@@ -2500,7 +2536,7 @@ def phase_world() -> dict:
     if (sorted((d["node_rank"], d["round"]) for d in rounds)
             != [(0, 0), (0, 1), (1, 0), (1, 1)]
             or not all(d["normal"] and d["success"] for d in rounds)
-            or tuple(verdict) != (True, "")):
+            or verdict != (True, "")):
         failed.append(f"network check {rounds}, verdict {verdict}")
     # the ddp step: 4 launches of each kernel per rank per step, every
     # step's loss equal on both ranks, steps 9-10 bitwise on replay
@@ -4463,6 +4499,485 @@ def phase_pipeline() -> dict:
     return got["readings"]
 
 
+
+# ---------------------------------------------------------------------------
+# phase "auto": the strategy search
+
+#: the one-process search: llama_1b uncut at the slice's batch, the top 2
+#: dryrun, then AUTO_STEPS steps of the winner
+AUTO_STEPS = 3
+#: the two-rank search: llama_1b at MESH_LAYERS, a global batch of
+#: AUTO_MESH_B x 2048, BO with one iteration; each trained layout
+#: AUTO_MESH_STEPS steps against the one-process step
+AUTO_MESH_B = 6
+AUTO_MESH_STEPS = 2
+#: the planner's budget for the two-rank planned table, as a share of
+#: what the replicated plan needs: under it, so the plan must shard a
+#: parameter axis
+AUTO_PLAN_SHARE = 0.75
+#: gpt2_xl cut to 4 layers under fsdp, gpt2_small uncut under tp, the
+#: CNN under fsdp: their global batches
+AUTO_GPT_B, AUTO_GPT_S, AUTO_CNN_B = 8, 1024, 64
+GPT_XL_LAYERS = 4
+#: gpt2_small's heads over two tensor ranks: the kernels' shape under tp
+GPT_TP = dict(b=AUTO_GPT_B, s=AUTO_GPT_S, h=6, kvh=6, d=64, causal=True)
+
+
+def _auto_report(r, peak=None) -> dict:
+    return {"strategy": r.strategy.to_json(), "fits": r.fits,
+            "est_ms": r.est_step_seconds * 1e3,
+            "est_memory_bytes": r.memory_bytes,
+            "measured_ms": (None if r.measured_step_seconds is None
+                            else r.measured_step_seconds * 1e3),
+            "max_memory_allocated_bytes": peak, "error": r.error}
+
+
+def _unexpected_errors(reports) -> list:
+    """Reports whose dryrun failed other than by the card's own limits
+    (``accelerate.EXPECTED_FAILURES``): a kernel that fails to build or
+    launch cannot hide behind the search."""
+    from dlrover_tpu_torch.auto.accelerate import EXPECTED_FAILURES
+
+    return [f"{r.strategy}: {r.error}" for r in reports
+            if r.error and not any(e in r.error for e in EXPECTED_FAILURES)]
+
+
+def _auto_cfg(device=None):
+    """llama_1b uncut; on the CPU (a dry run of the phase's logic)
+    llama_tiny."""
+    from dlrover_tpu_torch.models import llama
+
+    return llama.llama_tiny() if device == "cpu" else llama.llama_1b()
+
+
+def run_auto_search(device=None) -> dict:
+    """The one-process search (``auto_accelerate(dryrun_top_k=2)``) at
+    the slice's batch: every report with each dryrun's peak memory, the
+    winner's AUTO_STEPS steps against ``make_trainer_for_llama`` of the
+    same strategy and seed (bitwise) with their launches,
+    ``dryrun_abstract``'s bytes, and how the analytic estimates fare
+    against the card. Returns the readings and the failed gates."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.auto import accelerate, analyser
+    from dlrover_tpu_torch.auto.device_context import peak_flops_per_chip
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.ops.cuda import flash_attention as fa
+    from dlrover_tpu_torch.trainer.sharded import (
+        adamw, make_trainer_for_llama)
+
+    cuda = device != "cpu"
+    cfg = _auto_cfg(device)
+    b, s = (2, 64) if not cuda else (SLICE["b"], SLICE["s"])
+    opt = adamw(1e-4, b1=0.9, b2=0.95)
+    failed, peaks = [], {}
+    real = accelerate._measure
+
+    def measure(cfg_, strategy, *args, **kw):  # each dryrun's peak
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        try:
+            return real(cfg_, strategy, *args, **kw)
+        finally:
+            if cuda:
+                peaks[strategy] = torch.cuda.max_memory_allocated()
+
+    accelerate._measure = measure
+    try:
+        t0 = time.perf_counter()
+        res = accelerate.auto_accelerate(cfg, b, s, device=device,
+                                         dryrun_top_k=2, optimizer=opt)
+        search_s = time.perf_counter() - t0
+    finally:
+        accelerate._measure = real
+    failed += _unexpected_errors(res.reports)
+    reports = [_auto_report(r, peaks.get(r.strategy)) for r in res.reports]
+    measured = [r for r in res.reports if r.measured_step_seconds]
+    if len(measured) < 1:
+        failed.append("the one-process search measured no candidate")
+    x = np.random.default_rng(0).integers(0, cfg.vocab_size, (b, s + 1))
+    batch = (x[:, :-1], x[:, 1:])
+    win, strategy = res.trainer, res.strategy
+    res.trainer = None
+    win.init(seed=0)
+    mb = win.shard_batch(win.microbatch(win.split_batch(batch)))
+    if cuda:
+        torch.cuda.synchronize()
+    fa.reset_launches()
+    losses = [win.train_step(mb).item() for _ in range(AUTO_STEPS)]
+    launches = dict(fa.LAUNCHES)
+    del win, mb
+    if cuda:
+        torch.cuda.empty_cache()
+    # the same strategy and seed through make_trainer_for_llama
+    ref = make_trainer_for_llama(
+        dataclasses.replace(cfg, remat=strategy.remat),
+        device=device, strategy=strategy.sharding, optimizer=opt)
+    ref.init(seed=0)
+    mb = ref.shard_batch(ref.microbatch(batch))
+    ref_losses = [ref.train_step(mb).item() for _ in range(AUTO_STEPS)]
+    del ref, mb
+    if losses != ref_losses:
+        failed.append(f"the winner's losses {losses} are not "
+                      f"make_trainer_for_llama's {ref_losses}")
+    if cuda:
+        # the forward runs twice a layer where remat recomputes attention
+        twice = strategy.remat in ("dots", "minimal")
+        want = {"fwd": (2 if twice else 1) * cfg.num_layers * AUTO_STEPS,
+                "dq": cfg.num_layers * AUTO_STEPS,
+                "dkv": cfg.num_layers * AUTO_STEPS}
+        if launches != want:
+            failed.append(f"the winner launched {launches}, want {want}")
+        torch.cuda.empty_cache()
+        args, temp, out = accelerate.dryrun_abstract(cfg, strategy, b, s,
+                                                     optimizer=opt)
+    else:  # no temp bytes without the card's peak
+        (args, out), temp = accelerate.abstract_bytes(
+            cfg, strategy, b, s, device=device), None
+    # how the analytic model fares on the card: its time and memory
+    # against the dryruns', the step's MFU against mfu_guess, the remat
+    # policies' measured ratio against REMAT_COMPUTE's
+    flops = llama.flops_per_token(cfg, s) * b * s
+    peak = peak_flops_per_chip() if cuda else analyser.PEAK_FLOPS
+    fare = [{"remat": r.strategy.remat,
+             "time_est_over_measured": r.est_step_seconds
+             / r.measured_step_seconds,
+             "memory_est_over_peak": (r.memory_bytes / peaks[r.strategy]
+                                      if r.strategy in peaks else None),
+             "mfu_measured": flops / r.measured_step_seconds / peak,
+             "remat_compute": analyser.REMAT_COMPUTE[r.strategy.remat]}
+            for r in measured]
+    return {"readings": {
+        "model": "llama_1b" if cuda else "llama_tiny", "batch": b,
+        "seq": s, "search_s": search_s, "reports": reports,
+        "winner": strategy.to_json(), "losses": losses,
+        "reference_losses": ref_losses, "launches": launches,
+        "dryrun_abstract": {"argument_bytes": args, "temp_bytes": temp,
+                            "output_bytes": out},
+        "estimates_on_the_card": fare,
+        "mfu_guess": 0.4, "act_factor": analyser.ACT_FACTOR,
+        "hbm_utilization_planner": _planner_hbm_utilization()},
+        "failed": failed}
+
+
+def _planner_hbm_utilization() -> float:
+    from dlrover_tpu_torch.auto import planner
+
+    return planner.HBM_UTILIZATION
+
+
+def run_auto_envelope() -> dict:
+    """One llama_1b step (remat "dots", AdamW) at batch 1 x
+    ``SINGLE_CHIP_MAX_SEQ``: its peak must stay under 0.9 x the card's
+    memory."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.auto import strategy as strategy_lib
+    from dlrover_tpu_torch.auto.device_context import hbm_bytes_per_chip
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.trainer.sharded import (
+        adamw, make_trainer_for_llama)
+
+    seq = strategy_lib.SINGLE_CHIP_MAX_SEQ
+    cfg = dataclasses.replace(llama.llama_1b(remat="dots"), max_seq_len=seq)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = make_trainer_for_llama(cfg, optimizer=adamw(1e-4))
+    t.init(seed=0)
+    x = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, seq + 1))
+    t0 = time.perf_counter()
+    loss = t.train_step(t.shard_batch(t.microbatch(
+        (x[:, :-1], x[:, 1:])))).item()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    del t
+    torch.cuda.empty_cache()
+    limit = 0.9 * hbm_bytes_per_chip()
+    failed = [] if peak < limit and math.isfinite(loss) else [
+        f"batch 1 x {seq}: peak {peak} bytes (limit {limit}), loss {loss}"]
+    return {"readings": {"seq": seq, "peak_bytes": peak, "limit": limit,
+                         "loss": loss, "step_s": step_s}, "failed": failed}
+
+
+def _auto_models(layers: int, device=None) -> dict:
+    """{name: (config, global batch, seq)} of the two-rank group's
+    layouts past the search: gpt2_xl cut to GPT_XL_LAYERS, gpt2_small
+    uncut, the MNIST CNN; on the CPU gpt_tiny stands for both GPTs."""
+    import dataclasses
+
+    from dlrover_tpu_torch.models import cnn, gpt
+
+    cpu = device == "cpu"
+    xl = (gpt.gpt_tiny() if cpu
+          else gpt.gpt2_xl(remat="dots_attn_out"))
+    small = (gpt.gpt_tiny() if cpu
+             else gpt.gpt2_small(remat="dots_attn_out"))
+    s = 32 if cpu else AUTO_GPT_S
+    return {"llama": (_mesh_cfg(layers, device), AUTO_MESH_B,
+                      PIPE_S_CPU if cpu else SLICE["s"]),
+            "gpt2_xl": (dataclasses.replace(xl, num_layers=GPT_XL_LAYERS),
+                        AUTO_GPT_B, s),
+            "gpt2_small": (small, AUTO_GPT_B, s),
+            "cnn": (cnn.mnist_cnn(), AUTO_CNN_B, 1)}
+
+
+def _auto_batches(cfg, b: int, s: int, seed: int) -> list:
+    """AUTO_MESH_STEPS seeded global batches of the family's shape."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    if type(cfg).__name__ == "CNNConfig":
+        return [(rng.standard_normal((b, 28, 28, 1)).astype(np.float32),
+                 rng.integers(0, cfg.num_classes, b))
+                for _ in range(AUTO_MESH_STEPS)]
+    out = []
+    for _ in range(AUTO_MESH_STEPS):
+        x = rng.integers(0, cfg.vocab_size, (b, s + 1))
+        out.append((x[:, :-1], x[:, 1:]))
+    return out
+
+
+def _auto_reference(name: str, cfg, batches, work: str, device) -> dict:
+    """The one-process step of ``cfg`` from seed 0 on ``batches`` (ddp,
+    AdamW(MESH_LR, 0.9, 0.95)): initial and final parameters to
+    ``{name}_init.pt`` and ``{name}_reference.pt``, the run's
+    readings."""
+    import torch
+
+    from dlrover_tpu_torch.models import make_trainer_for
+    from dlrover_tpu_torch.trainer.sharded import adamw
+
+    t = make_trainer_for(cfg, device=device, strategy="ddp",
+                         optimizer=adamw(MESH_LR, b1=0.9, b2=0.95))
+    t.init(seed=0)
+    torch.save({n: p.detach().cpu() for n, p in t.model.named_parameters()},
+               os.path.join(work, f"{name}_init.pt"))
+    out = _run_steps(t, [t.shard_batch(t.microbatch(b)) for b in batches],
+                     device != "cpu")
+    torch.save({n: p.detach().cpu() for n, p in t.model.named_parameters()},
+               os.path.join(work, f"{name}_reference.pt"))
+    del t
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return out
+
+
+def auto_rank(work: str, layers: int, device=None) -> None:
+    """One rank of phase "auto"'s two-rank group (``python -c``): the
+    search over llama_1b at ``layers`` layers with BO, its winner's
+    steps, a planned table, gpt2_xl under fsdp, gpt2_small under tp and
+    the CNN under fsdp, each against its one-process reference; one JSON
+    result file."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.auto import accelerate, planner
+    from dlrover_tpu_torch.auto.device_context import (
+        TARGET_CARD, hbm_bytes_per_chip)
+    from dlrover_tpu_torch.models import make_trainer_for
+    from dlrover_tpu_torch.parallel.mesh import create_mesh
+    from dlrover_tpu_torch.trainer import distributed as coll
+    from dlrover_tpu_torch.trainer.sharded import adamw
+
+    env = coll.init_from_env(timeout_s=120, backend="gloo", device=device)
+    cuda = device != "cpu"
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the reference's
+    torch.backends.cudnn.allow_tf32 = False
+    models = _auto_models(layers, device)
+    with open(os.path.join(work, "batches.pkl"), "rb") as f:
+        batches = pickle.load(f)
+    opt = adamw(MESH_LR, b1=0.9, b2=0.95)
+    out = {"rank": env.rank, "runs": {}}
+
+    def run(name, key, t):
+        if cuda:
+            torch.cuda.empty_cache()
+        t.init(seed=0)
+        mbs = [t.shard_batch(t.microbatch(t.split_batch(b)))
+               for b in batches[key]]
+        r = _run_steps(t, mbs, cuda)
+        init = torch.load(os.path.join(work, f"{key}_init.pt"))
+        ref = torch.load(os.path.join(work, f"{key}_reference.pt"))
+        r.update(_against_reference(t, ref, init, len(mbs)))
+        r["state_bytes"] = t.state_bytes()
+        r["strategy"] = t.strategy
+        r["mesh"] = {a: int(k) for a, k in zip(
+            t.mesh.mesh_dim_names or (), t.mesh.mesh.shape)}
+        out["runs"][name] = r
+        dist.barrier()
+
+    cfg, b, s = models["llama"]
+    t0 = time.perf_counter()
+    res = accelerate.auto_accelerate(cfg, b, s, device=device, bo_iters=1,
+                                     optimizer=opt)
+    out["search"] = {"strategy": res.strategy.to_json(),
+                     "search_s": time.perf_counter() - t0,
+                     "reports": [_auto_report(r) for r in res.reports]}
+    win, res.trainer = res.trainer, None
+    run("winner", "llama", win)
+    del win
+    # the plan under the card's whole memory (the replicated one), then
+    # under a share of what it needs
+    whole = planner.plan_rules_for_llama(cfg, [("fsdp", 2)], b, s,
+                                         hbm_bytes_per_chip(TARGET_CARD))
+    budget = (AUTO_PLAN_SHARE * whole.memory_bytes
+              / planner.HBM_UTILIZATION)
+    report = planner.plan_rules_for_llama(cfg, [("fsdp", 2)], b, s, budget)
+    planner.register_plan("planned", report)
+    out["plan"] = {"rules": {k: v for k, v in report.rules.items()},
+                   "budget_bytes": budget,
+                   "replicated_memory_bytes": whole.memory_bytes,
+                   "memory_bytes": report.memory_bytes,
+                   "comm_seconds": report.comm_seconds}
+    for name, key, strategy, spec in (
+            ("planned", "llama", "planned", [("fsdp", 2)]),
+            ("gpt2_xl_fsdp", "gpt2_xl", "fsdp", [("fsdp", 2)]),
+            ("gpt2_small_tp", "gpt2_small", "tp", [("tensor", 2)]),
+            ("cnn_fsdp", "cnn", "fsdp", [("fsdp", 2)])):
+        run(name, key, make_trainer_for(
+            models[key][0], device=device, strategy=strategy,
+            mesh=create_mesh(spec, device=device), optimizer=opt))
+    with open(os.path.join(work, f"rank{env.rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _auto_gates(ranks, references: dict, cuda: bool, failed: list) -> None:
+    """Phase "auto"'s two-rank gates: both ranks the same winner and the
+    same agreed seconds, no unexpected dryrun error, every layout within
+    "mesh"'s gates of its one-process step, gpt2_small's tp launches."""
+    if ranks[0]["search"]["strategy"] != ranks[1]["search"]["strategy"]:
+        failed.append(f"the ranks picked {ranks[0]['search']['strategy']} "
+                      f"and {ranks[1]['search']['strategy']}")
+    agreed = [[(r["strategy"], r["measured_ms"]) for r in rank["search"][
+        "reports"] if r["measured_ms"] is not None] for rank in ranks]
+    if agreed[0] != agreed[1] or not agreed[0]:
+        failed.append(f"the ranks' measured seconds differ: {agreed}")
+    from dlrover_tpu_torch.auto.accelerate import EXPECTED_FAILURES
+
+    for r in ranks[0]["search"]["reports"]:
+        if r["error"] and not any(e in r["error"] for e in
+                                  EXPECTED_FAILURES):
+            failed.append(f"{r['strategy']}: {r['error']}")
+    if not any(ax not in ("batch",) and rule for ax, rule in
+               ranks[0]["plan"]["rules"].items()):
+        failed.append(f"the plan shards no axis: {ranks[0]['plan']}")
+    key_of = {"winner": "llama", "planned": "llama",
+              "gpt2_xl_fsdp": "gpt2_xl", "gpt2_small_tp": "gpt2_small",
+              "cnn_fsdp": "cnn"}
+    for name, key in key_of.items():
+        want = references[key]["losses"]
+        for r, rank in enumerate(ranks):
+            run = rank["runs"][name]
+            if any(abs(a - b) > MESH_LOSS_RTOL * abs(b)
+                   for a, b in zip(run["losses"], want)):
+                failed.append(f"{name} rank {r}: losses {run['losses']} vs "
+                              f"{want}")
+            if run["param_within_2lr_share"] < MESH_WITHIN_SHARE:
+                failed.append(f"{name} rank {r}: parameters "
+                              f"{run['param_within_2lr_share']:.5%} within "
+                              "2 lr and one ulp")
+            if run["param_diff_lr"]["per_step"] > 2.0 * len(want):
+                failed.append(f"{name} rank {r}: parameters "
+                              f"{run['param_diff_lr']['per_step']} lr beyond "
+                              "one ulp a step")
+    if cuda:
+        layers = _auto_models(MESH_LAYERS)["gpt2_small"][0].num_layers
+        for r, rank in enumerate(ranks):
+            got = {k.split("@")[0]: n for k, n in
+                   rank["runs"]["gpt2_small_tp"]["launches"].items()}
+            want = {k: layers * AUTO_MESH_STEPS for k in REPLACES}
+            if got != want:
+                failed.append(f"gpt2_small tp rank {r}: launches {got}, "
+                              f"want {want}")
+
+
+def run_auto_mesh(layers: int = MESH_LAYERS, device=None) -> dict:
+    """Phase "auto"'s two-rank group at ``layers`` layers: the one-process
+    references, the ranks (:func:`auto_rank`), the gates; returns the
+    readings and the failed gates. ``device="cpu"`` runs llama_tiny and
+    gpt_tiny on CPU ranks (the logic alone)."""
+    import pickle
+
+    models = _auto_models(layers, device)
+    work = tempfile.mkdtemp(prefix="dlrover_auto_")
+    failed = []
+    try:
+        batches = {key: _auto_batches(cfg, b, s, seed=23 + i)
+                   for i, (key, (cfg, b, s)) in enumerate(models.items())}
+        with open(os.path.join(work, "batches.pkl"), "wb") as f:
+            pickle.dump(batches, f)
+        t0 = time.time()
+        references = {key: _auto_reference(key, models[key][0],
+                                           batches[key], work, device)
+                      for key in models}
+        reference_s = time.time() - t0
+        t0 = time.time()
+        ranks, _ = _rank_group(work, 2, f"auto_rank({work!r}, {layers}, "
+                               f"{device!r})", "auto")
+        ranks_s = time.time() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    _auto_gates(ranks, references, device != "cpu", failed)
+    runs = {}
+    for name in ranks[0]["runs"]:
+        per_rank = [r["runs"][name] for r in ranks]
+        runs[name] = {
+            "strategy": per_rank[0]["strategy"], "mesh": per_rank[0]["mesh"],
+            "losses": per_rank[0]["losses"],
+            "step_ms": [run["step_ms"] for run in per_rank],
+            "collective_ms": [run["collective_ms"] for run in per_rank],
+            "peak_mem_gb": [run["peak_mem_gb"] for run in per_rank],
+            "state_bytes": [run["state_bytes"] for run in per_rank],
+            "launches": [run["launches"] for run in per_rank],
+            "param_within_2lr_share": [run["param_within_2lr_share"]
+                                       for run in per_rank],
+        }
+    launches = {k: sum(n for r in ranks for key, n in r["runs"][
+        "gpt2_small_tp"]["launches"].items() if key.split("@")[0] == k)
+        for k in REPLACES}
+    return {"readings": {
+        "search": ranks[0]["search"], "plan": ranks[0]["plan"],
+        "references": {k: {"losses": v["losses"], "step_ms": v["step_ms"],
+                           "peak_mem_gb": v["peak_mem_gb"]}
+                       for k, v in references.items()},
+        "runs": runs, "reference_s": reference_s, "ranks_s": ranks_s,
+        "gpt_tp_launches": launches}, "failed": failed}
+
+
+def phase_auto() -> dict:
+    """The strategy search on the card: the docstring's phase 18."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    search = run_auto_search()
+    emit({"phase": "auto_search", **search["readings"]})
+    envelope = run_auto_envelope()
+    emit({"phase": "auto_envelope", **envelope["readings"]})
+    mesh = run_auto_mesh(MESH_LAYERS)
+    emit({"phase": "auto", "layers": MESH_LAYERS, "backend": "gloo",
+          "phase_s": time.time() - t0, **mesh["readings"],
+          "nvidia_smi": nvidia_smi_line()})
+    failed = search["failed"] + envelope["failed"] + mesh["failed"]
+    if failed:
+        raise AssertionError("auto: " + "; ".join(failed))
+    return {"launches": search["readings"]["launches"],
+            "gpt_tp_launches": mesh["readings"]["gpt_tp_launches"]}
+
+
 def main() -> int:
     if not (ROOT / "dlrover_tpu_torch" / "__init__.py").exists():
         print("chip_smoke: dlrover_tpu_torch is not beside this script",
@@ -4500,6 +5015,7 @@ def main() -> int:
     sequence = timed("sequence", phase_sequence)
     timed("moe", phase_moe)
     pipe = timed("pipeline", phase_pipeline)
+    auto = timed("auto", phase_auto)
     # wall seconds per phase, from main's start (the interpreter's start
     # and torch's import before it are not counted)
     emit({"phase_seconds": seconds, "total_s": time.perf_counter() - t0})
@@ -4520,7 +5036,8 @@ def main() -> int:
                           ("ring_chunk", seq_launches(RING_CHUNK)),
                           ("ring_chunk_full", seq_launches(RING_FULL)),
                           ("ulysses", seq_launches(ULYSSES)),
-                          ("pipeline_mb", pipe["launches"])):
+                          ("pipeline_mb", pipe["launches"]),
+                          ("gpt2_small_tp", auto["gpt_tp_launches"])):
         for name, r in kernels[shape].items():
             line.append({
                 "name": name if shape == "llama_1b" else f"{name}@{shape}",
@@ -4538,6 +5055,9 @@ def main() -> int:
                 # and in phase "mesh", over every rank of its strategies
                 line[-1]["mesh_launches"] = mesh["launches"][
                     "tp" if shape.endswith("_tp") else "dense"][name]
+            if shape == "llama_1b":
+                # and by the winner of phase "auto"'s one-process search
+                line[-1]["auto_launches"] = auto["launches"][name]
     emit({"kernels": line})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {

@@ -10,6 +10,8 @@ _FAMILIES = {
     "CNNConfig": "cnn",
     "DLRMConfig": "dlrm",
 }
+#: each family's model class
+_MODELS = {"llama": "Llama", "gpt": "GPT", "cnn": "CNN", "dlrm": "DLRM"}
 
 
 def model_module_for(cfg):
@@ -27,6 +29,14 @@ def model_module_for(cfg):
         f"dlrover_tpu_torch.models.{_FAMILIES[name]}")
 
 
+def meta_model(cfg):
+    """The family's model of ``cfg`` on the meta device: its parameters'
+    names, shapes and dtypes, nothing allocated."""
+    mod = model_module_for(cfg)
+    return getattr(mod, _MODELS[mod.__name__.rsplit(".", 1)[1]])(
+        cfg, device="meta")
+
+
 def example_batch(cfg, global_batch: int, seq_len: int = 1):
     """Zero-filled batch of the family's shape: LMs take (tokens,
     targets) int64 [batch, seq], the CNN (images, labels), DLRM (dense,
@@ -35,10 +45,13 @@ def example_batch(cfg, global_batch: int, seq_len: int = 1):
 
 
 def make_trainer_for(cfg, device=None, strategy=None,
-                     accum_steps: int = 1, optimizer=None, attn_fn=None):
-    """Family-dispatched trainer constructor; ``strategy=None`` takes the
-    family's own default ("rowwise" for DLRM, else "ddp")."""
+                     accum_steps: int = 1, optimizer=None, attn_fn=None,
+                     mesh=None):
+    """Family-dispatched trainer constructor, the single seam the auto
+    layer builds trainers through: ``mesh`` goes to the family's
+    ``make_trainer`` (None: the family's default mesh), ``strategy=None``
+    takes the family's own default ("rowwise" for DLRM, else "ddp")."""
     kw = {} if strategy is None else {"strategy": strategy}
     return model_module_for(cfg).make_trainer(
         cfg, device=device, accum_steps=accum_steps, optimizer=optimizer,
-        attn_fn=attn_fn, **kw)
+        attn_fn=attn_fn, mesh=mesh, **kw)

@@ -5,7 +5,10 @@ conv, pool, fc, fc), in fp32. The batch keeps the JAX layout, NHWC
 images ``[batch, H, W, C]``; the convolutions run NCHW on OIHW weights
 (``params_from_jax`` permutes the JAX package's HWIO), and the features
 go back to NHWC before the flatten, so ``fc1``'s rows pair with the
-same features as the JAX model's. Convolutions are 3x3, stride 1, SAME;
+same features as the JAX model's. On a mesh (``trainer/sharded.py``)
+the model has no parallel code of its own: ``param_axes`` shards the
+``fc`` dims as the JAX table does, and the trainer gathers them before
+use under every rule table. Convolutions are 3x3, stride 1, SAME;
 pooling is max 2x2, stride 2, VALID. Negative labels (the elastic
 examples' tail-shard padding) are masked out of the cross-entropy.
 """
@@ -19,7 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dlrover_tpu_torch.auto.device_context import resolve_device
-from dlrover_tpu_torch.models.llama import _masked_nll, _tensor
+from dlrover_tpu_torch.models.llama import JaxLeaf, _masked_nll, _tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,15 +141,55 @@ next_token_loss = loss
 
 
 def make_trainer(cfg: CNNConfig, device=None, strategy: str = "ddp",
-                 accum_steps: int = 1, optimizer=None, attn_fn=None):
-    """Trainer for the CNN; ``device=None`` is the GPU."""
+                 accum_steps: int = 1, optimizer=None, attn_fn=None,
+                 mesh=None):
+    """Trainer for the CNN; ``device=None`` is the GPU, ``mesh=None`` the
+    JAX default mesh of this family, ``[(data, world)]``. Every sharded
+    dim is gathered before use (the model holds none sharded)."""
+    from dlrover_tpu_torch.parallel.mesh import create_mesh
     from dlrover_tpu_torch.trainer.sharded import family_trainer
 
+    if mesh is None:
+        mesh = create_mesh([("data", -1)], device=resolve_device(device))
     return family_trainer(
         cfg, loss_sums,
         lambda seed, dev: init_params(cfg, seed=seed, device=dev),
         param_count(cfg), device=device, strategy=strategy,
-        accum_steps=accum_steps, optimizer=optimizer)
+        accum_steps=accum_steps, optimizer=optimizer, mesh=mesh,
+        param_axes=lambda model: param_axes(cfg),
+        jax_coordinates=lambda name: jax_coordinates(cfg, name),
+        held_axes=lambda rules: set())
+
+
+#: logical axes in the port's order (OIHW kernels, ``[out, in]``
+#: matrices): the JAX table's -- convolutions replicated, fc dims
+#: shardable -- and each parameter's JAX leaf
+_AXES = {
+    "conv1.weight": ((None,) * 4, "conv1"), "conv1.bias": ((None,), "b1"),
+    "conv2.weight": ((None,) * 4, "conv2"), "conv2.bias": ((None,), "b2"),
+    "fc1.weight": (("mlp", "embed"), "fc1"), "fc1.bias": (("mlp",), "fb1"),
+    "fc2.weight": ((None, "mlp"), "fc2"), "fc2.bias": ((None,), "fb2"),
+}
+
+
+def param_axes(cfg: CNNConfig) -> Dict[str, Tuple]:
+    """Logical axes of every parameter, keyed by the port's names and in
+    the port's dimension order (the JAX ``param_axes``, permuted)."""
+    return {name: ax for name, (ax, _) in _AXES.items()}
+
+
+def jax_coordinates(cfg: CNNConfig, name: str) -> JaxLeaf:
+    """The JAX leaf a port parameter comes from (``params_from_jax``'s
+    mapping): OIHW kernels are HWIO leaves, matrices transposed."""
+    c1, c2 = cfg.conv_features
+    leaf = _AXES[name][1]
+    shapes = {"conv1": (3, 3, cfg.channels, c1), "conv2": (3, 3, c1, c2),
+              "fc1": (_flat(cfg), cfg.hidden),
+              "fc2": (cfg.hidden, cfg.num_classes),
+              "b1": (c1,), "b2": (c2,), "fb1": (cfg.hidden,),
+              "fb2": (cfg.num_classes,)}
+    dims = {4: (3, 2, 0, 1), 2: (1, 0), 1: (0,)}[len(shapes[leaf])]
+    return JaxLeaf((leaf,), shapes[leaf], None, dims)
 
 
 def example_batch(cfg: CNNConfig, global_batch: int, seq_len: int = 1):

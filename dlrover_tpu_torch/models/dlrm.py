@@ -372,7 +372,10 @@ def make_trainer(cfg: DLRMConfig, device=None, strategy: str = "rowwise",
         accum_steps=accum_steps, optimizer=optimizer or adagrad(0.05),
         mesh=mesh, param_axes=lambda model: param_axes(cfg),
         jax_coordinates=lambda name: jax_coordinates(cfg, name),
-        value_and_grad=value_and_grad)
+        value_and_grad=value_and_grad,
+        # the sharded lookup consumes the tables' rows over fsdp under
+        # "rowwise"; every other sharded dim is gathered before use
+        held_axes=lambda rules: {("vocab", "fsdp")} if rowwise else set())
 
 
 def example_batch(cfg: DLRMConfig, global_batch: int, seq_len: int = 1):

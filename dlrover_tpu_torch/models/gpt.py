@@ -15,6 +15,17 @@ the loss reuses the Llama's cross-entropy and remat policies.
 
 The tied head is the embedding itself (``head_weight``): one parameter,
 whose gradient sums the lookup's and the head's.
+
+On a mesh the model runs the Llama's strategies (``trainer/sharded.py``):
+``param_axes`` gives each parameter its logical axes and
+``jax_coordinates`` the JAX leaf it is. Under the Megatron layout over
+``tensor`` (tp, tp_fsdp) each rank holds its heads of q/k/v with their
+biases, its rows of ``wo``, its columns of ``w_fc`` with ``b_fc``, its
+rows of ``w_proj`` and its vocab rows of the embedding (and of an untied
+head); the trainer sets ``tp_group``, and the forward runs the
+collectives of ``parallel/tensor_parallel.py``: ``bo`` and ``b_proj``
+are added once, after the row-parallel sums, and the lookup and the loss
+are vocab-parallel.
 """
 
 import dataclasses
@@ -28,13 +39,22 @@ import torch.nn.functional as F
 from dlrover_tpu_torch.auto.device_context import resolve_device
 from dlrover_tpu_torch.models.llama import (
     _REMAT,
+    JaxLeaf,
     _chunked_ce,
     _masked_nll,
     _tensor,
+    check_heads,
     example_batch as _lm_batch,
+    held_axes,
     remat_block,
 )
 from dlrover_tpu_torch.ops.attention import flash_attention
+from dlrover_tpu_torch.parallel.tensor_parallel import (
+    copy_to_tensor,
+    reduce_from_tensor,
+    vocab_parallel_embedding,
+    vocab_parallel_nll,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,6 +164,9 @@ class Block(nn.Module):
         h, m = cfg.hidden_size, cfg.intermediate_size
         nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
         self.cfg = cfg
+        #: the mesh's tensor group under tensor parallelism (None: the
+        #: block holds its matrices whole)
+        self.tp_group = None
 
         def linear(n_in, n_out):
             return nn.Linear(n_in, n_out, device=device, dtype=cfg.dtype)
@@ -163,17 +186,31 @@ class Block(nn.Module):
         """Segment 1: LayerNorm and the q/k/v projections."""
         cfg = self.cfg
         b, s, _ = x.shape
-        y = layer_norm(x, self.ln1_scale, self.ln1_bias, cfg.norm_eps)
-        return (self.wq(y).view(b, s, cfg.num_heads, cfg.head_dim),
-                self.wk(y).view(b, s, cfg.kv_heads, cfg.head_dim),
-                self.wv(y).view(b, s, cfg.kv_heads, cfg.head_dim))
+        y = copy_to_tensor(
+            layer_norm(x, self.ln1_scale, self.ln1_bias, cfg.norm_eps),
+            self.tp_group)
+        # this rank's heads: all of them, or its share under tp
+        return (self.wq(y).view(b, s, -1, cfg.head_dim),
+                self.wk(y).view(b, s, -1, cfg.head_dim),
+                self.wv(y).view(b, s, -1, cfg.head_dim))
+
+    def _row_parallel(self, linear: nn.Linear, x):
+        """``linear(x)``; under tp the rank's partial product summed over
+        the tensor group, then the bias added once."""
+        if self.tp_group is None:
+            return linear(x)
+        return reduce_from_tensor(F.linear(x, linear.weight),
+                                  self.tp_group) + linear.bias
 
     def _post_attn(self, x, attn):
         """Segment 2: output projection, residual, GELU MLP."""
         b, s, _ = x.shape
-        x = x + self.wo(attn.reshape(b, s, -1))
-        y = layer_norm(x, self.ln2_scale, self.ln2_bias, self.cfg.norm_eps)
-        return x + self.w_proj(F.gelu(self.w_fc(y), approximate="tanh"))
+        x = x + self._row_parallel(self.wo, attn.reshape(b, s, -1))
+        y = copy_to_tensor(
+            layer_norm(x, self.ln2_scale, self.ln2_bias, self.cfg.norm_eps),
+            self.tp_group)
+        return x + self._row_parallel(
+            self.w_proj, F.gelu(self.w_fc(y), approximate="tanh"))
 
     def forward(self, x, attn_fn):
         return self._post_attn(x, attn_fn(*self._pre_attn(x)))
@@ -202,6 +239,10 @@ class GPT(nn.Module):
         self.final_ln_bias = _norm(h, 0, device)
         self.lm_head = (None if cfg.tie_lm_head else nn.Linear(
             h, cfg.vocab_size, bias=False, device=device, dtype=cfg.dtype))
+        #: under tensor parallelism: the tensor group, and the first
+        #: vocab row of this rank's embedding (and head) shard
+        self.tp_group = None
+        self.vocab_start = 0
 
     def head_weight(self) -> torch.Tensor:
         """The lm_head as ``[vocab, hidden]``: the embedding when tied."""
@@ -218,7 +259,9 @@ class GPT(nn.Module):
         if s > cfg.max_seq_len:
             raise ValueError(
                 f"seq {s} is longer than max_seq_len {cfg.max_seq_len}")
-        x = F.embedding(tokens, self.embed) + self.pos_embed[:s][None]
+        x = (vocab_parallel_embedding(tokens, self.embed, self.vocab_start,
+                                      self.tp_group)
+             + self.pos_embed[:s][None])
         for block in self.blocks:
             x = block.run(x, attn_fn)
         return layer_norm(x, self.final_ln_scale, self.final_ln_bias,
@@ -266,6 +309,9 @@ def next_token_sums(model: GPT, batch: Tuple[torch.Tensor, torch.Tensor],
     tokens, targets = batch
     x = model.hidden_states(tokens, attn_fn=attn_fn)
     head = model.head_weight()
+    if model.tp_group is not None:
+        return vocab_parallel_nll(x, head, targets, model.vocab_start,
+                                  model.tp_group, chunk=model.cfg.loss_chunk)
     if model.cfg.loss_chunk > 0:
         return _chunked_ce(x, head, targets, model.cfg.loss_chunk)
     return _masked_nll(F.linear(x, head).float(), targets)
@@ -279,15 +325,28 @@ def next_token_loss(model: GPT, batch: Tuple[torch.Tensor, torch.Tensor],
 
 
 def make_trainer(cfg: GPTConfig, device=None, strategy: str = "ddp",
-                 accum_steps: int = 1, optimizer=None, attn_fn=None):
-    """Trainer for the GPT model; ``device=None`` is the GPU."""
+                 accum_steps: int = 1, optimizer=None, attn_fn=None,
+                 mesh=None):
+    """Trainer for the GPT model; ``device=None`` is the GPU, ``mesh=None``
+    the JAX default mesh, ``[(data, 1), (fsdp, world)]``. Under a held
+    tensor layout the heads must divide by the tensor axis (GPT-2 XL's 25
+    do not split over 2 or 4 ranks: building it raises)."""
+    from dlrover_tpu_torch.parallel import mesh as mesh_lib
+    from dlrover_tpu_torch.parallel.sharding import get_rules
     from dlrover_tpu_torch.trainer.sharded import family_trainer
 
+    if mesh is None:
+        mesh = mesh_lib.create_mesh([("data", 1), ("fsdp", -1)],
+                                    device=resolve_device(device))
+    check_heads(cfg, get_rules(strategy), mesh)
     return family_trainer(
         cfg, lambda model, batch: next_token_sums(model, batch, attn_fn),
         lambda seed, dev: init_params(cfg, seed=seed, device=dev),
         param_count(cfg), device=device, strategy=strategy,
-        accum_steps=accum_steps, optimizer=optimizer)
+        accum_steps=accum_steps, optimizer=optimizer, mesh=mesh,
+        param_axes=lambda model: param_axes(cfg),
+        jax_coordinates=lambda name: jax_coordinates(cfg, name),
+        held_axes=held_axes)
 
 
 #: the models contract's batch: (tokens, targets), as the Llama's
@@ -321,3 +380,68 @@ def params_from_jax(np_tree: Dict, cfg: GPTConfig, device=None) -> GPT:
     model = GPT(cfg, device)
     model.load_state_dict(state)
     return model
+
+
+# ---------------------------------------------------------------------------
+# logical axes, and the JAX coordinates of each parameter
+
+#: a block's parameters: (logical axes in the port's order; the JAX leaf)
+_BLOCK = {
+    "ln1_scale": (("norm",), "ln1_scale"),
+    "ln1_bias": (("norm",), "ln1_bias"),
+    "wq.weight": (("heads", "embed"), "wq"),
+    "wq.bias": (("heads",), "bq"),
+    "wk.weight": (("kv_heads", "embed"), "wk"),
+    "wk.bias": (("kv_heads",), "bk"),
+    "wv.weight": (("kv_heads", "embed"), "wv"),
+    "wv.bias": (("kv_heads",), "bv"),
+    "wo.weight": (("embed", "heads"), "wo"),
+    "wo.bias": (("norm",), "bo"),
+    "ln2_scale": (("norm",), "ln2_scale"),
+    "ln2_bias": (("norm",), "ln2_bias"),
+    "w_fc.weight": (("mlp", "embed"), "w_fc"),
+    "w_fc.bias": (("mlp",), "b_fc"),
+    "w_proj.weight": (("embed", "mlp"), "w_proj"),
+    "w_proj.bias": (("norm",), "b_proj"),
+}
+
+
+def param_axes(cfg: GPTConfig) -> Dict[str, Tuple]:
+    """Logical axes of every parameter, keyed by the port's names and in
+    the port's dimension order: the JAX ``param_axes`` without the
+    stacked ``"layers"`` axis, reversed for every ``nn.Linear`` weight."""
+    axes = {"embed": ("vocab", "embed"), "pos_embed": (None, "embed"),
+            "final_ln_scale": ("norm",), "final_ln_bias": ("norm",)}
+    if not cfg.tie_lm_head:
+        axes["lm_head.weight"] = ("vocab", "embed")
+    for i in range(cfg.num_layers):
+        for name, (ax, _) in _BLOCK.items():
+            axes[f"blocks.{i}.{name}"] = ax
+    return axes
+
+
+def jax_coordinates(cfg: GPTConfig, name: str) -> JaxLeaf:
+    """The JAX leaf a port parameter comes from (``params_from_jax``'s
+    mapping): blocks are layer ``i`` of a stacked leaf, matrices are
+    transposed, each bias its own leaf."""
+    h, m, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim
+    if name == "embed":
+        return JaxLeaf(("embed",), (v, h), None, (0, 1))
+    if name == "pos_embed":
+        return JaxLeaf(("pos_embed",), (cfg.max_seq_len, h), None, (0, 1))
+    if name in ("final_ln_scale", "final_ln_bias"):
+        return JaxLeaf((name,), (h,), None, (0,))
+    if name == "lm_head.weight":
+        return JaxLeaf(("lm_head",), (h, v), None, (1, 0))
+    _, layer, key = name.split(".", 2)
+    leaf = _BLOCK[key][1]
+    L = cfg.num_layers
+    mats = {"wq": (h, q), "wk": (h, kv), "wv": (h, kv), "wo": (q, h),
+            "w_fc": (h, m), "w_proj": (m, h)}
+    if leaf in mats:
+        return JaxLeaf(("blocks", leaf), (L,) + mats[leaf], int(layer),
+                       (2, 1))
+    vecs = {"bq": q, "bk": kv, "bv": kv, "b_fc": m}
+    return JaxLeaf(("blocks", leaf), (L, vecs.get(leaf, h)), int(layer),
+                   (1,))

@@ -657,6 +657,44 @@ def param_axes(cfg: LlamaConfig) -> Dict[str, Tuple[str, ...]]:
     return axes
 
 
+#: the logical axes of the Megatron layout over the mesh's ``tensor``
+#: axis, which the model's tensor-parallel code consumes
+TP_AXES = ("heads", "kv_heads", "mlp", "vocab")
+
+
+def held_axes(rules) -> set:
+    """The (logical axis, mesh axis) pairs of ``rules`` that the model's
+    own parallel code consumes sharded (``trainer/sharded.py`` gathers
+    every other sharded dim before use): the whole Megatron layout over
+    ``tensor`` -- exactly :data:`TP_AXES` there, no other logical axis --
+    and the experts over ``expert``. GPT's too."""
+    from dlrover_tpu_torch.parallel.sharding import spec_axes
+
+    on_tensor = {ax for ax, rule in rules.items()
+                 if ax != "batch" and "tensor" in spec_axes(rule)}
+    held = set()
+    if on_tensor == set(TP_AXES):
+        held |= {(ax, "tensor") for ax in TP_AXES}
+    if spec_axes(rules.get("expert")) == ("expert",):
+        held.add(("expert", "expert"))
+    return held
+
+
+def check_heads(cfg, rules, mesh) -> None:
+    """Raise where the held tensor layout would cut a head: the flash
+    kernels take whole heads, so the Q and KV head counts must divide by
+    the tensor axis (GSPMD would cut one)."""
+    from dlrover_tpu_torch.parallel.mesh import axis_size
+
+    t = axis_size(mesh, "tensor")
+    kv = getattr(cfg, "kv_heads", None) or cfg.num_kv_heads
+    if (t > 1 and ("heads", "tensor") in held_axes(rules)
+            and (cfg.num_heads % t or kv % t)):
+        raise ValueError(
+            f"{cfg.num_heads} heads ({kv} kv heads) do not split over "
+            f"{t} tensor ranks: the flash kernels take whole heads")
+
+
 @dataclasses.dataclass(frozen=True)
 class JaxLeaf:
     """Where a port parameter lives in the JAX parameter tree: the leaf's

@@ -253,7 +253,9 @@ def local_slices(spec: Spec, shape: Sequence[int], mesh: Mesh,
     """The ``[start, end)`` a rank holds of each tensor dim under
     ``spec`` (this rank, or the rank at the mesh coordinate ``coord``,
     axis name -> index): a dim sharded over several axes is split over
-    them major to minor. Raises when a dim does not divide evenly."""
+    them major to minor. A dim that does not divide is split as GSPMD
+    pads it: blocks of ``ceil(n / parts)``, the last ones short or
+    empty."""
     out = []
     for n, entry in zip(shape, tuple(spec) + (None,) * len(shape)):
         parts, idx = 1, 0
@@ -262,12 +264,16 @@ def local_slices(spec: Spec, shape: Sequence[int], mesh: Mesh,
             at = axis_index(mesh, a) if coord is None else coord[a]
             idx = idx * size + at
             parts *= size
-        if n % parts:
-            raise ValueError(f"dim of {n} does not split over {parts} "
-                             f"ranks ({spec})")
-        step = n // parts
-        out.append((idx * step, (idx + 1) * step))
+        out.append(block(n, parts, idx))
     return out
+
+
+def block(n: int, parts: int, idx: int) -> Tuple[int, int]:
+    """``[start, end)`` of part ``idx`` of a dim of ``n`` split over
+    ``parts`` ranks in blocks of ``ceil(n / parts)`` (GSPMD's padded
+    split: only the last parts may be short, or empty)."""
+    step = -(-n // parts)
+    return min(idx * step, n), min((idx + 1) * step, n)
 
 
 def global_boxes(spec: Spec, shape: Sequence[int], mesh: Mesh,

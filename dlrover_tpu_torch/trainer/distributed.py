@@ -280,27 +280,58 @@ def all_reduce_(t: torch.Tensor, group, op=dist.ReduceOp.SUM,
 
 def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """``x`` summed over ``group``, and this rank's chunk of the sum
-    along ``dim`` (the group's ranks own consecutive chunks)."""
+    along ``dim`` (the group's ranks own consecutive chunks). A dim that
+    does not divide is split as GSPMD pads it
+    (``parallel/sharding.block``): the sum is padded with zeros to equal
+    chunks, and this rank's chunk cut back to its length."""
     if group is None:
         return x
     n = dist.get_world_size(group)
     src = x.movedim(dim, 0).contiguous()
-    out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+    total = src.shape[0]
+    step = -(-total // n)
+    if step * n != total:
+        src = torch.cat([src, src.new_zeros(
+            (step * n - total,) + tuple(src.shape[1:]))])
+    out = src.new_empty((step,) + tuple(src.shape[1:]))
     with _Timed([x]):
         dist.reduce_scatter_tensor(out, src, group=group)
+    me = dist.get_rank(group)
+    out = out[:max(0, min(step, total - me * step))]
     return out.movedim(0, dim).contiguous()
 
 
-def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """The ranks' ``x`` concatenated along ``dim`` in group-rank order."""
+def all_gather(x: torch.Tensor, dim: int, group,
+               size: Optional[int] = None) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in group-rank order.
+    ``size``: the gathered length of ``dim`` where the ranks' chunks are
+    GSPMD's padded split of it (``parallel/sharding.block``), the last
+    ones short or empty; None: every rank's chunk is as long as ``x``'s."""
     if group is None:
         return x
     n = dist.get_world_size(group)
     src = x.movedim(dim, 0).contiguous()
-    out = src.new_empty((src.shape[0] * n,) + tuple(src.shape[1:]))
+    step = src.shape[0] if size is None else -(-size // n)
+    if src.shape[0] < step:
+        src = torch.cat([src, src.new_zeros(
+            (step - src.shape[0],) + tuple(src.shape[1:]))])
+    out = src.new_empty((step * n,) + tuple(src.shape[1:]))
     with _Timed([x]):
         dist.all_gather_into_tensor(out, src, group=group)
+    if size is not None:
+        out = out[:size]
     return out.movedim(0, dim).contiguous()
+
+
+def broadcast(x: torch.Tensor, src: int, group) -> torch.Tensor:
+    """Group rank ``src``'s ``x`` on every rank of ``group`` (the other
+    ranks pass a tensor of its shape and dtype): an all-reduce of ``x``
+    on ``src`` and zeros elsewhere, which gloo takes for CUDA tensors
+    (:data:`GLOO_CUDA_ROUTES`)."""
+    if group is None:
+        return x
+    x = x.clone() if dist.get_rank(group) == src else torch.zeros_like(x)
+    return all_reduce_(x, group)
 
 
 #: a permutation of a group's ranks: (source, destination) pairs in

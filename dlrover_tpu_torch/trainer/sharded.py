@@ -64,16 +64,23 @@ JAX loss. A third term of the loss function, the MoE auxiliary loss
   (DLRM), or a mesh without a pipe axis, runs as tp_fsdp.
 
 Every collective goes through
-``trainer/distributed.py``'s layer, on the mesh's groups. A mesh axis
-of the rule table's ``batch`` entry splits the batch's rows and reduces
-the gradients, and a parameter dim sharded over it is gathered before
-use (fsdp); ``seq`` splits the rows' tokens and reduces the gradients;
-a dim sharded over any other axis is used as the rank holds it
-(tensor, expert, and fsdp under rowwise). The
-strategies other than ddp need the model's logical axes
-(``make_trainer_for_llama`` and ``models/dlrm.py``'s ``make_trainer``
-give them), and their :meth:`ShardedTrainer.train_state` is the JAX
-parameter tree
+``trainer/distributed.py``'s layer, on the mesh's groups. A trainer runs
+any table registered in ``parallel/sharding.STRATEGIES`` (a planned one,
+``auto/planner.py``, too). A mesh axis of the rule table's ``batch``
+entry splits the batch's rows and reduces the gradients; ``seq`` splits
+the rows' tokens and reduces the gradients. A sharded parameter dim is
+held -- used as the rank holds it -- only where the model's own parallel
+code consumes it (``held_axes``: the Llama's and GPT's whole Megatron
+layout over tensor, the experts over expert, DLRM's rows over fsdp under
+rowwise). Every other sharded dim is gathered before use, as fsdp's are,
+its gradient reduce-scattered over the ranks that hold other tokens and
+cut where the ranks hold the same; a sharded stacked ``layers`` dim
+(outside a pipeline) makes each rank own its layers whole: sent from
+the owner before use, the gradient summed onto it. A dim that does not
+divide splits as GSPMD pads it (``sharding.block``). The
+strategies other than ddp need the model's logical axes (every family's
+``make_trainer`` gives them), and their
+:meth:`ShardedTrainer.train_state` is the JAX parameter tree
 (``models/llama.py``'s ``jax_coordinates``: stacked layers, ``[in,
 out]`` matrices) whose leaves are ``ckpt_store.ShardedLeaf``: the boxes
 this rank holds, and the global map of every rank's boxes, which the
@@ -126,12 +133,11 @@ from dlrover_tpu_torch.parallel import pipeline
 from dlrover_tpu_torch.parallel import sharding as shd
 from dlrover_tpu_torch.trainer import distributed as coll
 
-#: the strategies a trainer runs
+#: the named strategies (``parallel/sharding.py``'s tables); a trainer
+#: runs any table registered in ``sharding.STRATEGIES``, a planned one
+#: (``auto/planner.py``) too
 STRATEGIES = ("ddp", "rowwise", "zero1", "zero2", "fsdp", "tp", "tp_fsdp",
               "sequence", "pipeline")
-#: the strategies that shard a parameter or its optimizer state
-SHARDED = ("rowwise", "zero1", "zero2", "fsdp", "tp", "tp_fsdp",
-           "sequence", "pipeline")
 
 
 def allreduce_sum_(tensors: List[torch.Tensor], group,
@@ -157,10 +163,13 @@ def allreduce_sum_(tensors: List[torch.Tensor], group,
 class _Layout:
     """How a strategy holds one parameter (port order of dims): its global
     ``shape``; ``store``, the spec of what the rank keeps between steps;
-    ``opt``, of the box its optimizer steps; ``gather``, the (dim, axis)
-    pairs along which the stored shard is all-gathered into the
-    parameter the forward uses (the batch axes: fsdp); ``scatter``, those
-    along which the gradient is reduce-scattered to the optimizer's box;
+    ``opt``, of the box its optimizer steps; ``used``, the held part of
+    ``store``: how the parameter the forward uses is sharded; ``gather``,
+    the (dim, axis) pairs along which the stored shard is all-gathered
+    into that parameter; ``scatter``, those along which the gradient is
+    reduce-scattered to the optimizer's box (axes of ``sum_axes``);
+    ``cut``, those along which the rank cuts its box out of the gradient
+    (axes whose ranks see the same tokens, so hold the same gradient);
     ``reduce_axes``, the axes of ``sum_axes`` it is all-reduced over
     besides."""
 
@@ -168,31 +177,18 @@ class _Layout:
     shape: Tuple[int, ...]
     store: shd.Spec
     opt: shd.Spec
+    used: shd.Spec
     gather: List[Tuple[int, str]]
     scatter: List[Tuple[int, str]]
+    cut: List[Tuple[int, str]]
     reduce_axes: Tuple[str, ...]
     #: held by one pipeline stage only (a block's parameter)
     staged: bool = False
-
-
-def _over(spec: shd.Spec, axes) -> List[Tuple[int, str]]:
-    """``(dim, axis)`` for every dim of ``spec`` sharded over one of
-    ``axes``."""
-    out = []
-    for d, entry in enumerate(spec):
-        if len(shd.spec_axes(entry)) > 1:
-            raise NotImplementedError(
-                f"a parameter dim sharded over {shd.spec_axes(entry)}: one "
-                "mesh axis per parameter dim is carried")
-        out += [(d, a) for a in shd.spec_axes(entry) if a in axes]
-    return out
-
-
-def _used_part(spec: shd.Spec, batch_axes) -> shd.Spec:
-    """``spec`` without its batch axes: how the parameter the forward uses
-    is sharded (over tensor, or fsdp under rowwise)."""
-    return tuple(None if any(a in batch_axes for a in shd.spec_axes(e))
-                 else e for e in spec)
+    #: a layer of a stacked leaf whose ``layers`` axis is sharded outside
+    #: a pipeline: (the mesh axis, the coordinate on it that owns the
+    #: layer whole); the other ranks hold nothing of it between steps
+    owner: Optional[Tuple[str, int]] = None
+    owned: bool = True
 
 
 def _box(t: torch.Tensor, box) -> torch.Tensor:
@@ -253,6 +249,10 @@ class ShardedTrainer:
         (``parallel/pipeline.py``'s ``pipe_stage``; None: no pipeline):
         the model keeps the stage's blocks, and its forward runs the
         stage's schedule.
+      held_axes: ``held_axes(rules) -> {(logical axis, mesh axis)}``, the
+        sharded dims the model's parallel code consumes as the rank holds
+        them (``models/llama.py``'s); every other sharded dim is gathered
+        before use (None: every one).
     """
 
     def __init__(
@@ -268,21 +268,20 @@ class ShardedTrainer:
         jax_coordinates: Optional[Callable] = None,
         value_and_grad: Optional[Callable] = None,
         pipe_stage=None,
+        held_axes: Optional[Callable] = None,
     ):
         if strategy in shd.NOT_PORTED:
             raise NotImplementedError(
                 f"strategy {strategy!r} is not ported yet: ROADMAP.md "
                 f"queue {shd.NOT_PORTED[strategy]}")
-        if strategy not in STRATEGIES:
+        if strategy not in shd.STRATEGIES:
             raise ValueError(f"Unknown strategy {strategy!r}; one of "
-                             f"{sorted(STRATEGIES)}")
-        if strategy in SHARDED and (param_axes is None
-                                    or jax_coordinates is None):
+                             f"{sorted(shd.STRATEGIES)}")
+        if strategy != "ddp" and (param_axes is None
+                                  or jax_coordinates is None):
             raise NotImplementedError(
                 f"strategy {strategy!r} needs the model's logical axes, "
-                "which the Llama and DLRM factories give: the other "
-                "families on a mesh are not ported yet (ROADMAP.md, queue "
-                "A)")
+                "which every family's make_trainer gives")
         optimizer = optimizer or adamw(3e-4)
         #: seconds the newest step spent in collectives, the device
         #: synchronized on both sides (0 at one rank): ddp's reduction,
@@ -308,6 +307,9 @@ class ShardedTrainer:
                 device=self.device)
         self.mesh = mesh
         self.rules = shd.get_rules(strategy)
+        #: the (logical axis, mesh axis) pairs the model's own parallel
+        #: code consumes sharded
+        self._held = set(held_axes(self.rules)) if held_axes else set()
         self.pipe_stage = pipe_stage if strategy == "pipeline" else None
 
         def rule_axes(logical):
@@ -339,7 +341,7 @@ class ShardedTrainer:
 
     @property
     def sharded(self) -> bool:
-        return self.strategy in SHARDED
+        return self.strategy != "ddp"
 
     @property
     def data_parallel_size(self) -> int:
@@ -418,39 +420,90 @@ class ShardedTrainer:
         leaf = self._jax_coordinates(name)
         return tuple(leaf.shape[leaf.dims[d]] for d in range(p.dim()))
 
+    def _specs(self, name: str, logical, rules: shd.Rules):
+        """(the spec of the port's dims, the entry of the JAX leaf's
+        stacked ``layers`` dim or None) of a parameter under ``rules``:
+        the first logical axis in the JAX leaf's order wins a mesh axis,
+        the stacked layers dim first of all."""
+        leaf = self._jax_coordinates(name)
+        jax_axes: List[Optional[str]] = [None] * len(leaf.shape)
+        if leaf.layer is not None:
+            jax_axes[0] = "layers"
+        for d, ax in enumerate(logical):
+            jax_axes[leaf.dims[d]] = ax
+        full = shd.spec_for_axes(tuple(jax_axes), rules, self.mesh)
+        port = tuple(full[leaf.dims[d]] for d in range(len(logical)))
+        return port, (full[0] if leaf.layer is not None else None)
+
+    def _is_held(self, logical: Optional[str], axis: str) -> bool:
+        """Whether the forward uses a dim sharded over ``axis`` as the
+        rank holds it (the model's parallel code consumes it) rather than
+        gathered first."""
+        return (axis not in self.batch_axes
+                and (logical, axis) in self._held)
+
     def _layout(self, name: str, shape, logical) -> _Layout:
         mesh = self.mesh
-        # the first logical axis in the JAX leaf's order wins a mesh axis
-        order = self._jax_coordinates(name).dims
-        store = shd.spec_in_order(logical, order, self.rules, mesh)
+        store, layers = self._specs(name, logical, self.rules)
         opt_rules = shd.opt_state_rules(self.strategy)
-        opt = (shd.spec_in_order(logical, order, opt_rules, mesh)
+        opt = (self._specs(name, logical, opt_rules)[0]
                if opt_rules is not None else store)
-        if _used_part(opt, self.batch_axes) != _used_part(store,
-                                                          self.batch_axes):
+        for d, entry in enumerate(store + opt):
+            if len(shd.spec_axes(entry)) > 1:
+                raise NotImplementedError(
+                    f"{name}: its {logical[d % len(logical)]!r} dim sharded "
+                    f"over {shd.spec_axes(entry)}: one mesh axis per "
+                    "parameter dim is carried")
+
+        def held_part(spec):
+            return tuple(e if e is not None and self._is_held(logical[d], e)
+                         else None for d, e in enumerate(spec))
+
+        def gathered(spec):
+            return [(d, e) for d, e in enumerate(spec)
+                    if e is not None and not self._is_held(logical[d], e)]
+
+        used = held_part(store)
+        if held_part(opt) != used:
             raise NotImplementedError(f"{name}: optimizer state sharded "
                                       "over a model axis unlike the "
                                       "parameter")
-        scatter = _over(opt, self.batch_axes)
-        reduce_axes = tuple(a for a in self.sum_axes
-                            if a not in {a for _, a in scatter})
+        scatter = [(d, a) for d, a in gathered(opt) if a in self.sum_axes]
+        cut = [(d, a) for d, a in gathered(opt) if a not in self.sum_axes]
+        owner, owned = None, True
+        if layers is not None and not (self.pipe_stage is not None
+                                       and layers == mesh_lib.PIPE_AXIS):
+            axes = shd.spec_axes(layers)
+            if len(axes) > 1 or opt != store:
+                raise NotImplementedError(
+                    f"{name}: its 'layers' dim sharded over {axes} under "
+                    f"{self.strategy!r}: a layer is owned whole on one mesh "
+                    "axis, its optimizer state with it")
+            leaf = self._jax_coordinates(name)
+            step = -(-leaf.shape[0] // mesh_lib.axis_size(mesh, axes[0]))
+            owner = (axes[0], leaf.layer // step)
+            owned = mesh_lib.axis_index(mesh, axes[0]) == owner[1]
+        reduce_axes = tuple(
+            a for a in self.sum_axes
+            if a not in {a for _, a in scatter}
+            and (owner is None or a != owner[0]))
         staged = False
         if self.pipe_stage is not None:
             staged = self._jax_coordinates(name).layer is not None
             if name in pipeline.FEED_PARAMS:  # its gradient: stage 0's
                 reduce_axes += (mesh_lib.PIPE_AXIS,)
-        return _Layout(
-            name, tuple(shape), store, opt, _over(store, self.batch_axes),
-            scatter, reduce_axes, staged)
+        return _Layout(name, tuple(shape), store, opt, used, gathered(store),
+                       scatter, cut, reduce_axes, staged, owner, owned)
 
     @torch.no_grad()
     def _shard_model(self) -> None:
         """Cut the whole model every rank built down to this rank's
-        shards: the model-parallel box (tensor, or a rowwise table's rows)
-        as the parameter the forward uses, the fsdp shard kept apart (the
-        parameter emptied until a step gathers it), the ZeRO slice as the
-        optimizer's own. A parameter the model already holds as its
-        forward box stays as it is."""
+        shards: the held box (tensor, experts, or a rowwise table's rows)
+        as the parameter the forward uses, the gathered dims' shard kept
+        apart (the parameter emptied until a step gathers it), the ZeRO
+        slice as the optimizer's own; a layer owned on another rank of a
+        sharded ``layers`` axis is not kept at all. A parameter the model
+        already holds as its forward box stays as it is."""
         axes = self._param_axes(self.model)
         self._layouts, self._stored, self._opt_params = [], [], []
         used_box = {}
@@ -458,19 +511,21 @@ class ShardedTrainer:
         for name, p in self._named_trained():
             shape = self._global_shape(name, p)
             lay = self._layout(name, shape, axes[name])
-            used_box[name] = shd.local_slices(
-                _used_part(lay.store, self.batch_axes), shape, mesh)
+            used_box[name] = shd.local_slices(lay.used, shape, mesh)
             whole = None
             if tuple(p.shape) == shape:
                 whole = p.detach()
                 p.data = _box(whole, used_box[name]).clone()
             elif (tuple(p.shape) != tuple(b - a for a, b in used_box[name])
-                  or lay.gather or lay.opt != lay.store):
+                  or lay.gather or lay.opt != lay.store or lay.owner):
                 raise ValueError(
                     f"{name}: {tuple(p.shape)} is neither the whole "
                     f"{shape} nor this rank's box {used_box[name]}")
             stored = p
-            if lay.gather:
+            if not lay.owned:
+                stored = nn.Parameter(whole.new_empty(0))
+                p.data = p.data.new_empty(0)
+            elif lay.gather or lay.owner:
                 stored = nn.Parameter(_box(whole, shd.local_slices(
                     lay.store, shape, mesh)).clone())
                 p.data = p.data.new_empty(0)
@@ -493,7 +548,9 @@ class ShardedTrainer:
         from dlrover_tpu_torch.parallel.moe import ExpertShard
 
         mesh, model = self.mesh, self.model
-        if self._tp_group is not None and used_box:
+        if self._tp_group is not None and any(
+                mesh_lib.TENSOR_AXIS in shd.spec_axes(e)
+                for lay in self._layouts for e in lay.used):
             model.tp_group = self._tp_group
             model.vocab_start = used_box["embed"][0][0]
             for module in model.modules():
@@ -503,8 +560,7 @@ class ShardedTrainer:
             model.seq_shard = seq_shard(mesh, self.seq_axes[0])
         if hasattr(model, "pipe_stage"):
             model.pipe_stage = self.pipe_stage
-        used = {lay.name: _used_part(lay.store, self.batch_axes)
-                for lay in self._layouts}
+        used = {lay.name: lay.used for lay in self._layouts}
         for name, module in model.named_modules():
             if not hasattr(module, "moe_shard"):
                 continue
@@ -519,35 +575,57 @@ class ShardedTrainer:
                 seq_group=mesh_lib.axes_group(mesh, self.seq_axes),
                 batch_group=mesh_lib.axes_group(mesh, self.batch_axes))
 
+    def _group(self, axis: str):
+        return mesh_lib.axes_group(self.mesh, (axis,))
+
     def _gather_params(self) -> None:
-        """fsdp: the parameters the forward uses, from the ranks' shards."""
+        """The parameters the forward uses, from the ranks' shards: the
+        gathered dims all-gathered, an owned layer sent from its owner."""
         for (_, p), lay, stored in zip(self._named_trained(), self._layouts,
                                        self._stored):
-            if lay.gather:
-                whole = stored.detach()
+            if not (lay.gather or lay.owner):
+                continue
+            whole = stored.detach()
+            if lay.owned:
                 for d, a in lay.gather:
-                    whole = coll.all_gather(
-                        whole, d, mesh_lib.axes_group(self.mesh, (a,)))
-                p.data = whole
+                    whole = coll.all_gather(whole, d, self._group(a),
+                                            size=lay.shape[d])
+            if lay.owner is not None:
+                if not lay.owned:
+                    whole = stored.new_empty([b - a for a, b in (
+                        shd.local_slices(lay.used, lay.shape, self.mesh))])
+                whole = coll.broadcast(whole, lay.owner[1],
+                                       self._group(lay.owner[0]))
+            p.data = whole
 
     def _release_params(self) -> None:
         for (_, p), lay in zip(self._named_trained(), self._layouts):
             p.grad = None
-            if lay.gather:
+            if lay.gather or lay.owner:
                 p.data = p.data.new_empty(0)
 
     def _reduce_to_opt(self, grads: List[torch.Tensor]
                        ) -> List[torch.Tensor]:
         """Gradients of the parameters the forward used, from this rank's
-        rows -> the optimizer's boxes of their sum over the data-parallel
-        ranks: reduce-scattered along the sharded dims, all-reduced over
-        the data-parallel axes that do not shard it (one bucket per group
-        and dtype)."""
+        rows -> the optimizer's boxes of their sum over the ranks that
+        hold other tokens, each counted once: an owned layer's summed
+        onto its owner (the others keep nothing), reduce-scattered along
+        the dims sharded over those ranks, cut along the dims sharded
+        over ranks that hold the same gradient, all-reduced over the
+        rest (one bucket per group and dtype)."""
         out, buckets = [], {}
         for lay, g in zip(self._layouts, grads):
+            if lay.owner is not None and lay.owner[0] in self.sum_axes:
+                g = coll.all_reduce_(g, self._group(lay.owner[0]))
+            if not lay.owned:
+                out.append(g.new_empty(0))
+                continue
             for d, a in lay.scatter:
-                g = coll.reduce_scatter(
-                    g, d, mesh_lib.axes_group(self.mesh, (a,)))
+                g = coll.reduce_scatter(g, d, self._group(a))
+            for d, a in lay.cut:
+                lo, hi = shd.block(g.shape[d], mesh_lib.axis_size(
+                    self.mesh, a), mesh_lib.axis_index(self.mesh, a))
+                g = g.narrow(d, lo, hi - lo).contiguous()
             out.append(g)
             if lay.reduce_axes:
                 buckets.setdefault(lay.reduce_axes, []).append(g)
@@ -565,9 +643,9 @@ class ShardedTrainer:
                                    self._opt_params):
             if lay.opt != lay.store:
                 whole = op.detach()
-                for d, a in lay.scatter:
-                    whole = coll.all_gather(
-                        whole, d, mesh_lib.axes_group(self.mesh, (a,)))
+                for d, a in lay.scatter + lay.cut:
+                    whole = coll.all_gather(whole, d, self._group(a),
+                                            size=lay.shape[d])
                 p.detach().copy_(whole)
 
     @torch.no_grad()
@@ -579,10 +657,16 @@ class ShardedTrainer:
         for (name, _), lay, stored in zip(self._named_trained(),
                                           self._layouts, self._stored):
             whole = stored.detach()
-            for d, entry in enumerate(lay.store):
-                for a in shd.spec_axes(entry):
-                    whole = coll.all_gather(
-                        whole, d, mesh_lib.axes_group(self.mesh, (a,)))
+            if lay.owned:
+                for d, entry in enumerate(lay.store):
+                    for a in shd.spec_axes(entry):
+                        whole = coll.all_gather(whole, d, self._group(a),
+                                                size=lay.shape[d])
+            if lay.owner is not None:
+                if not lay.owned:
+                    whole = stored.new_empty(lay.shape)
+                whole = coll.broadcast(whole, lay.owner[1],
+                                       self._group(lay.owner[0]))
             out[name] = whole
         if not self.sharded:
             out = {n: p.detach() for n, p in self._named_trained()}
@@ -597,7 +681,8 @@ class ShardedTrainer:
                     for n, p in self._named_trained()]
         return [(lay.name, shd.local_slices(lay.store, lay.shape, self.mesh),
                  stored.detach())
-                for lay, stored in zip(self._layouts, self._stored)]
+                for lay, stored in zip(self._layouts, self._stored)
+                if lay.owned]
 
     def state_bytes(self) -> Dict[str, int]:
         """Bytes this rank keeps between steps: its parameters (the
@@ -614,23 +699,27 @@ class ShardedTrainer:
     # ------------------------------------------------------------- norms
 
     def _global_norm(self, tensors: List[torch.Tensor],
-                     specs: List[shd.Spec]) -> torch.Tensor:
+                     specs: List[shd.Spec], owned: bool = True
+                     ) -> torch.Tensor:
         """The norm of the global tensors whose boxes, laid out by
         ``specs``, the ranks hold: each box's square counted once over
         the ranks that hold a copy of it (a block's, under "pipeline",
-        only its stage's ranks), summed over the mesh. On the device,
-        without a host sync."""
+        only its stage's ranks; with ``owned``, an owned layer's only its
+        owner's), summed over the mesh. On the device, without a host
+        sync."""
         ranks = math.prod(self.mesh.mesh.shape) if self.sharded else 1
         stages = (mesh_lib.axis_size(self.mesh, mesh_lib.PIPE_AXIS)
                   if self.pipe_stage is not None else 1)
-        staged = [lay.staged for lay in self._layouts] or [False] * len(
-            tensors)
+        holders = [
+            (stages if lay.staged else 1)
+            * (mesh_lib.axis_size(self.mesh, lay.owner[0])
+               if owned and lay.owner else 1)
+            for lay in self._layouts] or [1] * len(tensors)
         total = torch.zeros((), dtype=torch.float32, device=self.device)
-        for t, spec, own in zip(tensors, specs, staged):
+        for t, spec, share in zip(tensors, specs, holders):
             parts = math.prod(mesh_lib.axis_size(self.mesh, a)
                               for e in spec for a in shd.spec_axes(e))
-            parts *= stages if own else 1
-            total = total + _norm_sq(t) * (parts / ranks)
+            total = total + _norm_sq(t) * (parts * share / ranks)
         if ranks > 1:
             coll.all_reduce_(total, dist.group.WORLD)
         return total.sqrt()
@@ -660,8 +749,8 @@ class ShardedTrainer:
                                                 self.pipe_stage.group)
         if not self.sharded:
             return self._global_norm(grads, [()] * len(grads))
-        return self._global_norm(grads, [
-            _used_part(lay.store, self.batch_axes) for lay in self._layouts])
+        return self._global_norm(grads, [lay.used for lay in self._layouts],
+                                 owned=False)
 
     # -------------------------------------------------------------- state
 
@@ -725,13 +814,15 @@ class ShardedTrainer:
                             spec, lay.shape, self.mesh,
                             where={mesh_lib.PIPE_AXIS: self.pipe_stage.owner(
                                 i, leaf.shape[0])})]
-            box = shd.local_slices(spec, lay.shape, self.mesh)
-            sl.pieces.append((leaf.index(box), leaf.to_jax(t.detach())))
+            if lay.owned:
+                box = shd.local_slices(spec, lay.shape, self.mesh)
+                sl.pieces.append((leaf.index(box), leaf.to_jax(t.detach())))
             if not lay.staged:
                 sl.domains += [
                     {"idx": leaf.index(b), "replicas": r}
-                    for b, r in shd.global_boxes(spec, lay.shape,
-                                                 self.mesh)]
+                    for b, r in shd.global_boxes(
+                        spec, lay.shape, self.mesh,
+                        where=dict([lay.owner]) if lay.owner else None)]
         return _as_lists(root)
 
     def _jax_state(self) -> Dict[str, Any]:
@@ -751,31 +842,37 @@ class ShardedTrainer:
         pieces = []
         for lay in self._layouts:
             leaf = self._jax_coordinates(lay.name)
+            if not lay.owned:  # an owned layer of another rank: no piece
+                pieces.append((leaf, None))
+                continue
             k = seen[leaf.path] = seen.get(leaf.path, -1) + 1
             pieces.append((leaf, k))
 
-        def boxes(tree) -> List[torch.Tensor]:
+        def boxes(tree, live) -> List[torch.Tensor]:
             out = []
-            for leaf, k in pieces:
+            for (leaf, k), own in zip(pieces, live):
                 node = tree
                 for key in leaf.path:
                     node = node[key]
-                out.append(leaf.from_jax(node.pieces[k][1]))
+                out.append(own if k is None
+                           else leaf.from_jax(node.pieces[k][1]))
             return out
 
-        for dst, src in zip(self._stored, boxes(state["model"])):
-            dst.copy_(src)
+        for dst, src in zip(self._stored, boxes(state["model"],
+                                                self._stored)):
+            if src is not dst:
+                dst.copy_(src)
         for lay, stored, op in zip(self._layouts, self._stored,
                                    self._opt_params):
             if op is not stored:  # ZeRO: the slice of the parameter
                 op.copy_(_box(stored, shd.local_slices(
                     lay.opt, lay.shape, self.mesh)))
 
-        def saved(path, _):
+        def saved(path, live):
             node = state["optimizer"]
             for key in path:
                 node = node[key]
-            return boxes(node)
+            return boxes(node, live)
 
         self._load_optimizer(map_per_param(optimizer_state(self.optimizer),
                                            saved), state["optimizer"])
@@ -1049,7 +1146,8 @@ def family_trainer(cfg, loss_fn: Callable, init_fn: Callable,
                    mesh=None, param_axes: Optional[Callable] = None,
                    jax_coordinates: Optional[Callable] = None,
                    value_and_grad: Optional[Callable] = None,
-                   pipe_stage=None) -> ShardedTrainer:
+                   pipe_stage=None,
+                   held_axes: Optional[Callable] = None) -> ShardedTrainer:
     """A family's trainer (each family's ``make_trainer``), logged with
     its config and size."""
     trainer = ShardedTrainer(
@@ -1057,6 +1155,7 @@ def family_trainer(cfg, loss_fn: Callable, init_fn: Callable,
         optimizer=optimizer, accum_steps=accum_steps, mesh=mesh,
         param_axes=param_axes, jax_coordinates=jax_coordinates,
         value_and_grad=value_and_grad, pipe_stage=pipe_stage,
+        held_axes=held_axes,
     )
     logger.info(
         "ShardedTrainer: %s params=%.1fM device=%s mesh=%s strategy=%s "
@@ -1091,10 +1190,11 @@ def make_trainer_for_llama(
     its stage's blocks; without a pipe axis it runs as tp_fsdp."""
     from dlrover_tpu_torch.models import llama
 
-    if mesh is None and strategy in ("sequence", "pipeline"):
+    if mesh is None:
         mesh = mesh_lib.create_mesh(
             [(mesh_lib.DATA_AXIS, 1), (mesh_lib.FSDP_AXIS, -1)],
             device=resolve_device(device))
+    llama.check_heads(cfg, shd.get_rules(strategy), mesh)
     if attn_fn is None and strategy == "sequence":
         from dlrover_tpu_torch.parallel.context_parallel import (
             make_context_parallel_attn,
@@ -1120,4 +1220,5 @@ def make_trainer_for_llama(
         strategy=strategy, accum_steps=accum_steps, optimizer=optimizer,
         mesh=mesh, param_axes=lambda model: llama.param_axes(cfg),
         jax_coordinates=lambda name: llama.jax_coordinates(cfg, name),
-        value_and_grad=value_and_grad, pipe_stage=stage)
+        value_and_grad=value_and_grad, pipe_stage=stage,
+        held_axes=llama.held_axes)

@@ -9,11 +9,15 @@ the bit), whole into one rank, and the JAX loader reads it. A JAX
 "pipeline" step of the same two ranks on (pipe 2) with two chunks a
 stage (rank 0 holds layers 0 and 2, rank 1 layers 1 and 3) holds each
 layer's box once, on the rank of its stage, and the embedding on both;
-it restores whole into one rank.
+it restores whole into one rank. A GPT ``fsdp`` step of the same ranks
+at a vocab of 257, whose embedding rows split unevenly (129 and 128, as
+GSPMD pads them), keeps the true global shape in its domains and
+restores whole into one rank.
 Cases of test_torch_ckpt_world.py's style; the two ranks are
 test_torch_strategies.py's, which run this module's job after their
 cases."""
 
+import dataclasses
 import textwrap
 
 import jax
@@ -111,6 +115,28 @@ _JOB = textwrap.dedent("""
                    f"{work}/pipe_ckpt_rank{rank}.pt")
 
     pipe_ckpt_job(work, env.rank)
+
+    def gpt_ckpt_job(work, rank):
+        from dlrover_tpu_torch.models import gpt, make_trainer_for
+        from dlrover_tpu_torch.trainer.checkpoint import FlashCheckpointer
+        cfg = dataclasses.replace(gpt.gpt_tiny(), vocab_size=257)
+        data = np.load(f"{work}/ckpt_batches.npz")
+        t = make_trainer_for(cfg, device="cpu", strategy="fsdp",
+                             mesh=create_mesh([("fsdp", 2)], device="cpu"),
+                             optimizer=adamw(1e-3, b1=0.9, b2=0.95))
+        t.init(seed=0)
+        for i in range(STEP):
+            t.train_step(t.shard_batch(t.microbatch(t.split_batch(
+                (data["tokens"][i], data["targets"][i])))))
+        saver = FlashCheckpointer(f"{work}/gpt_store",
+                                  ram_dir=f"{work}/gpt_ram{rank}",
+                                  persist_interval=STEP, commit_timeout=20)
+        saver.save(STEP, {**t.train_state(), "step": STEP, "data": ""})
+        saver.close()
+        torch.save({n: p.clone() for n, p in t.gathered_params().items()},
+                   f"{work}/gpt_ckpt_rank{rank}.pt")
+
+    gpt_ckpt_job(work, env.rank)
 """).replace("STEP", str(STEP))
 
 
@@ -305,6 +331,43 @@ def test_pipeline_save_restores_whole_into_one_rank(two_ranks, tmp_path):
                                      optimizer=adamw(1e-3, b1=0.9, b2=0.95))
     trainer.init(seed=5)
     solo = FlashCheckpointer(str(work / "pipe_store"),
+                             ram_dir=str(tmp_path / "ram-solo"))
+    got, step = solo.restore(
+        target={**trainer.train_state(), "step": 0, "data": ""})
+    solo.close()
+    assert step == STEP
+    trainer.load_train_state(got)
+    gathered = trainer.gathered_params()
+    assert gathered.keys() == saved.keys()
+    for name, p in gathered.items():
+        assert torch.equal(p, saved[name]), name
+
+
+def test_gpt_fsdp_save_restores_whole_into_one_rank(two_ranks, tmp_path):
+    """The GPT fsdp save at a vocab of 257: the embedding's domains keep
+    its global shape, rows 0-128 on rank 0 and 129-256 on rank 1; read
+    whole into a one-rank GPT fsdp trainer, every parameter equal to the
+    bit to the two ranks' gathered ones."""
+    from dlrover_tpu_torch.models import gpt, make_trainer_for
+
+    work, _ = two_ranks
+    store = ckpt_store.get_store(str(work / "gpt_store"))
+    assert ckpt_store.committed_steps(store) == [STEP]
+    leaves = _leaves(ckpt_store.step_manifest(store, STEP))
+    for tree in ("model", "optimizer/mu", "optimizer/nu"):
+        embed = leaves[f"{tree}/embed"]
+        assert embed["shape"] == [257, 64]
+        assert [(d["idx"], d["replicas"]) for d in embed["domains"]] == [
+            ([[0, 129], [0, 64]], [0]), ([[129, 257], [0, 64]], [1])]
+    saved = torch.load(work / "gpt_ckpt_rank0.pt")
+    assert all(torch.equal(p, saved[n]) for n, p in
+               torch.load(work / "gpt_ckpt_rank1.pt").items())
+    cfg = dataclasses.replace(gpt.gpt_tiny(), vocab_size=257)
+    trainer = make_trainer_for(cfg, device="cpu",
+                               strategy="fsdp",
+                               optimizer=adamw(1e-3, b1=0.9, b2=0.95))
+    trainer.init(seed=5)
+    solo = FlashCheckpointer(str(work / "gpt_store"),
                              ram_dir=str(tmp_path / "ram-solo"))
     got, step = solo.restore(
         target={**trainer.train_state(), "step": 0, "data": ""})

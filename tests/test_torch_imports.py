@@ -72,6 +72,13 @@ def test_the_mesh_modules_are_under_the_rule():
             "trainer/sharded.py"} <= ported
 
 
+def test_the_strategy_search_is_under_the_rule():
+    ported = {str(p.relative_to(PORT)) for p in FILES if p.is_relative_to(PORT)}
+    assert {"auto/strategy.py", "auto/analyser.py", "auto/bo.py",
+            "auto/planner.py", "auto/accelerate.py", "auto/probe.py",
+            "auto/device_context.py", "examples/auto_train.py"} <= ported
+
+
 def test_the_optimizers_are_under_the_rule():
     ported = {str(p.relative_to(PORT)) for p in FILES if p.is_relative_to(PORT)}
     assert {"optim/__init__.py", "optim/bf16.py", "optim/optimizers.py",

@@ -150,8 +150,12 @@ def test_placements_and_boxes():
                      ([(0, 4), (2, 4)], [2]), ([(4, 8), (2, 4)], [3])]
     norm = shd.global_boxes((None,), (8,), mesh)
     assert norm == [([(0, 8)], [0, 1, 2, 3])]
-    with pytest.raises(ValueError, match="does not split"):
-        shd.local_slices(("fsdp",), (3,), mesh)
+    # a dim that does not divide splits as GSPMD pads it: blocks of
+    # ceil(n / parts), the last short (or empty)
+    assert [b for b, _ in shd.global_boxes(("fsdp",), (3,), mesh)] == [
+        [(0, 2)], [(2, 3)]]
+    assert [shd.block(5, 4, i) for i in range(4)] == [
+        (0, 2), (2, 4), (4, 5), (5, 5)]
 
 
 def test_single_rank_mesh_without_a_group():
