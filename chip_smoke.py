@@ -146,8 +146,12 @@ Phases, each of which raises on failure:
     the same llama_1b cut to 4 layers, batch 3 x 2048 per data-parallel
     rank, AdamW(1e-4, 0.9, 0.95), 1 warm-up and 3 timed steps each (2
     for tp_fsdp, for the script's time limit). Two gloo ranks on
-    ``cuda:0`` run zero1, zero2 and fsdp on (fsdp 2) and tp on (tensor
-    2), in the same processes; four run tp_fsdp on (fsdp 2, tensor 2).
+    ``cuda:0`` run zero1 and zero2 on (fsdp 2) and tp on (tensor 2), in
+    the same processes; four run tp_fsdp on (fsdp 2, tensor 2). (fsdp on
+    (fsdp 2), at the same model and batch, runs in phase "reshard" under
+    the same loss, parameter and byte gates, its saves restored bitwise
+    at one rank and at two, for the script's time limit; ``run_mesh``'s
+    default runs it here too.)
     The reference is the port's one-process step on the card from the
     same weights on each global batch. Gates: each step's loss within
     MESH_LOSS_RTOL (1e-3) relative of the reference's; at least
@@ -160,10 +164,8 @@ Phases, each of which raises on failure:
     optimizer-state bytes equal
     to the bytes of the domains the rank holds, and to the layout's
     share (half at fsdp 2 or tensor 2, a quarter at 2 x 2), parameter
-    bytes halved under fsdp and tp; 4 launches of each kernel per rank
-    per step, every rank on ``cuda:0``; the fsdp save at step 2 restored
-    into fresh ranks bitwise (the checksums of every shard) and whole
-    into this process. Printed per strategy: step and collective ms,
+    bytes halved under tp; 4 launches of each kernel per rank per step,
+    every rank on ``cuda:0``. Printed per strategy: step and collective ms,
     peak memory, bytes per rank, the parameters' share within 2 lr and
     their update's relative error; the collective route of the layer.
     Then, in the same two ranks, the Llama state freed, "rowwise" on
@@ -250,13 +252,44 @@ Phases, each of which raises on failure:
     step under "mesh"'s gates, and gpt2_small's 12 launches of each
     kernel a rank a step at its tp shape (B=8, S=1024, H=KVH=6, D=64),
     which phase 3 checks too;
-19. the wall seconds of each phase, then the kernels line (one JSON
+19. reshard: reshard-in-place (``reshard/``), the llama_1b of "mesh"
+    (4 layers) under fsdp, 3 x 2048 a data-parallel rank,
+    AdamW(1e-4, 0.9, 0.95), two gloo ranks on ``cuda:0`` against a
+    master servicer built with a ``TransitionCoordinator`` (this process
+    plays the distributed master's part), a flash checkpoint every step
+    (durable on the RAM tier, persisted behind the next step, committed
+    before rank 1's death and before the survivor idles). Two steps, the
+    world sealed; ``node_lost@3:host=1`` SIGKILLs rank 1 after its
+    step-3 save is committed; rank 0's step 4 fails in a
+    gloo collective, it adopts the shrink order, re-forms a world of one
+    in process and migrates live (its half from its live tensors, rank
+    1's from the store), 2 steps at world 1 (two microbatches); a joiner
+    reports RUNNING, the grow order re-forms a world of two, rank 0
+    migrates live and the joiner assembles its half over rank 0's
+    ``/ckpt/shard``, 2 steps at world 2. Gates: each migrated
+    state bitwise a fresh one-process ``restore(step=pinned)``'s, the
+    steps after each transition against the one-process step from it
+    ("mesh"'s loss and parameter gates), "mesh"'s byte gates at every
+    step (parameter bytes halved at world 2, optimizer bytes those of
+    the domains the rank holds, the moments fp32 after world 1), the
+    final world-2 save restored bitwise at world 2 from the store, the
+    survivor's pid, both orders
+    completed, the journal's replay with a reshard window and no
+    restart, ``live``, ``store`` and ``peer`` moves with no digest
+    mismatch, 4 (8 at world 1) launches of each kernel a step, a planted
+    stale-live migration caught by the bitwise gate. Printed: adopt to
+    completed ms per transition and rank, the kill to the end of the
+    first world-1 step (``recovery_s``, as "launch" reads it), the
+    survivor's reshard windows, migration seconds and bytes by source,
+    the joiner's start and its RUNNING to its first step, step and save
+    times, launches a step;
+20. the wall seconds of each phase, then the kernels line (one JSON
     object; each kernel at both train steps' shapes, at the tp shape of
     "mesh", with ``mesh_launches``, at the shapes of "sequence", at
     the microbatch shape of "pipeline" and at gpt2_small's tp shape of
     "auto"; the Llama step's rows carry ``auto_launches``, the winner's
-    of "auto"), then the card's name and power limit, then the device
-    line, last.
+    of "auto", and ``reshard_launches``, phase "reshard"'s), then the
+    card's name and power limit, then the device line, last.
 
 Exits non-zero, and prints no result, when there is no CUDA device or
 when the package is not beside this file.
@@ -2707,6 +2740,12 @@ MESH_RUNS = {
         ("rowwise", [("data", 1), ("fsdp", 2)])],
     4: [("tp_fsdp", [("fsdp", 2), ("tensor", 2)])],
 }
+#: the runs of the script's phase "mesh": MESH_RUNS but fsdp, whose step
+#: (llama_1b at 4 layers on (fsdp 2), 3 x 2048 a rank) phase "reshard"
+#: runs and holds to the one-process step under the same gates, and
+#: whose saves it restores bitwise at one rank and at two
+MESH_PHASE_RUNS = {n: [(s, spec) for s, spec in group if s != "fsdp"]
+                   for n, group in MESH_RUNS.items()}
 #: "rowwise" (the recommender): (a) criteo_wide_deep at batch ROWWISE_BATCH,
 #: ROWWISE_STEPS adagrad(0.05) steps against the one-process step from the
 #: same seed; (b) dlrm_large at ROWWISE_SCALE_ROWS rows at its published
@@ -3533,19 +3572,19 @@ def run_mesh(layers: int = MESH_LAYERS, device=None, runs=None,
 
 
 def phase_mesh() -> dict:
-    """The sharding strategies across ranks on the card: zero1, zero2 and
-    fsdp on (fsdp 2), tp on (tensor 2), two gloo ranks on ``cuda:0``;
-    tp_fsdp on (fsdp 2, tensor 2), four. Each against the port's
-    single-process step from the same weights on the same global
-    batches; an fsdp save at step 2 restored into fresh ranks and into
-    one rank. Then "rowwise" in the two ranks (the docstring's phase
-    14)."""
+    """The sharding strategies across ranks on the card: zero1 and zero2
+    on (fsdp 2), tp on (tensor 2), two gloo ranks on ``cuda:0``; tp_fsdp
+    on (fsdp 2, tensor 2), four. Each against the port's single-process
+    step from the same weights on the same global batches. Then
+    "rowwise" in the two ranks (the docstring's phase 14). fsdp runs in
+    phase "reshard" (``MESH_PHASE_RUNS``); ``run_mesh``'s default runs
+    it here too, with its save."""
     import torch
 
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.time()
-    got = run_mesh(MESH_LAYERS)
+    got = run_mesh(MESH_LAYERS, runs=MESH_PHASE_RUNS)
     emit({"phase": "mesh", "model": "llama_1b", "layers": MESH_LAYERS,
           "batch_per_dp_rank": SLICE["b"], "seq": SLICE["s"],
           "warmup": MESH_WARMUP, "timed": MESH_TIMED, "lr": MESH_LR,
@@ -4978,6 +5017,861 @@ def phase_auto() -> dict:
             "gpt_tp_launches": mesh["readings"]["gpt_tp_launches"]}
 
 
+#: phase "reshard": reshard-in-place (``reshard/``), the llama_1b fsdp step
+#: of "mesh" (4 layers, 3 x 2048 a data-parallel rank) across two gloo
+#: ranks on ``cuda:0``, a flash checkpoint every step on both tiers. Rank
+#: 1 dies (SIGKILL) after its step RESHARD_LOST is durable; rank 0 shrinks
+#: to a world of one in process, trains RESHARD_WORLD1_STEPS steps; a
+#: joiner grows the world back to two, RESHARD_WORLD2_STEPS steps more
+RESHARD_LAYERS = LAUNCHER_LAYERS
+RESHARD_LOST = 3
+RESHARD_WORLD1_STEPS = 2
+RESHARD_WORLD2_STEPS = 2
+RESHARD_FINAL = RESHARD_LOST + RESHARD_WORLD1_STEPS + RESHARD_WORLD2_STEPS
+#: the global batch: 3 rows a data-parallel rank at world 2; at world 1
+#: the survivor takes them all in two microbatches (ElasticTrainer)
+RESHARD_GLOBAL_B = 2 * SLICE["b"]
+#: the step whose live state the planted stale-live migration serves
+RESHARD_STALE = RESHARD_LOST - 1
+RESHARD_TIMEOUT_S = 300
+RESHARD_HEARTBEAT_S = 30
+#: on the CPU (a dry run of the phase's logic): llama_tiny at this length
+RESHARD_S_CPU = 64
+#: the rc of a rank that took the restart-the-world fallback
+RESHARD_FALLBACK_RC = 7
+#: the master KV key the harness sets when the joiner may report RUNNING
+#: (the survivor idles): the joiner starts ahead, as a scheduler would
+#: bring a node up, and announces itself then
+RESHARD_GO_KEY = "reshard/drill/join"
+
+
+
+def _box_sums(state, boxes=None) -> dict:
+    """``{"path@box": checksum}`` of a train state's tensors, box by box
+    (each ShardedLeaf's pieces; a plain tensor whole), other leaves as
+    they are; with ``boxes`` ({path: [box, ...]}, another rank's) the
+    same boxes cut out of this state's whole tensors. Equal sums are
+    equal bits (``ckpt_store.state_checksums``'s checksum)."""
+    import torch
+
+    from dlrover_tpu_torch.trainer import ckpt_store
+
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = {}
+    for path, leaf in ckpt_store.flatten_with_path(state):
+        key = "/".join(str(c.get("k", c.get("i"))) for c in path)
+        if isinstance(leaf, ckpt_store.ShardedLeaf):
+            pieces = [([list(map(int, b)) for b in idx], t)
+                      for idx, t in leaf.pieces]
+            if boxes is not None:
+                whole = _whole(leaf)
+                pieces = [(idx, whole[tuple(slice(a, b) for a, b in idx)])
+                          for idx in boxes.get(key, [])]
+        elif isinstance(leaf, torch.Tensor):
+            pieces = [([[0, n] for n in leaf.shape], leaf)]
+        else:
+            out[key] = leaf
+            continue
+        for idx, t in pieces:
+            out[f"{key}@{idx}"] = ckpt_store._checksum(
+                t.contiguous(), ints)
+    return out
+
+
+def _whole(leaf):
+    """A ShardedLeaf's tensor whole, from pieces that cover it (a
+    one-process state: a stacked leaf's layers are pieces of it)."""
+    t0 = leaf.pieces[0][1]
+    out = t0.new_empty(tuple(leaf.shape))
+    for idx, t in leaf.pieces:
+        out[tuple(slice(int(a), int(b)) for a, b in idx)] = t
+    return out
+
+
+def _numpy_state(state) -> dict:
+    """{"path": (float32 or int array, dtype name)} of a one-process
+    train state, each leaf whole in the JAX tree's coordinates (the
+    start of a parity test's JAX side)."""
+    import torch
+
+    from dlrover_tpu_torch.trainer import ckpt_store
+
+    out = {}
+    for path, leaf in ckpt_store.flatten_with_path(state):
+        key = "/".join(str(c.get("k", c.get("i"))) for c in path)
+        if isinstance(leaf, ckpt_store.ShardedLeaf):
+            leaf = _whole(leaf)
+        if isinstance(leaf, torch.Tensor):
+            x = leaf.detach().cpu()
+            out[key] = ((x.float() if x.is_floating_point() else x).numpy(),
+                        str(x.dtype).replace("torch.", ""))
+        else:
+            out[key] = (leaf, type(leaf).__name__)
+    return out
+
+
+def _sums_boxes(sums: dict) -> dict:
+    """{path: [box, ...]} of a rank's ``_box_sums``."""
+    out = {}
+    for key in sums:
+        if "@" in key:
+            path, box = key.split("@", 1)
+            out.setdefault(path, []).append(json.loads(box))
+    return out
+
+
+def _clone_state(state):
+    """A copy of a train state's tensors (the planted stale live state)."""
+    import torch
+
+    from dlrover_tpu_torch.trainer import ckpt_store
+
+    leaves = []
+    for _, leaf in ckpt_store.flatten_with_path(state):
+        if isinstance(leaf, ckpt_store.ShardedLeaf):
+            leaf = leaf.with_tensors([t.clone() for t in leaf.tensors()])
+        elif isinstance(leaf, torch.Tensor):
+            leaf = leaf.clone()
+        leaves.append(leaf)
+    return ckpt_store.unflatten_like(state, leaves)
+
+
+def reshard_tokens(cfg, s: int):
+    """The phase's dataset: rows of ``s + 1`` token ids from seed 13,
+    enough for every step and the one a dead rank left in flight."""
+    import numpy as np
+
+    n_rows = RESHARD_GLOBAL_B * (RESHARD_FINAL + 3)
+    return np.random.default_rng(13).integers(
+        0, cfg.vocab_size, (n_rows, s + 1))
+
+
+def _reshard_cfg(layers: int, device=None, tiny: bool = False):
+    """The phase's model: "mesh"'s (llama_1b cut to ``layers``; on the
+    CPU llama_tiny), or with ``tiny`` on the card llama_tiny at head_dim
+    64, which the flash kernels take."""
+    from dlrover_tpu_torch.models import llama
+
+    if tiny and device != "cpu":
+        return llama.llama_tiny(hidden_size=256, num_layers=layers,
+                                remat="dots_attn_out")
+    return _mesh_cfg(layers, device)
+
+
+def _reshard_trainer(cfg, device):
+    """The phase's trainer: fsdp over the process group's world (JAX's
+    default mesh), AdamW(1e-4, 0.9, 0.95) as in "mesh", seed 0."""
+    from dlrover_tpu_torch.trainer.sharded import (
+        adamw, make_trainer_for_llama)
+
+    t = make_trainer_for_llama(cfg, device=device, strategy="fsdp",
+                               optimizer=adamw(MESH_LR, b1=0.9, b2=0.95))
+    t.init(seed=0)
+    return t
+
+
+def _restore_target(trainer, store_dir: str, step: int) -> dict:
+    """A restore target of ``trainer``'s state at the dtypes ``step``
+    saved (its AdamW moments fp32 after a step of two microbatches)."""
+    from dlrover_tpu_torch.trainer import ckpt_store
+
+    return ckpt_store.with_dtypes(
+        {**trainer.train_state(), "step": 0, "data": ""},
+        ckpt_store.step_dtypes(ckpt_store.get_store(store_dir), step))
+
+
+def _state_bytes_expected(cfg, layers: int, world: int,
+                          moment_bytes: int) -> dict:
+    """An fsdp rank's parameter and optimizer bytes at ``world`` ranks
+    ("mesh"'s byte gates): the bf16 matrices split over the ranks, the
+    fp32 norms whole on each; AdamW's two moments at ``moment_bytes`` an
+    element for the matrices, fp32 for the norms."""
+    from dlrover_tpu_torch.models import llama
+
+    norms = 4 * cfg.hidden_size * (2 * layers + 1)  # fp32 norms' bytes
+    matrices = llama.param_count(cfg) - norms // 4  # elements
+    return {"params": 2 * matrices // world + norms,
+            "optimizer": 2 * (moment_bytes * matrices // world + norms)}
+
+
+def reshard_rank(work: str, layers: int, device=None) -> None:
+    """One process of phase "reshard" (``python -c``): node 0 or 1 of the
+    first world (``DLROVER_TPU_NODE_RANK``), or the joiner
+    (``RESHARD_JOINER=1``). Steps the fsdp trainer under an
+    ElasticTrainer against the phase's master, saves every step durably
+    on both tiers, and carries the master's transition orders out in
+    process (``ElasticTrainer.execute_reshard``); one JSON line a step
+    (``STEP``) on stdout and ``node<n>.json`` at the end."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.agent.master_client import build_master_client
+    from dlrover_tpu_torch.checkpoint.peer import PeerRegistry
+    from dlrover_tpu_torch.common.constants import NodeEnv
+    from dlrover_tpu_torch.ops.cuda import flash_attention as fa
+    from dlrover_tpu_torch.reshard.migrate import migrate_live
+    from dlrover_tpu_torch.telemetry.http import (
+        MetricsServer, set_shard_provider)
+    from dlrover_tpu_torch.trainer import distributed as coll
+    from dlrover_tpu_torch.trainer.checkpoint import FlashCheckpointer
+    from dlrover_tpu_torch.trainer.elastic import ElasticTrainer
+    from dlrover_tpu_torch.trainer.sampler import ElasticDistributedSampler
+
+    node = int(os.environ[NodeEnv.NODE_RANK])
+    joiner = os.environ.get("RESHARD_JOINER") == "1"
+    with open(os.path.join(work, "plan.json")) as f:
+        plan = json.load(f)
+    cuda = device != "cpu"
+    if not cuda:
+        torch.set_num_threads(1)
+    if not joiner:
+        coll.init_from_env(timeout_s=120, backend="gloo", device=device)
+    elif cuda:
+        torch.cuda.set_device(0)
+    client = build_master_client()
+    server = MetricsServer(port=0).start()
+    url = f"http://127.0.0.1:{server.port}"
+    cfg = _reshard_cfg(layers, device, plan.get("tiny"))
+    tokens = np.load(os.path.join(work, "tokens.npy"))
+    store_dir = os.path.join(work, "store")
+    ckpt_kwargs = dict(ram_dir=os.path.join(plan["ram"], f"ram{node}"),
+                       persist_interval=1, max_ram_keep=2,
+                       max_persist_keep=RESHARD_FINAL + 1,
+                       commit_timeout=60.0)
+    out = {"node": node, "pid": os.getpid(), "steps": [],
+           "transitions": [], "device": None}
+
+    def build():
+        return _reshard_trainer(cfg, device)
+
+    sampler = ElasticDistributedSampler(len(tokens), 1, 0, shuffle=False)
+
+    def resize(size, index, data):
+        if data:
+            sampler.load_state_dict(json.loads(data))
+        if plan.get("plant") == "no_resize" and not joiner:
+            return  # planted: the survivor keeps the old world's stride
+        sampler.set_world(size, index)
+
+    if joiner:
+        elastic = ElasticTrainer(None, max_nodes=2, cur_nodes=1,
+                                 master_client=client)
+        world = 0
+        # the joiner warms up before it announces itself (as a spare
+        # pre-builds its model): one throwaway step at world 1 loads the
+        # kernels and the libraries' handles on its card
+        warm = build()
+        warm.train_step(warm.shard_batch(warm.microbatch(
+            (tokens[:SLICE["b"], :-1], tokens[:SLICE["b"], 1:]))))
+        del warm
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        print("READY", flush=True)
+        while not client.kv_store_get(RESHARD_GO_KEY):
+            time.sleep(0.05)
+        out["running_ts"] = time.time()
+    else:
+        rank, world = dist.get_rank(), dist.get_world_size()
+        elastic = ElasticTrainer(build(), max_nodes=2, cur_nodes=world,
+                                 master_client=client)
+        ckpt = FlashCheckpointer(
+            store_dir, process_index=rank, n_processes=world,
+            peer_registry=PeerRegistry(client, rank, url), **ckpt_kwargs)
+        set_shard_provider(ckpt.shard_provider())
+        elastic.attach_checkpointer(ckpt, 1)
+        sampler.set_world(world, rank)
+    client.update_node_status("running")
+    stale = None
+
+    def planted_sums(res):
+        """The planted fault: a migration that serves a stale step's live
+        boxes as the pinned step's. Its state goes nowhere; its sums are
+        checked against the sound migration's, which they must fail."""
+        reader = FlashCheckpointer(
+            store_dir, ram_dir=os.path.join(work, "ram-plant"),
+            process_index=res["index"], n_processes=res["world_size"])
+        planted = build()
+        bad, _, stats = migrate_live(
+            reader, stale, step=res["step"], live_step=res["step"],
+            target=_restore_target(planted, store_dir, res["step"]))
+        reader.close()
+        planted.load_train_state(bad)
+        planted.set_accum_steps(elastic.trainer.accum_steps)
+        sums = _box_sums({**planted.train_state(), "step": res["step"],
+                          "data": ""})
+        return sums, stats
+
+    def transition(order, live_step):
+        t0 = time.perf_counter()
+        res = elastic.execute_reshard(
+            order, build, store_dir, ckpt_kwargs, peer_url=url,
+            live_step=live_step, resize=resize, backend="gloo",
+            timeout_s=RESHARD_TIMEOUT_S, save_interval=1)
+        if res is None:
+            out["fallback"] = order.id
+            with open(os.path.join(work, f"node{node}.json"), "w") as f:
+                json.dump(out, f)
+            print("FALLBACK", flush=True)
+            sys.exit(RESHARD_FALLBACK_RC)
+        t1 = time.perf_counter()
+        res["adopt_to_completed_ms"] = (t1 - t0) * 1e3
+        res["live_step"] = live_step
+        res["sums"] = _box_sums({**elastic.trainer.train_state(),
+                                 "step": res["step"], "data": ""})
+        # the gate's sums delay the first step after the transition
+        res["checks_s"] = time.perf_counter() - t1
+        out["transitions"].append(res)
+        print("TRANSITION " + json.dumps(
+            {k: v for k, v in res.items() if not k.endswith("sums")}),
+            flush=True)
+        return res["step"], res["world_size"]
+
+    if joiner:
+        order = elastic.wait_reshard(RESHARD_TIMEOUT_S)
+        if order is None:
+            sys.exit(RESHARD_FALLBACK_RC)
+        step, world = transition(order, None)
+    else:
+        step = 0
+    while step < RESHARD_FINAL:
+        order = elastic.pending_reshard()
+        if order is None and world == 1 and (
+                step == RESHARD_LOST + RESHARD_WORLD1_STEPS):
+            # the survivor's world-1 steps are done: the planted migration
+            # of the shrink runs here, off the timed path, then it waits
+            # to be grown
+            shrink = out["transitions"][-1]
+            if stale is not None:
+                shrink["planted_sums"], shrink["planted_stats"] = (
+                    planted_sums(shrink))
+                stale = None
+            print("IDLE", flush=True)
+            order = elastic.wait_reshard(RESHARD_TIMEOUT_S)
+            if order is None:
+                sys.exit(RESHARD_FALLBACK_RC)
+        if order is not None:
+            step, world = transition(order, step)
+            continue
+        t = elastic.trainer
+        idx = next(sampler.iter_batches(RESHARD_GLOBAL_B // world))
+        mb = t.shard_batch(elastic.microbatch(
+            (tokens[idx, :-1], tokens[idx, 1:])))
+        before = dict(fa.LAUNCHES)
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            loss = elastic.train_step(mb).item()
+        except Exception as e:  # noqa: BLE001 - a peer died mid-step
+            # every collective of the step runs before its first
+            # in-place write: the live state is still step's
+            print(f"STEP FAILED {step + 1}: {e!r}"[:300], flush=True)
+            out["failed_step"] = step + 1
+            order = elastic.wait_reshard(RESHARD_TIMEOUT_S)
+            if order is None:
+                sys.exit(RESHARD_FALLBACK_RC)
+            step, world = transition(order, step)
+            continue
+        if cuda:
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        t_end = time.time()
+        step += 1
+        launches = {k: fa.LAUNCHES[k] - before[k] for k in before}
+        state = {**t.train_state(), "step": step,
+                 "data": json.dumps(sampler.state_dict())}
+        t1 = time.perf_counter()
+        elastic.maybe_checkpoint(state, step=step, force=True, durable=True)
+        if step == RESHARD_LOST or (
+                world == 1 and step == RESHARD_LOST + RESHARD_WORLD1_STEPS):
+            # the drill's durable points: the victim's last save (and its
+            # peer's) committed before the injection kills it; the
+            # survivor's saves committed before it idles. Elsewhere the
+            # persist runs behind the next step
+            elastic.checkpointer.wait()
+        save_s = time.perf_counter() - t1
+        if plan.get("stale") and step == RESHARD_STALE and node == 0:
+            stale = _clone_state(state)
+        parts = elastic.checkpointer.save_stats.get(step, {})
+        rec = {"step": step, "loss": loss, "ms": ms, "save_s": save_s,
+               "save_parts": {k: v for k, v in parts.items()
+                              if isinstance(v, (int, float)) and k != "t0"},
+               "world": world, "accum": t.accum_steps, "t_end": t_end,
+               "bytes": t.state_bytes(),
+               "owned_opt_bytes": _owned_bytes(
+                   state, dist.get_rank() if dist.is_initialized() else 0),
+               "rows": [int(i) for i in idx], "launches": launches}
+        out["steps"].append(rec)
+        out.setdefault("first_step_ts", time.time())
+        out["device"] = str(t.local_shards()[0][2].device)
+        print("STEP " + json.dumps(rec), flush=True)
+        if step in (RESHARD_LOST + RESHARD_WORLD1_STEPS, RESHARD_FINAL):
+            torch.save([(n, b, x.cpu()) for n, b, x in t.local_shards()],
+                       os.path.join(work, f"params{node}_{step}.pt"))
+        # the injector fires here, after the step's save is durable
+        elastic.report_step(step, loss=loss)
+    out["pid_end"] = os.getpid()
+    # the last world-2 save restored bitwise at world 2: a fresh
+    # checkpointer, its RAM tier empty and no peers, reads it from the
+    # store once both ranks' saves are committed
+    elastic.checkpointer.wait()
+    dist.barrier()
+    reader = FlashCheckpointer(
+        store_dir, ram_dir=os.path.join(work, f"ram-final{node}"),
+        process_index=dist.get_rank(), n_processes=dist.get_world_size())
+    live = {**elastic.trainer.train_state(), "step": step, "data": ""}
+    t0 = time.perf_counter()
+    got, at = reader.restore(target=live, step=step)
+    reader.close()
+    out["final_restore"] = {
+        "step": at, "tier": reader.last_restore_stats["tier"],
+        "seconds": time.perf_counter() - t0,
+        "bitwise": _box_sums({**got, "step": step, "data": ""})
+        == _box_sums(live)}
+    del got, live
+    elastic.checkpointer.close()
+    with open(os.path.join(work, f"node{node}.json"), "w") as f:
+        json.dump(out, f)
+    server.stop()
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def _reshard_reference(work, cfg, device, pinned: int, accum: int,
+                       steps: int, boxes=(), numpy: bool = False) -> dict:
+    """The one-process fsdp step (world 1) from a fresh
+    ``restore(step=pinned)`` of the phase's store at the dtypes it saved,
+    at ``accum`` microbatches: its state right after the
+    restore (box sums, its own and cut to each of ``boxes``, other
+    ranks' ``{path: [box]}``, and with ``numpy`` the state as numpy),
+    then ``steps`` steps on the
+    global rows its own sampler draws from the restored data position:
+    the losses, the rows and the parameters before and after."""
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.trainer.checkpoint import FlashCheckpointer
+    from dlrover_tpu_torch.trainer.sampler import ElasticDistributedSampler
+
+    tokens = np.load(os.path.join(work, "tokens.npy"))
+    t = _reshard_trainer(cfg, device)
+    store_dir = os.path.join(work, "store")
+    reader = FlashCheckpointer(
+        store_dir, ram_dir=os.path.join(work, f"ram-ref{pinned}"),
+        process_index=0, n_processes=1)
+    got, at = reader.restore(
+        target=_restore_target(t, store_dir, pinned), step=pinned)
+    reader.close()
+    t.load_train_state(got)
+    t.set_accum_steps(accum)
+    sampler = ElasticDistributedSampler(len(tokens), 1, 0, shuffle=False)
+    sampler.load_state_dict(json.loads(got["data"]))
+    del got
+    state = {**t.train_state(), "step": at, "data": ""}
+    out = {"step": at, "sums": _box_sums(state),
+           "sums_for": [_box_sums(state, b) for b in boxes],
+           "numpy": _numpy_state(state) if numpy else None,
+           "init": {n: p.detach().clone() for n, _, p in t.local_shards()},
+           "losses": [], "rows": []}
+    for _ in range(steps):
+        idx = next(sampler.iter_batches(RESHARD_GLOBAL_B))
+        mb = t.shard_batch(t.microbatch((tokens[idx, :-1],
+                                         tokens[idx, 1:])))
+        out["losses"].append(t.train_step(mb).item())
+        out["rows"].append([int(i) for i in idx])
+    out["final"] = {n: p.detach().clone() for n, _, p in t.local_shards()}
+    return out
+
+
+class _Shards:
+    """Saved ``(name, box, tensor)`` shards, as ``_against_reference``
+    reads a trainer's, on ``device`` (the card, where it compares them)."""
+
+    def __init__(self, path, device=None):
+        import torch
+
+        self._shards = torch.load(path, map_location=device or "cuda")
+
+    def local_shards(self):
+        return self._shards
+
+
+def run_reshard(layers: int = RESHARD_LAYERS, device=None,
+                plant=None, tiny: bool = False) -> dict:
+    """Phase "reshard"'s body. This process is the master: a servicer
+    built with a ``TransitionCoordinator``, and the distributed master's
+    part played here (ROADMAP queue A.2.2): the world sealed after the
+    first steps, ``note_node_lost`` on a rank's exit, ``check_abort`` on
+    its tick, the joiner started once the survivor idles. Then the
+    gates, against fresh one-process restores of the pinned steps and
+    the one-process step from them. ``plant="no_resize"`` makes the
+    survivor skip its sampler's resize, which the gates must fail; the
+    stale-live migration is planted beside every shrink (its state must
+    differ from the restored step's). ``device="cpu"`` runs llama_tiny
+    on CPU ranks (the logic alone); ``tiny`` llama_tiny at head_dim 64
+    on the card, at 256 tokens a row. Returns the readings, the failed
+    gates, and for a parity test the pinned states (numpy), the
+    reference's rows, each rank's record and its saved parameters."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch import telemetry as T
+    from dlrover_tpu_torch.master.elastic_training.kv_store_service import (
+        KVStoreService)
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.master.servicer import create_master_service
+    from dlrover_tpu_torch.reshard import TransitionCoordinator
+    from dlrover_tpu_torch.telemetry import goodput, read_journal
+    from dlrover_tpu_torch.telemetry.journal import EventJournal
+
+    cuda = device != "cpu"
+    cfg = _reshard_cfg(layers, device, tiny)
+    s = RESHARD_S_CPU if not cuda else 256 if tiny else SLICE["s"]
+    work = tempfile.mkdtemp(prefix="dlrover_reshard_")
+    # the RAM tier on /dev/shm when it holds both ranks' two newest
+    # saves (fp32 moments at world 1: 10 bytes a parameter), else beside
+    # the store
+    state_bytes = 10 * llama.param_count(cfg)
+    shm_free = (shutil.disk_usage("/dev/shm").free
+                if os.path.isdir("/dev/shm") else 0)
+    ram = (tempfile.mkdtemp(prefix="dlrover_reshard_", dir="/dev/shm")
+           if cuda and shm_free >= 3 * state_bytes else work)
+    journal = os.path.join(work, "journal.jsonl")
+    np.save(os.path.join(work, "tokens.npy"), reshard_tokens(cfg, s))
+    with open(os.path.join(work, "plan.json"), "w") as f:
+        json.dump({"plant": plant, "stale": True, "tiny": tiny,
+                   "ram": ram}, f)
+    kv = KVStoreService()
+    coord = TransitionCoordinator(kv, max_transitions=4,
+                                  abort_timeout=RESHARD_TIMEOUT_S)
+    saved_journal = T.default_journal()
+    T.set_default_journal(EventJournal(journal))
+    server, _ = create_master_service(0, kv_store=kv,
+                                      transition_coordinator=coord)
+    server.start()
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith(("DLROVER_TPU_", "DLROVER_FAULT"))}
+    base.update({
+        "DLROVER_TPU_MASTER_ADDR": f"localhost:{server.port}",
+        "DLROVER_TPU_JOURNAL": journal, "DLROVER_TPU_RESHARD": "1",
+        "DLROVER_FAULT_INJECT": f"node_lost@{RESHARD_LOST}:host=1",
+        "DLROVER_TPU_DIST_HEARTBEAT_TIMEOUT": str(RESHARD_HEARTBEAT_S),
+        "DLROVER_TPU_LOG_LEVEL": "WARNING", "PYTHONUNBUFFERED": "1",
+        "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1"})
+    if not cuda:
+        base["OMP_NUM_THREADS"] = "1"
+    code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+            f"import chip_smoke; chip_smoke.reshard_rank({work!r}, "
+            f"{layers}, {device!r})")
+    procs, lines, marks = {}, {}, {}
+    lock = threading.Lock()
+
+    def spawn(node, **env):
+        marks[f"spawn{node}"] = time.time()
+        p = procs[node] = subprocess.Popen(
+            [sys.executable, "-c", code], cwd=ROOT, env={
+                **base, "DLROVER_TPU_NODE_RANK": str(node),
+                "DLROVER_TPU_NODE_ID": str(node), **env},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            start_new_session=True)
+        lines[node] = []
+
+        def read():
+            for line in p.stdout:
+                with lock:
+                    lines[node].append(line)
+                    if line.startswith("STEP {"):
+                        marks.setdefault(f"first{node}", time.time())
+                        if node == 0 and json.loads(line[5:])["step"] == 2:
+                            marks["seal"] = True
+                    if node == 0 and line.startswith("IDLE"):
+                        marks["idle"] = True
+                    if line.startswith("READY"):
+                        marks[f"ready{node}"] = time.time()
+
+        threading.Thread(target=read, daemon=True).start()
+
+    failed, readings = [], {}
+    t_phase = time.time()
+    try:
+        port = _free_port()
+        for r in range(2):
+            spawn(r, DLROVER_TPU_COORDINATOR_ADDR=f"localhost:{port}",
+                  DLROVER_TPU_PROCESS_ID=str(r),
+                  DLROVER_TPU_NUM_PROCESSES="2")
+        deadline = time.time() + 2 * RESHARD_TIMEOUT_S
+        while time.time() < deadline:
+            with lock:
+                seal, idle = marks.get("seal"), marks.get("idle")
+            if seal and not coord.sealed:
+                coord.seal_world()
+            if "lost" not in marks and procs[1].poll() is not None:
+                # the distributed master's part: a worker's exit is a
+                # loss the coordinator takes online
+                marks["lost"] = time.time()
+                coord.note_node_lost(
+                    1, reason=f"exit {procs[1].returncode}")
+            if coord.transitions_done and 2 not in procs:
+                spawn(2, RESHARD_JOINER="1")  # a node comes up
+            if idle and not kv.get(RESHARD_GO_KEY):
+                kv.set(RESHARD_GO_KEY, b"1")
+            coord.check_abort()
+            if procs[0].poll() not in (None, 0) or (
+                    procs[0].poll() is not None
+                    and (2 not in procs or procs[2].poll() is not None)):
+                break  # the survivor failed, or every rank is done
+            time.sleep(0.05)
+        readings["ranks_s"] = time.time() - t_phase
+        for p in procs.values():
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+            p.wait(timeout=30)
+        rcs = {n: p.returncode for n, p in procs.items()}
+        if rcs != {0: 0, 1: -signal.SIGKILL, 2: 0}:
+            raise AssertionError(
+                f"reshard: exits {rcs}; node 0: "
+                + "".join(lines.get(0, []))[-3000:] + " node 2: "
+                + "".join(lines.get(2, []))[-2000:] + " node 1: "
+                + "".join(lines.get(1, []))[-1500:])
+        results = {}
+        for n in (0, 2):
+            with open(os.path.join(work, f"node{n}.json")) as f:
+                results[n] = json.load(f)
+        t_ref = time.time()
+        shrink, grow0 = results[0]["transitions"]
+        grow2, = results[2]["transitions"]
+        ref1 = _reshard_reference(work, cfg, device, shrink["step"], 2,
+                                  RESHARD_WORLD1_STEPS, numpy=not cuda)
+        ref2 = _reshard_reference(
+            work, cfg, device, grow0["step"], 1, RESHARD_WORLD2_STEPS,
+            boxes=[_sums_boxes(tr["sums"]) for tr in (grow0, grow2)],
+            numpy=not cuda)
+        grow_sums = dict(zip((0, 2), ref2["sums_for"]))
+        shards = {"shrink": _Shards(os.path.join(
+            work, f"params0_{RESHARD_LOST + RESHARD_WORLD1_STEPS}.pt"),
+            device), **{f"grow node {n}": _Shards(os.path.join(
+                work, f"params{n}_{RESHARD_FINAL}.pt"), device)
+                for n in (0, 2)}}
+        params = {what: _against_reference(
+            sh, *((ref1["final"], ref1["init"], RESHARD_WORLD1_STEPS)
+                  if what == "shrink" else
+                  (ref2["final"], ref2["init"], RESHARD_WORLD2_STEPS)))
+            for what, sh in shards.items()}
+        for ref in (ref1, ref2):
+            for key in ("init", "final"):
+                ref.pop(key)
+        readings["reference_s"] = time.time() - t_ref
+        events = read_journal(journal) if os.path.exists(journal) else []
+    finally:
+        server.stop(grace=0.5)
+        T.set_default_journal(saved_journal)
+        for p in procs.values():
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait(timeout=30)
+        shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(ram, ignore_errors=True)
+        if cuda:
+            torch.cuda.empty_cache()
+
+    steps1 = [json.loads(x[5:]) for x in lines[1] if x.startswith("STEP {")]
+    by_step = {n: {r["step"]: r for r in res["steps"]}
+               for n, res in results.items()}
+    world1 = range(RESHARD_LOST + 1,
+                   RESHARD_LOST + RESHARD_WORLD1_STEPS + 1)
+    world2 = range(RESHARD_FINAL - RESHARD_WORLD2_STEPS + 1,
+                   RESHARD_FINAL + 1)
+    losses = {"shrink": [by_step[0][k]["loss"] for k in world1],
+              "grow node 0": [by_step[0][k]["loss"] for k in world2],
+              "grow node 2": [by_step[2][k]["loss"] for k in world2]}
+    # the survivor's process went on, the loss was taken online
+    if results[0]["pid"] != results[0].get("pid_end"):
+        failed.append("the survivor's pid changed")
+    if not any(f"INJECTED NODE LOST at step {RESHARD_LOST}" in x
+               for x in lines[1]) or [r["step"] for r in steps1][-1:] != [
+                   RESHARD_LOST]:
+        failed.append(f"rank 1 not lost after step {RESHARD_LOST}: "
+                      f"{[r['step'] for r in steps1]}")
+    if coord.transitions_done != 2 or coord.active_order is not None:
+        failed.append(f"transitions_done {coord.transitions_done}, "
+                      f"active {coord.active_order}")
+    kinds = [e["kind"] for e in events if e["kind"].startswith("reshard.")]
+    if kinds.count("reshard.completed") != 2 or "reshard.aborted" in kinds:
+        failed.append(f"journal: {kinds}")
+    if (shrink["step"], grow0["step"], grow2["step"]) != (
+            RESHARD_LOST, world1[-1], world1[-1]):
+        failed.append(f"pinned steps {shrink['step']}, {grow0['step']}, "
+                      f"{grow2['step']}")
+    moves = {"shrink": shrink["stats"], "grow node 0": grow0["stats"],
+             "grow node 2": grow2["stats"]}
+    if not (moves["shrink"]["live"] > 0 and moves["shrink"]["store"] > 0):
+        failed.append(f"shrink moves {moves['shrink']}")
+    if moves["grow node 2"]["peer"] <= 0:
+        failed.append(f"joiner moves {moves['grow node 2']}")
+    if any(m["digest_mismatch"] for m in moves.values()):
+        failed.append(f"digest mismatches {moves}")
+    # "mesh"'s byte gates at every step of every rank; the moments turn
+    # fp32 at world 1's two microbatches and stay so
+    all_steps = results[0]["steps"] + results[2]["steps"] + steps1
+    for r in all_steps:
+        want = _state_bytes_expected(cfg, layers, r["world"],
+                                     4 if r["step"] > RESHARD_LOST else 2)
+        if r["bytes"] != want or r["owned_opt_bytes"] != want["optimizer"]:
+            failed.append(f"step {r['step']} at world {r['world']}: bytes "
+                          f"{r['bytes']}, owned optimizer bytes "
+                          f"{r['owned_opt_bytes']}, want {want}")
+    # the last world-2 save, restored at world 2 from the store
+    for n, res in results.items():
+        fin = res.get("final_restore") or {}
+        if (fin.get("step"), fin.get("bitwise")) != (RESHARD_FINAL, True):
+            failed.append(f"node {n}: the step-{RESHARD_FINAL} save "
+                          f"restored at world 2 {fin}")
+    # bitwise: each migrated state is what a fresh restore assembles
+    for what, got, want in (("shrink", shrink["sums"], ref1["sums"]),
+                            ("grow node 0", grow0["sums"], grow_sums[0]),
+                            ("grow node 2", grow2["sums"], grow_sums[2])):
+        if got != want:
+            bad = [k for k in want if got.get(k) != want[k]]
+            failed.append(f"{what}: the migrated state differs from "
+                          f"restore(step=pinned) at {bad[:3]}")
+    planted_caught = shrink.get("planted_sums") not in (None, ref1["sums"])
+    if not planted_caught:
+        failed.append("the planted stale-live migration passed the "
+                      "bitwise gate")
+    # the steps after each transition against the one-process step
+    for what, want in (("shrink", ref1["losses"]),
+                       ("grow node 0", ref2["losses"]),
+                       ("grow node 2", ref2["losses"])):
+        if any(abs(a - b) > MESH_LOSS_RTOL * abs(b)
+               for a, b in zip(losses[what], want)):
+            failed.append(f"{what}: losses {losses[what]} vs {want}")
+    for what, check in params.items():
+        steps = (RESHARD_WORLD1_STEPS if what == "shrink"
+                 else RESHARD_WORLD2_STEPS)
+        if check["param_within_2lr_share"] < MESH_WITHIN_SHARE:
+            failed.append(f"{what}: {check['param_within_2lr_share']:.5%}"
+                          " of parameters within 2 lr and one ulp")
+        if check["param_diff_lr"]["per_step"] > 2.0 * steps:
+            failed.append(f"{what}: parameters "
+                          f"{check['param_diff_lr']['per_step']:.3g} lr "
+                          "beyond one ulp a step")
+    # the replay: a reshard window on the survivor, and no restart but
+    # the victim's own (its injection opens one just before it dies)
+    report = goodput.reconstruct(events)
+    victim = str(procs[1].pid)
+    survivor = [p for k, p in report["procs"].items()
+                if k.endswith(f":{results[0]['pid']}")]
+    reshard_s = sum(p["phases"].get("reshard", 0.0) for p in survivor)
+    phases = [e for e in events if e["kind"] == "goodput.phase"
+              and e.get("pid") == results[0]["pid"]]
+    windows = [b["ts"] - a["ts"] for a, b in zip(phases, phases[1:])
+               if a["data"].get("phase") == "reshard"]
+    t_kill = next((e["ts"] for e in events
+                   if e["kind"] == "fault.injected"), None)
+    restart_s = {k: p["phases"].get("restart", 0.0)
+                 for k, p in report["procs"].items()}
+    if reshard_s <= 0 or len(survivor) != 1 or any(
+            v > 0 for k, v in restart_s.items()
+            if not k.endswith(f":{victim}")):
+        failed.append(f"replay: reshard {reshard_s} s on the survivor "
+                      f"({len(survivor)} found), restart {restart_s}")
+    if cuda:
+        for r in all_steps:
+            if set(r["launches"].values()) != {layers * r["accum"]}:
+                failed.append(f"step {r['step']}: launches "
+                              f"{r['launches']}")
+        for n, res in results.items():
+            if res["device"] != "cuda:0":
+                failed.append(f"node {n} on {res['device']}")
+    readings.update({
+        "adopt_to_completed_ms": {
+            "shrink": shrink["adopt_to_completed_ms"],
+            "grow node 0": grow0["adopt_to_completed_ms"],
+            "grow node 2": grow2["adopt_to_completed_ms"]},
+        "coordinator_s": [e["data"].get("duration_s") for e in events
+                          if e["kind"] == "reshard.completed"],
+        # the master's view: the loss noticed to the shrink completed
+        "lost_to_shrunk_s": next(
+            (e["ts"] - marks["lost"] for e in events
+             if e["kind"] == "reshard.completed"), None),
+        # the kill (journaled just before it) to the end of the survivor's
+        # first world-1 step: "launch"'s recovery_s, crash to the first
+        # step after the restore, read the same way
+        "recovery_s": (by_step[0][RESHARD_LOST + 1]["t_end"] - t_kill
+                       if t_kill is not None else None),
+        # of which the gate's box sums after the shrink
+        "checks_s": shrink["checks_s"],
+        # the final world-2 save restored at world 2 (rank: step, tier,
+        # bitwise, seconds)
+        "final_restore": {n: res.get("final_restore")
+                          for n, res in results.items()},
+        # the survivor's reshard windows in the replay: each adoption to
+        # its next phase (its first step after the migration)
+        "survivor_reshard_windows_s": windows,
+        "migration_s": {"shrink": shrink["seconds"],
+                        "grow node 0": grow0["seconds"],
+                        "grow node 2": grow2["seconds"]},
+        "transition_parts_s": {"shrink": shrink["parts"],
+                               "grow node 0": grow0["parts"],
+                               "grow node 2": grow2["parts"]},
+        "moves": moves, "planted_moves": shrink.get("planted_stats"),
+        "planted_caught": planted_caught,
+        # the joiner's start (spawn to ready: the process on the card),
+        # and its RUNNING report to its first step; spawn to first step
+        # less the wait for the survivor between them
+        "joiner_spawn_to_ready_s": marks["ready2"] - marks["spawn2"],
+        "joiner_running_to_first_step_s": (results[2]["first_step_ts"]
+                                           - results[2]["running_ts"]),
+        "joiner_spawn_to_first_step_s": (
+            marks["ready2"] - marks["spawn2"] + results[2]["first_step_ts"]
+            - results[2]["running_ts"]),
+        "step_ms": [(r["step"], r["world"], r["ms"]) for r in all_steps],
+        "save_s": [(r["step"], r["world"], r["save_s"])
+                   for r in all_steps],
+        "save_parts_node0": [(r["step"], r["save_parts"])
+                             for r in results[0]["steps"]],
+        "launches_per_step": [(r["step"], r["world"], r["launches"])
+                              for r in all_steps],
+        "failed_step": results[0].get("failed_step"),
+        "losses": losses, "reference_losses": {
+            "shrink": ref1["losses"], "grow": ref2["losses"]},
+        "params": params,
+        "replay": {"survivor_reshard_s": reshard_s,
+                   "restart_s": sorted(restart_s.values()),
+                   "faults": [f["cause"] for f in report["faults"]]},
+        "launches": {k: sum(r["launches"][k] for r in all_steps)
+                     for k in REPLACES},
+    })
+    return {"readings": readings, "failed": failed,
+            "pinned": {"shrink": ref1, "grow": ref2}, "results": results,
+            "shards": None if cuda else shards}
+
+
+def phase_reshard() -> dict:
+    """Reshard-in-place on the card (the docstring's phase 19): a lost and
+    a joined rank as in-process fsdp transitions of the llama_1b step
+    across two gloo ranks on ``cuda:0``."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    got = run_reshard(RESHARD_LAYERS)
+    emit({"phase": "reshard", "model": "llama_1b", "layers": RESHARD_LAYERS,
+          "strategy": "fsdp", "batch_per_dp_rank": SLICE["b"],
+          "seq": SLICE["s"], "lost_at": RESHARD_LOST,
+          "backend": "gloo", "phase_s": time.time() - t0,
+          **got["readings"], "nvidia_smi": nvidia_smi_line()})
+    if got["failed"]:
+        raise AssertionError("reshard: " + "; ".join(got["failed"]))
+    return got["readings"]
+
+
 def main() -> int:
     if not (ROOT / "dlrover_tpu_torch" / "__init__.py").exists():
         print("chip_smoke: dlrover_tpu_torch is not beside this script",
@@ -5016,6 +5910,7 @@ def main() -> int:
     timed("moe", phase_moe)
     pipe = timed("pipeline", phase_pipeline)
     auto = timed("auto", phase_auto)
+    reshard = timed("reshard", phase_reshard)
     # wall seconds per phase, from main's start (the interpreter's start
     # and torch's import before it are not counted)
     emit({"phase_seconds": seconds, "total_s": time.perf_counter() - t0})
@@ -5058,6 +5953,8 @@ def main() -> int:
             if shape == "llama_1b":
                 # and by the winner of phase "auto"'s one-process search
                 line[-1]["auto_launches"] = auto["launches"][name]
+                # and in phase "reshard" (every rank, 4 layers)
+                line[-1]["reshard_launches"] = reshard["launches"][name]
     emit({"kernels": line})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {

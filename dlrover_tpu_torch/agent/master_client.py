@@ -27,8 +27,10 @@ Every public RPC of :class:`MasterClient` runs under a
 ``report_global_step`` carries this process's goodput ledger
 (telemetry/goodput.py) when one is armed, and ``report_goodput`` sends
 it off the step cadence (``final=True`` at a drain's end).
-Not ported yet (ROADMAP.md, queue A): the relay tier's failover, the
-fleet observation of RPC latency, and the reshard and serving calls.
+``report_reshard`` carries a mesh transition's progress
+(reshard/transition.py). Not ported yet (ROADMAP.md, queue A): the
+relay tier's failover, the fleet observation of RPC latency, and the
+serving calls.
 """
 
 import functools
@@ -529,6 +531,28 @@ class MasterClient:
         return self._call("report_anomaly", req)
 
     @supervised_rpc
+    def report_reshard(self, order_id: int, phase: str,
+                       detail: str = ""):
+        """Mesh-transition progress (reshard/transition.py): this
+        survivor reached ``phase`` of transition order ``order_id``.
+        The coordinator answers ok/stale/abort. A master predating the
+        RPC rejects the unknown message with an application error —
+        the worker then treats the transition as unsupervised and
+        falls back to restart-the-world (None return)."""
+        req = self._fill(comm.ReshardReport(
+            order_id=order_id, phase=phase, detail=detail,
+        ))
+        try:
+            return self._call("report_reshard", req)
+        except Exception as e:
+            if is_connection_error(e):
+                raise
+            logger.warning("report_reshard unsupported: %s", e)
+            record("anomaly.rpc_fallback", rpc="report_reshard",
+                   error=str(e)[:200])
+            return None
+
+    @supervised_rpc
     def report_used_resource(self, cpu_percent: float, memory_mb: int,
                              tpu_stats: Optional[List[Dict]] = None):
         req = self._fill(comm.ResourceStats(
@@ -749,6 +773,10 @@ class LocalMasterClient:
                        host="", last_good_step=-1, restart_count=0):
         # masterless: no one to coordinate a rollback with; the
         # sentinel's local anomaly window is the whole story
+        return None
+
+    def report_reshard(self, order_id, phase, detail=""):
+        # masterless: a single process has no mesh to transition
         return None
 
 

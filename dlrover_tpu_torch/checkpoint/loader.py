@@ -22,6 +22,12 @@ needed domain is the whole tensor; a sharded strategy's target leaf
 (``ckpt_store.ShardedLeaf``) names the boxes this process holds, and each
 is assembled from the saved domains that overlap it -- those of the
 same mesh, or of another (the JAX package's, or a resize to one rank).
+
+A source may also hand back a tensor instead of member bytes: the live
+tier of a mesh transition (``reshard/migrate.py``'s
+``LiveShardSource``), whose bytes never left the process. The fetcher
+takes it as it is, without decode or digest, counts it under ``live``,
+and a domain assembled from it is built on the target's device.
 """
 
 import hashlib
@@ -154,6 +160,7 @@ class LocalArchiveSource:
         try:
             self._zf = zipfile.ZipFile(fileobj)
             man = json.loads(self._zf.read("manifest.json").decode("utf-8"))
+            self.manifest = man
             for key, loc in mf._piece_locations(man).items():
                 self._members[key] = (loc["m"], loc.get("enc"))
         except Exception as e:
@@ -175,6 +182,13 @@ class LocalArchiveSource:
     def close(self) -> None:
         if self._zf is not None:
             self._zf.close()
+
+
+class StoreArchiveSource(LocalArchiveSource):
+    """A one-process world's whole archive in the store, read as any
+    process of a later world needs it (``manifest``: its own)."""
+
+    tier = "store"
 
 
 class PeerSource:
@@ -281,8 +295,9 @@ class _Fetcher:
         self.sources = [s for s in sources if s is not None]
         self.cache: Dict[str, torch.Tensor] = {}
         self.stats = {
-            "local": 0, "peer": 0, "store": 0,
-            "digest_mismatch": 0, "bytes": 0, "peer_bytes": 0,
+            "local": 0, "peer": 0, "store": 0, "live": 0,
+            "digest_mismatch": 0, "bytes": 0, "local_bytes": 0,
+            "peer_bytes": 0, "store_bytes": 0, "live_bytes": 0,
         }
 
     def get(self, pkey: str, ikey: str, procs) -> torch.Tensor:
@@ -301,6 +316,19 @@ class _Fetcher:
             if raw is None:
                 tried.append(src.tier)
                 continue
+            if isinstance(raw, torch.Tensor):
+                # an in-process source (the live tier) handed back the
+                # tensor itself: the bytes never left this process nor
+                # went through npy, so there is nothing to decode or
+                # digest-check, and the assembly copies it device to
+                # device
+                n = raw.numel() * raw.element_size()
+                self.stats[src.tier] = self.stats.get(src.tier, 0) + 1
+                self.stats["bytes"] += n
+                self.stats[f"{src.tier}_bytes"] = self.stats.get(
+                    f"{src.tier}_bytes", 0) + n
+                self.cache[key] = raw
+                return raw
             if want is not None and hashlib.sha256(raw).hexdigest() != want:
                 # journal the mismatch, then fetch this one shard from
                 # the next tier before giving up on the step
@@ -325,8 +353,8 @@ class _Fetcher:
             arr = _decode_member(raw, enc)
             self.stats[src.tier] += 1
             self.stats["bytes"] += len(raw)
+            self.stats[f"{src.tier}_bytes"] += len(raw)
             if src.tier == "peer":
-                self.stats["peer_bytes"] += len(raw)
                 _count_peer_fetch("ok")
                 record(
                     "ckpt.peer_fetch", step=self.catalog.step,
@@ -341,10 +369,12 @@ class _Fetcher:
 
 
 def _gather_domain(fetcher: _Fetcher, leaf: Dict[str, Any],
-                   pkey: str, nidx: List[List[int]]) -> torch.Tensor:
+                   pkey: str, nidx: List[List[int]],
+                   device=None) -> torch.Tensor:
     """One needed domain of one logical tensor, from whatever saved
     domains cover it (an exact hit is one member fetch; otherwise it is
-    assembled from every overlapping saved shard)."""
+    assembled from every overlapping saved shard, on ``device``: the
+    target's, so that live shards move device to device)."""
     ikey = mf.index_key(nidx)
     domains = leaf.get("domains") or []
     by_key = {mf.index_key(d["idx"]): d for d in domains}
@@ -352,7 +382,8 @@ def _gather_domain(fetcher: _Fetcher, leaf: Dict[str, Any],
         arr = fetcher.get(pkey, ikey, by_key[ikey].get("replicas"))
         return arr.reshape(mf.domain_shape(nidx))
     out = torch.empty(mf.domain_shape(nidx),
-                      dtype=ckpt_store.torch_dtype(leaf["dtype"]))
+                      dtype=ckpt_store.torch_dtype(leaf["dtype"]),
+                      device=device)
     covered = 0
     for d in domains:
         ov = mf.overlap(d["idx"], nidx)
@@ -396,15 +427,17 @@ def _leaf_value(fetcher: _Fetcher, leaf: Dict[str, Any], target=None,
                 f"{leaf.get('shape')} does not match the target")
         return target.with_tensors([
             ckpt_store._onto(_gather_domain(
-                fetcher, leaf, pkey, mf.normalize_index(idx, leaf["shape"])),
-                t, where)
+                fetcher, leaf, pkey, mf.normalize_index(idx, leaf["shape"]),
+                device=t.device), t, where)
             for idx, t in target.pieces])
     if kind == "array":
         value = fetcher.get(pkey, "full", leaf.get("replicas"))
     elif kind == "shards":
         shape = [int(n) for n in leaf["shape"]]
-        value = _gather_domain(fetcher, leaf, pkey,
-                               [[0, n] for n in shape])
+        value = _gather_domain(
+            fetcher, leaf, pkey, [[0, n] for n in shape],
+            device=target.device if isinstance(target, torch.Tensor)
+            else None)
     else:
         raise ckpt_store.ArchiveError(f"unknown leaf kind {kind!r}")
     return ckpt_store._onto(value, target, where)

@@ -40,11 +40,27 @@ Two triggers:
                                     the previous fault's kv arg rather
                                     than starting a new fault.
 
-  The JAX package's other kinds (``master_crash``, ``serve_kill``,
-  ``node_lost``, ``node_join``) parse the same way, but a due one raises
-  ``NotImplementedError`` naming the module it waits for
-  (:data:`WAITS_FOR`): the master's failover, serving and resharding
-  are not ported yet (ROADMAP.md, queue A).
+  - ``node_lost@8`` / ``node_lost@8:host=2``  SIGKILL the worker's
+                                    process group at step 8 with NO
+                                    relaunch: the master's
+                                    TransitionCoordinator
+                                    (reshard/coordinator.py) turns the
+                                    loss into an online mesh shrink
+                                    instead of restarting the world.
+                                    ``host=H`` restricts the kill to
+                                    node rank H.
+  - ``node_join@12``                marker only: prints and journals
+                                    the join point so a drill harness
+                                    can launch the joining rank there;
+                                    the joiner announces itself through
+                                    the node-running path and the
+                                    coordinator cuts a grow order.
+
+  The JAX package's other kinds (``master_crash``, ``serve_kill``)
+  parse the same way, but a due one raises ``NotImplementedError``
+  naming the module that acts on it (:data:`WAITS_FOR`): the
+  distributed master and serving are not ported yet (ROADMAP.md,
+  queue A).
 
   Where the JAX ``preempt`` sleeps after its SIGTERM until the drain or
   the reclaim ends the process, the port's returns: the drain inside a
@@ -87,12 +103,14 @@ KINDS = (
 #: (fault_tolerance/sentinel.py) must notice the poisoned value
 CORRUPTION_KINDS = frozenset({"nan", "sdc"})
 
-#: the JAX package's module each kind not acted on here waits for
+#: reshard-drill kinds: also honor ``host=H`` scoping so one shared
+#: spec loses (or joins) exactly one node rank of a multi-worker drill
+RESHARD_KINDS = frozenset({"node_lost", "node_join"})
+
+#: the JAX package's module that acts on each kind not acted on here
 WAITS_FOR = {
-    "master_crash": "master/state_journal.py",
+    "master_crash": "master/dist_master.py",
     "serve_kill": "serving/worker.py",
-    "node_lost": "reshard/coordinator.py",
-    "node_join": "reshard/coordinator.py",
 }
 
 
@@ -209,11 +227,12 @@ class FaultInjector:
         self._poll_every = max(1, poll_every)
 
     def _host_filter(self, faults: List[Fault]) -> List[Fault]:
-        """Corruption kinds and ``crash`` honor ``host=H``, so one shared
-        spec hits exactly one node rank."""
+        """Corruption kinds, ``crash`` and the reshard kinds honor
+        ``host=H``, so one shared spec hits exactly one node rank."""
         kept = []
         for f in faults:
-            if f.kind in CORRUPTION_KINDS or f.kind == "crash":
+            if (f.kind in CORRUPTION_KINDS or f.kind == "crash"
+                    or f.kind in RESHARD_KINDS):
                 host = _arg_kv(f.arg, "host")
                 if host is not None and int(host) != self._node_rank:
                     continue
@@ -350,3 +369,18 @@ class FaultInjector:
             # delivered to this process before the call returns: the
             # handler has run when it does (see the module docstring)
             _signal_own_group(signal.SIGTERM)
+        elif fault.kind == "node_lost":
+            # SIGKILL with NO relaunch expectation: a hard node death
+            # the master's TransitionCoordinator adopts as an online
+            # mesh shrink (reshard/coordinator.py) -- survivors migrate
+            # in place; nothing comes back on this rank
+            print(f"INJECTED NODE LOST at step {step}", flush=True)
+            _signal_own_group(signal.SIGKILL)
+            time.sleep(30)  # await delivery; SIGKILL cannot be handled
+        elif fault.kind == "node_join":
+            # marker only: the joining process does not exist yet. The
+            # drill harness watches this line (and the journaled
+            # fault.injected) to launch the joining rank, which
+            # announces itself through the node-running path so the
+            # coordinator cuts a grow order
+            print(f"INJECTED NODE JOIN at step {step}", flush=True)

@@ -10,7 +10,11 @@ goodput aggregator (served at ``/goodput`` of the metrics server it
 starts; ``DLROVER_TPU_METRICS_PORT`` pins the port, ``off`` disables)
 and the job metric collector that the JAX package's distributed master
 builds; like the JAX distributed master, it journals the job's final
-account (``goodput.job_summary``) when it stops. Left out until they are
+account (``goodput.job_summary``) when it stops, and with a state dir
+(``DLROVER_TPU_MASTER_STATE_DIR``) it checkpoints the aggregator through
+the durable state journal (``master/state_journal.py``) and resumes a
+prior incarnation's account from it, the gap counted as the master's
+downtime, as the JAX distributed master does. Left out until they are
 ported (ROADMAP.md, queue A): the
 serving request router, the fleet aggregator (``/fleet`` answers 404)
 and the resource advisor. Its run loop is the JAX master's.
@@ -29,6 +33,7 @@ from dlrover_tpu_torch.master.monitor.error_monitor import ErrorMonitor
 from dlrover_tpu_torch.master.monitor.speed_monitor import SpeedMonitor
 from dlrover_tpu_torch.master.node.local_job_manager import LocalJobManager
 from dlrover_tpu_torch.master.servicer import create_master_service
+from dlrover_tpu_torch.master.state_journal import build_master_state_journal
 from dlrover_tpu_torch.master.shard.task_manager import TaskManager
 from dlrover_tpu_torch.master.stats import (
     JobMeta,
@@ -53,7 +58,24 @@ class LocalJobMaster:
         }
         self.sync_service = SyncService(self.job_manager)
         self.error_monitor = ErrorMonitor()
-        self.goodput_aggregator = goodput_mod.GoodputAggregator()
+        # durable job state (None unless a state dir is configured): the
+        # goodput account survives a master restart through it
+        self.state_journal = build_master_state_journal(
+            getattr(job_args, "job_name", "") or "job")
+        journal = self.state_journal
+        self.goodput_aggregator = goodput_mod.GoodputAggregator(
+            persist_fn=journal.save_goodput if journal else None,
+            # with the commit lane on, a persist is one staged dict
+            # update: the aggregator's 1/s throttle would only add
+            # staleness
+            persist_interval=0.0 if journal and journal.coalescing
+            else 1.0)
+        if journal is not None:
+            prior = journal.load_goodput()
+            if prior:
+                # the window since the prior incarnation's last persist
+                # is the master's own downtime, one more recovered fault
+                self.goodput_aggregator.restore_state(prior)
         # a reporter of its own, as the JAX distributed master builds
         # it: the class-level registry of new_stats_reporter would let
         # two masters in one process share what they store
@@ -137,6 +159,10 @@ class LocalJobMaster:
         if summary["job"]["procs"]:
             record("goodput.job_summary", **summary["job"])
         goodput_mod.set_job_provider(None)
+        if self.state_journal is not None:
+            self.state_journal.save_goodput(
+                self.goodput_aggregator.to_state())
+            self.state_journal.close()
         self._server.stop(grace=1.0)
         if self._metrics_server is not None:
             self._metrics_server.stop()

@@ -20,7 +20,9 @@ metric collector (master/stats) fed by the dataset, task, step and
 ``report_model_info`` / ``report_custom_data`` calls. Not ported yet
 (ROADMAP.md, queue A), each answered with the same "unknown RPC method"
 error as an RPC that does not exist: serving (``serve_*``), the relay
-batch, fleet digests and ``report_reshard``. The JAX master's ingest
+batch and fleet digests. ``report_reshard`` carries a mesh transition's
+progress to a ``TransitionCoordinator`` (reshard/) when the servicer
+was built with one, and answers ``"none"`` without. The JAX master's ingest
 plane (event loop, shards, admission and load shedding) is left out
 too: ``report_node_status`` runs on the RPC thread against one
 :class:`ReporterLedger`.
@@ -34,6 +36,7 @@ from typing import Dict, Optional, Tuple
 
 from dlrover_tpu_torch.common import comm
 from dlrover_tpu_torch.common.constants import (
+    NodeType,
     RendezvousName,
     TaskType,
     TrainingExceptionLevel,
@@ -117,6 +120,7 @@ class MasterServicer:
         kv_store=None,
         job_metric_collector=None,
         goodput_aggregator=None,
+        transition_coordinator=None,
     ):
         self._task_manager = task_manager
         self._job_manager = job_manager
@@ -130,6 +134,15 @@ class MasterServicer:
         # the workers' ledger snapshots; the RUNNING report closes the
         # fault window a preemption or rollback opened
         self._goodput = goodput_aggregator
+        # reshard-in-place (reshard/coordinator.py); None falls back
+        # to restart-the-world for every scale event. The local master
+        # builds none, as in JAX; the distributed master (not ported,
+        # ROADMAP.md queue A) is where JAX builds it, so until then a
+        # caller that wants online transitions builds the servicer with
+        # one and plays the distributed master's part: note_node_lost
+        # on a rank's exit, check_abort on its tick, seal_world after
+        # the first round
+        self._transition_coordinator = transition_coordinator
         self._start_training_time = 0.0
         self.run_configs = {}
         # ranks with an announced preemption in flight: their next
@@ -473,6 +486,12 @@ class MasterServicer:
                 mgr.mark_node_succeeded(rank)
             elif req.status in ("failed", "deleted"):
                 mgr.remove_alive_node(rank)
+        if req.status == "running" and self._transition_coordinator:
+            # RUNNING workers are mesh-transition material: the
+            # coordinator's world membership is what a shrink order's
+            # survivor list is computed from
+            if req.node_type == NodeType.WORKER:
+                self._transition_coordinator.note_node_running(rank)
         if req.status == "running" and rank in self._preempted_ranks:
             # the relaunched incarnation is back: the preemption window
             # closes here for MTTR accounting
@@ -657,6 +676,21 @@ class MasterServicer:
             node_id=req.node_id, requeued=requeued,
         )
         return comm.RelinquishShardsResponse(requeued=requeued)
+
+    def rpc_report_reshard(
+        self, req: comm.ReshardReport
+    ) -> comm.ReshardResponse:
+        """Mesh-transition progress (reshard/): a survivor reports how
+        far it got executing the active TransitionOrder. The
+        coordinator completes the transition once every survivor says
+        ``completed``, or aborts it on the first ``aborted``."""
+        if self._transition_coordinator is None:
+            return comm.ReshardResponse(action="none")
+        rank = self._rank_of(req.node_type, req.node_id)
+        action = self._transition_coordinator.note_worker_phase(
+            rank, req.order_id, req.phase
+        )
+        return comm.ReshardResponse(action=action)
 
     def rpc_update_node_address(
         self, req: comm.NodeAddressRequest
@@ -872,6 +906,7 @@ def create_master_service(
     kv_store=None,
     job_metric_collector=None,
     goodput_aggregator=None,
+    transition_coordinator=None,
 ):
     """Build the RPC server around a MasterServicer
     (parity: servicer.py:478)."""
@@ -885,6 +920,7 @@ def create_master_service(
         kv_store=kv_store,
         job_metric_collector=job_metric_collector,
         goodput_aggregator=goodput_aggregator,
+        transition_coordinator=transition_coordinator,
     )
     server = GenericRpcServer(servicer.handle, port=port)
     return server, servicer

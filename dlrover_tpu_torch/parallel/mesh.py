@@ -101,6 +101,12 @@ Mesh = Union[DeviceMesh, SingleRankMesh]
 _GROUPS: Dict[Tuple, object] = {}
 
 
+def clear_groups() -> None:
+    """Forget every cached group: the process group they came from is
+    gone (``trainer/distributed.reform_world``)."""
+    _GROUPS.clear()
+
+
 def _grouped() -> bool:
     return dist.is_available() and dist.is_initialized()
 

@@ -27,8 +27,8 @@ Three layers, one vocabulary:
     between a dead process's last report and its successor's first
     ledger second as ``restart`` badput, and tracks fault windows for
     MTTR/MTBF. ``to_state`` / ``restore_state`` round-trip the account;
-    the port's master does not persist it yet (its state journal is not
-    ported, ROADMAP.md queue A).
+    the master persists it through the state journal
+    (``master/state_journal.py``) when it has a state dir.
   * :func:`reconstruct` -- offline. Replays any journal file into the
     same summary shape: exact where ``goodput.*`` events exist, and
     heuristic (:data:`EVENT_RULES` applied to the generic events) for

@@ -1194,7 +1194,8 @@ class FlashCheckpointer:
         candidates = [s for s in (ram_step, persist_step) if s is not None]
         return max(candidates) if candidates else None
 
-    def restore(self, target: Any = None, step: Optional[int] = None):
+    def restore(self, target: Any = None, step: Optional[int] = None,
+                extra_sources: Optional[List[Any]] = None):
         """Restore ``(state, step)``, preferring the RAM tier; ``(None,
         None)`` when there is no checkpoint.
 
@@ -1214,18 +1215,28 @@ class FlashCheckpointer:
         every process starts fresh, never a mix. The ranks run the same
         two collectives whatever fails locally: the consensus gather,
         then the agreement gather.
+
+        ``extra_sources``: shard sources the format-v2 assembly consults
+        BEFORE every checkpoint tier (``reshard/migrate.py``'s live
+        tier, a hot spare's pre-warmed cache). A source carrying a
+        ``step`` attribute is consulted only when the candidate step
+        matches it: a walk-down to an older step is never served another
+        step's bytes. ``last_restore_stats`` counts what each served
+        under its tier (``live`` beside ``local``, ``peer`` and
+        ``store``).
         """
         self._drain_saves()
         self.last_restore_stats = None
         if self._peer_registry is not None:
             self._advertise_held()
         if not (step is None and self._n_processes > 1):
-            return self._restore_once(target, step)
+            return self._restore_once(target, step, extra_sources)
         step = self._consensus_step(self._local_candidate_steps())
         state, got = None, None
         if step is not None:
             try:
-                state, got = self._restore_once(target, step)
+                state, got = self._restore_once(target, step,
+                                                extra_sources)
             except Exception as e:
                 logger.warning("restore attempt failed: %s", e)
                 state, got = None, None
@@ -1329,7 +1340,8 @@ class FlashCheckpointer:
         return steps
 
     def _restore_once(self, target: Any = None,
-                      step: Optional[int] = None):
+                      step: Optional[int] = None,
+                      extra_sources: Optional[List[Any]] = None):
         t0 = time.perf_counter()
         ram = dict(self._list_ram())
         auto_step = step is None
@@ -1359,7 +1371,7 @@ class FlashCheckpointer:
                     tainted = auto_step and man.get("last_good") is False
                     if not tainted:
                         state = self._restore_local_archive(
-                            f, man, step, target, t0)
+                            f, man, step, target, t0, extra_sources)
                         if self.last_restore_stats is None:
                             self._restored("ram", step, t0, f)
                         return state, step
@@ -1385,7 +1397,8 @@ class FlashCheckpointer:
             # format v2 first: the catalog from the peers and the
             # store's step manifest, each shard from any tier
             try:
-                state, stats = self._restore_v2(cand, target)
+                state, stats = self._restore_v2(
+                    cand, target, extra_sources=extra_sources)
             except Exception as e:
                 state, stats = None, None
                 logger.info("step %d not v2-restorable (%s); trying the "
@@ -1482,7 +1495,7 @@ class FlashCheckpointer:
             self.last_restore_stats.update(shards)
 
     def _restore_local_archive(self, f, man, step: int, target,
-                               t0: float):
+                               t0: float, extra_sources=None):
         """The RAM tier's (or a one-process persist) archive. A complete
         archive -- one process's, or a rank's RAM tier of a replicated
         state -- is read whole, each tensor streamed to
@@ -1505,12 +1518,14 @@ class FlashCheckpointer:
                 # the catalog takes each bad shard from the next tier
                 logger.warning("RAM-tier step %d: %s; assembling it "
                                "shard by shard", step, e)
-        state, stats = self._restore_v2(step, target, local_file=f)
+        state, stats = self._restore_v2(step, target, local_file=f,
+                                        extra_sources=extra_sources)
         self._restored("ram", step, t0, int(stats.get("bytes", 0)),
                        shards=stats)
         return state
 
-    def _restore_v2(self, step: int, target, local_file=None):
+    def _restore_v2(self, step: int, target, local_file=None,
+                    extra_sources=None):
         """The format-v2 catalog restore: the widest catalog the
         surviving metadata allows (this process's archive manifest, the
         peers' manifests, the store's step manifest), then every leaf
@@ -1522,6 +1537,17 @@ class FlashCheckpointer:
 
         catalog = None
         sources: List[Any] = []
+        for src in extra_sources or []:
+            # the live and pre-warmed tiers outrank every checkpoint
+            # tier, but a source that declares its step serves ONLY that
+            # step: an older walk-down candidate than the live state is
+            # assembled from the checkpoint tiers instead
+            if src is None:
+                continue
+            src_step = getattr(src, "step", None)
+            if src_step is not None and int(src_step) != int(step):
+                continue
+            sources.append(src)
         if local_file is not None:
             man = ckpt_store.read_manifest(local_file)
             catalog = ckpt_loader.StepCatalog.from_archive_manifest(man)
@@ -1557,6 +1583,24 @@ class FlashCheckpointer:
         except Exception as e:
             logger.info("no step manifest for step %d in the store: %s",
                         step, e)
+        else:
+            if man2 is None and self._process_index != 0:
+                # a step of a one-process world: its archive, with the
+                # manifest inside, is process 0's object; another
+                # process of a grown world assembles its boxes from it
+                try:
+                    whole = ckpt_loader.StoreArchiveSource(
+                        ckpt_store.open_step(self._store, step, 0))
+                except (KeyError, ckpt_store.ArchiveError) as e:
+                    logger.info("step %d: no one-process archive in the "
+                                "store: %s", step, e)
+                else:
+                    if catalog is None:
+                        catalog = ckpt_loader.StepCatalog.\
+                            from_archive_manifest(whole.manifest)
+                    else:
+                        catalog.absorb(whole.manifest)
+                    sources.append(whole)
         if man2 is not None:
             store_cat = ckpt_loader.StepCatalog.from_step_manifest(man2)
             if catalog is None:
@@ -1590,7 +1634,7 @@ class FlashCheckpointer:
                 (catalog.topology or {}).get("n_processes", 1)),
             restore_processes=self._n_processes,
             local=stats.get("local", 0), peer=stats.get("peer", 0),
-            store=stats.get("store", 0),
+            store=stats.get("store", 0), live=stats.get("live", 0),
             digest_mismatch=stats.get("digest_mismatch", 0),
             bytes=stats.get("bytes", 0),
         )

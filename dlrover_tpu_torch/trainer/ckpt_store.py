@@ -1168,6 +1168,39 @@ def step_manifest(store: ObjectStore, step: int) -> Optional[Dict[str, Any]]:
     return man
 
 
+def step_dtypes(store: ObjectStore, step: int) -> Dict[str, str]:
+    """``{path key: dtype name}`` of every tensor leaf a COMMITTED step
+    saved: from its step manifest, or, for a step of one process, from
+    the manifest inside that process's archive."""
+    man = step_manifest(store, step)
+    if man is None:
+        with open_step(store, step, 0) as f:
+            man = read_manifest(f)
+    return {ckpt_manifest.path_key(e["path"]): e["dtype"]
+            for e in man.get("leaves", []) if e.get("dtype")}
+
+
+def with_dtypes(target, dtypes: Dict[str, str]):
+    """``target`` (a restore target) with every tensor, and every piece
+    of a ShardedLeaf, at the dtype ``dtypes`` names for its path: an
+    empty tensor where the dtype differs. A state whose dtypes the
+    trainer does not fix (AdamW's moments stay fp32 once a step took
+    several microbatches) is restored as it was saved."""
+    leaves = []
+    for path, leaf in flatten_with_path(target):
+        name = dtypes.get(ckpt_manifest.path_key(path))
+        want = torch_dtype(name) if name else None
+        if isinstance(leaf, ShardedLeaf) and want not in (None, leaf.dtype):
+            leaf = ShardedLeaf(leaf.shape, want, [
+                (idx, torch.empty_like(t, dtype=want))
+                for idx, t in leaf.pieces], leaf.domains)
+        elif isinstance(leaf, torch.Tensor) and want not in (
+                None, leaf.dtype):
+            leaf = torch.empty_like(leaf, dtype=want)
+        leaves.append(leaf)
+    return unflatten_like(target, leaves)
+
+
 def _await_shards(store: ObjectStore, step: int, n_processes: int,
                   timeout: float, attempt: str) -> bool:
     want = {step_key(step, p, attempt) for p in range(n_processes)}

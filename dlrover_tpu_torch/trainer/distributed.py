@@ -191,6 +191,68 @@ def init_from_env(timeout_s: int = 300, device=None,
     return env
 
 
+def reform_world(world_size: int, rank: int, client, key: str,
+                 timeout_s: float = 120.0, backend: Optional[str] = None,
+                 poll_s: float = 0.1) -> None:
+    """Leave this process's group and form a new one of ``world_size``
+    ranks in which it is ``rank``, in the same process (a mesh
+    transition, ``reshard/``). The new world's rank 0 opens its store on
+    a free port and publishes the address in the master KV under
+    ``key`` (unique to the transition: its order id); the other ranks
+    read it there. A world of one forms no group. The old group is
+    destroyed and every group derived from it is dropped: the gloo
+    group of host tensors and the mesh's group cache
+    (``parallel/mesh.py``), so none outlives the old world. ``backend``
+    is the old group's (gloo when there was none); the routes of
+    :data:`GLOO_CUDA_ROUTES` are per backend and hold for the new group
+    as they held for the old."""
+    global _HOST_GROUP
+    from dlrover_tpu_torch.parallel import mesh as mesh_lib
+
+    grouped = dist.is_available() and dist.is_initialized()
+    if backend is None:
+        backend = dist.get_backend() if grouped else "gloo"
+    if grouped:
+        dist.destroy_process_group()
+    _HOST_GROUP = None
+    mesh_lib.clear_groups()
+    host = os.getenv(NodeEnv.COORDINATOR_ADDR, "").rpartition(":")[0]
+    host = host or "localhost"
+    addr = ""
+    if world_size > 1:
+        hb = heartbeat_timeout_s()
+        timeout = datetime.timedelta(seconds=timeout_s)
+        if rank == 0:
+            store = dist.TCPStore(host, 0, world_size, is_master=True,
+                                  timeout=timeout, wait_for_workers=False)
+            addr = f"{host}:{store.port}"
+            client.kv_store_set(key, addr.encode())
+        else:
+            deadline = time.monotonic() + timeout_s
+            while not addr:
+                raw = client.kv_store_get(key)
+                addr = raw.decode() if raw else ""
+                if not addr and time.monotonic() > deadline:
+                    raise TimeoutError(
+                        f"no address for the new world under {key!r} "
+                        f"within {timeout_s:.0f}s")
+                if not addr:
+                    time.sleep(poll_s)
+            h, _, port = addr.rpartition(":")
+            store = dist.TCPStore(h, int(port), world_size,
+                                  is_master=False, timeout=timeout)
+        dist.init_process_group(
+            backend, store=store, world_size=world_size, rank=rank,
+            timeout=datetime.timedelta(seconds=hb))
+        if backend != "gloo":
+            _HOST_GROUP = dist.new_group(
+                backend="gloo", timeout=datetime.timedelta(seconds=hb))
+        os.environ[NodeEnv.COORDINATOR_ADDR] = addr
+    set_process_index(rank)
+    record("distributed.reformed", rank=rank, world_size=world_size,
+           coordinator=addr, backend=backend if world_size > 1 else "")
+
+
 # ------------------------------------------------------- collective layer
 
 #: seconds spent in the layer's collectives since the last reset

@@ -41,10 +41,25 @@ construction: :meth:`report_step` marks training, and the train-thread
 stall that :meth:`maybe_checkpoint`'s save returns is credited as
 ``ckpt_stall``. :meth:`report_model_profile` sends the step's profile
 (trainer/profiler.py) to the master, and ``DLROVER_TRACE_DIR`` opens a
-window of ``torch.profiler`` trace over a few steps. Not ported yet
-(ROADMAP.md, queue A): mesh transition, compile-cache telemetry and the
-fleet roll-up. A checkpoint failure is raised into the step loop rather
-than logged: a failed device copy must not pass unseen.
+window of ``torch.profiler`` trace over a few steps.
+
+Reshard-in-place (``reshard/``): a ``MeshTransition`` armed at
+construction (``DLROVER_TPU_RESHARD=0`` disables) adopts the master's
+transition orders in :meth:`report_step`; the loop takes one at a step
+boundary (:meth:`pending_reshard`, or :meth:`wait_reshard` after a step
+that failed in a collective because a peer died) and carries it out in
+process with :meth:`execute_reshard`: a new process group, the state
+migrated to the new world's trainer, the data plane resized. A step
+whose collective fails leaves the state at the last finished step where
+the step runs every collective before its first in-place write (fsdp,
+ddp, tp: ``ShardedTrainer._sharded_step``), so the survivor's live
+tensors are those of its last save, and the live tier is pinned to that
+step all the same (``LiveShardSource.step``); a step that raised inside
+its update (a ZeRO step's gather after it) flags the state
+(``ShardedTrainer.updating``), which then never serves as live. Not
+ported yet (ROADMAP.md, queue A): compile-cache telemetry and the fleet
+roll-up. A checkpoint failure is raised into the step loop rather than
+logged: a failed device copy must not pass unseen.
 """
 
 import os
@@ -66,13 +81,18 @@ from dlrover_tpu_torch.fault_tolerance.hanging_detector import (
 )
 from dlrover_tpu_torch.fault_tolerance.injection import FaultInjector
 from dlrover_tpu_torch.fault_tolerance.sentinel import TrainingSentinel
+from dlrover_tpu_torch.reshard import MeshTransition
 from dlrover_tpu_torch.telemetry import (
     flight_recorder,
     goodput,
     lockwatch,
+    record,
     tracing,
 )
-from dlrover_tpu_torch.telemetry.http import attach_hang_detector
+from dlrover_tpu_torch.telemetry.http import (
+    attach_hang_detector,
+    set_shard_provider,
+)
 from dlrover_tpu_torch.trainer import profiler
 
 
@@ -90,6 +110,27 @@ def _gather_pairs(pair) -> List[Tuple[int, int]]:
     rows = [torch.empty_like(mine) for _ in range(dist.get_world_size(group))]
     dist.all_gather(rows, mine, group=group)
     return [tuple(int(v) for v in r) for r in rows]
+
+
+def _settled_step(store, settle_s: float = 0.5,
+                  timeout_s: float = 10.0) -> int:
+    """The newest step the store committed (-1: none), read until two
+    reads ``settle_s`` apart agree: commits only add, and the old
+    world's last uploads can still land while the new world decides.
+    Restorable by any process of the new world: a sharded step through
+    its step manifest, a one-process step through process 0's archive
+    (``FlashCheckpointer._restore_v2``)."""
+    from dlrover_tpu_torch.trainer import ckpt_store
+
+    steps = ckpt_store.available_steps(store, 0)
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        time.sleep(settle_s)
+        again = ckpt_store.available_steps(store, 0)
+        if again == steps:
+            break
+        steps = again
+    return max(steps, default=-1)
 
 
 def compute_accum_steps(max_nodes: int, cur_nodes: int) -> int:
@@ -161,6 +202,11 @@ class ElasticTrainer:
         _MULTIPLIER tune the threshold."""
         self._fault_injector = FaultInjector.from_env(self._master_client)
         self._sentinel = TrainingSentinel.from_env(self._master_client)
+        # reshard-in-place (reshard/transition.py): adopts the master's
+        # transition orders exactly once; the step loop carries them
+        # out at a boundary (pending_reshard, execute_reshard)
+        self._mesh_transition = MeshTransition.from_env(
+            self._master_client)
         # zero-code timeline capture (DLROVER_TRACE_DIR): see
         # trainer/profiler.py TraceCapture
         self._trace_capture = profiler.TraceCapture.from_env()
@@ -232,7 +278,8 @@ class ElasticTrainer:
     def set_world(self, cur_nodes: int):
         self._cur_nodes = cur_nodes
         self._accum_steps = compute_accum_steps(self._max_nodes, cur_nodes)
-        self._trainer.set_accum_steps(self._accum_steps)
+        if self._trainer is not None:  # a joiner has none until it joins
+            self._trainer.set_accum_steps(self._accum_steps)
         logger.info(
             "Elastic world: %d/%d nodes -> accum_steps=%d",
             cur_nodes, self._max_nodes, self._accum_steps,
@@ -343,6 +390,11 @@ class ElasticTrainer:
         if self._sentinel is not None and _world() > 1:
             # the ranks adopt an order at the same step boundary
             self._sentinel.agree_rollback(_gather_pairs)
+        if self._mesh_transition is not None:
+            # transition orders are adopted here (exactly once by order
+            # id) and carried out by the step loop at the boundary it
+            # chooses -- see pending_reshard()
+            self._mesh_transition.poll_order()
         if self._fault_injector is not None:
             # after the ranks' agreement: a planted crash or hang ends
             # the step as a real one would, its collectives all run
@@ -432,6 +484,207 @@ class ElasticTrainer:
     @property
     def global_step(self) -> int:
         return self._global_step
+
+    @property
+    def checkpointer(self):
+        """The attached checkpointer (a mesh transition replaces it)."""
+        return self._checkpointer
+
+    # ------------------------------------------------------------ reshard
+
+    def pending_reshard(self):
+        """The adopted but not yet executed :class:`~dlrover_tpu_torch.
+        reshard.order.TransitionOrder`, or None. The step loop checks
+        it at each step boundary and carries a hit out with
+        :meth:`execute_reshard`."""
+        if self._mesh_transition is None:
+            return None
+        return self._mesh_transition.pending()
+
+    @property
+    def mesh_transition(self) -> Optional[MeshTransition]:
+        """The armed :class:`~dlrover_tpu_torch.reshard.transition.
+        MeshTransition` (None when DLROVER_TPU_RESHARD=0)."""
+        return self._mesh_transition
+
+    def wait_reshard(self, timeout: float, poll: float = 0.2):
+        """Poll for a transition order for up to ``timeout`` seconds: a
+        step failed in a collective because a peer died, or a joiner
+        waits to be grown in. Returns the adopted order (still pending,
+        for :meth:`execute_reshard`), or None when none came, the
+        transition was aborted (``mesh_transition.fallback``) or this
+        rank was excluded."""
+        mt = self._mesh_transition
+        if mt is None:
+            return None
+        deadline = time.monotonic() + timeout
+        while True:
+            order = mt.poll_order()
+            if order is not None or mt.fallback or mt.excluded:
+                return order
+            if time.monotonic() > deadline:
+                return None
+            time.sleep(poll)
+
+    def execute_reshard(
+        self,
+        order,
+        build_trainer: Callable[[], Any],
+        persist_dir: str,
+        ckpt_kwargs: Optional[Dict[str, Any]] = None,
+        peer_url: str = "",
+        live_step: Optional[int] = None,
+        resize: Optional[Callable[[int, int, Any], None]] = None,
+        extra_sources: Optional[List[Any]] = None,
+        backend: Optional[str] = None,
+        timeout_s: float = 120.0,
+        save_interval: Optional[int] = None,
+    ) -> Optional[Dict[str, Any]]:
+        """Carry ``order`` out at this step boundary, in process.
+
+        ``build_trainer()`` builds and initializes the trainer of the
+        new world (its mesh from the re-formed group); the restore target
+        takes the dtypes the pinned step saved (fp32 AdamW moments stay
+        fp32, ``ckpt_store.with_dtypes``), the state then picks the
+        optimizer (``load_train_state``) and ``set_world`` the new
+        world's microbatch count. The state is
+        ``{"model", "optimizer", "step", "data"}`` as the
+        examples save it, flash-saved under ``persist_dir``. A survivor
+        passes ``live_step``, the step its live state holds (its last
+        finished step); a joiner passes None. In order:
+
+        1. the process group is re-formed among the new world
+           (``distributed.reform_world``; the address through the
+           master KV under the order's id);
+        2. the save-attempt namespace (``NodeEnv.RDZV_ROUND``) becomes
+           the order id, so the new world's uploads never mix with the
+           old world's partial ones;
+        3. the restore step is pinned across the world
+           (``MeshTransition.agree_step``: the newest step the store
+           committed, read until two reads agree);
+        4. a checkpointer for ``(new_index, world_size)`` replaces the
+           attached one on its cadence (``save_interval``, by default
+           the attached one's; ``ckpt_kwargs``: its other arguments; a
+           ``peer_url``, this process's telemetry server, serves and
+           advertises its RAM tier);
+        5. the state moves: a survivor runs ``migrate_live`` (its live
+           boxes first, the checkpoint tiers for the rest); a joiner
+           runs ``migrate_from_checkpoint`` with ``extra_sources`` (a
+           hot spare's cache);
+        6. ``set_world`` and ``resize(world_size, new_index, data)``
+           (the sampler's or sharding client's, with the restored
+           ``"data"``);
+        7. ``note_migrated`` and then ``complete``.
+
+        Returns ``{"step", "stats", "seconds", "parts", "world_size",
+        "index", "order"}`` (``parts``: the seconds of the re-form, the
+        pin, the build, the migration and the load), or None when the
+        transition was aborted (no step to
+        restore, a refused report): the caller then takes the
+        restart-the-world path.
+        """
+        from dlrover_tpu_torch.checkpoint.peer import PeerRegistry
+        from dlrover_tpu_torch.reshard.migrate import (
+            merge_stats,
+            migrate_from_checkpoint,
+            migrate_live,
+        )
+        from dlrover_tpu_torch.trainer import ckpt_store
+        from dlrover_tpu_torch.trainer.checkpoint import FlashCheckpointer
+        from dlrover_tpu_torch.trainer.distributed import reform_world
+
+        mt = self._mesh_transition
+        t0 = time.time()
+        if mt.pending() is order:
+            mt.pop_pending()  # taken at this boundary
+        new_index = order.new_index(mt.node_rank)
+        old = self._trainer if live_step is not None else None
+        # the live state is read before the old group goes: its boxes
+        # are this rank's own, no collective builds them. A step that
+        # raised inside its update left it half-updated: never live
+        live = None
+        if old is not None and not old.updating:
+            live = {**old.train_state(), "step": int(live_step), "data": ""}
+        elif old is not None:
+            logger.warning("the live state of rank %d is half-updated: "
+                           "its boxes come from the checkpoint tiers",
+                           mt.node_rank)
+        with tracing.span("reshard.execute", {"order": order.id}):
+            parts, t_part = {}, time.time()
+
+            def part(name):
+                nonlocal t_part
+                now = time.time()
+                parts[name] = now - t_part
+                t_part = now
+
+            reform_world(order.world_size, new_index, self._master_client,
+                         f"reshard/world/{order.id}/addr",
+                         timeout_s=timeout_s, backend=backend)
+            os.environ[NodeEnv.RDZV_ROUND] = str(order.id)
+            part("reform_s")
+            store = ckpt_store.get_store(persist_dir)
+            step = mt.agree_step(
+                order, lambda: _settled_step(store),
+                timeout=timeout_s)
+            part("pin_s")
+            if step < 0:
+                mt.abort(order, "no committed step to migrate from")
+                return None
+            if self._checkpointer is not None:
+                self._checkpointer.close()
+            registry = (PeerRegistry(self._master_client, new_index, peer_url)
+                        if peer_url else None)
+            ckpt = FlashCheckpointer(
+                persist_dir, process_index=new_index,
+                n_processes=order.world_size, peer_registry=registry,
+                **(ckpt_kwargs or {}))
+            if peer_url:
+                set_shard_provider(ckpt.shard_provider())
+            trainer = build_trainer()
+            target = ckpt_store.with_dtypes(
+                {**trainer.train_state(), "step": 0, "data": ""},
+                ckpt_store.step_dtypes(store, step))
+            part("build_s")
+            if live is not None:
+                state, got, stats = migrate_live(
+                    ckpt, live, target=target, step=step,
+                    live_step=live_step)
+            else:
+                state, got, stats = migrate_from_checkpoint(
+                    ckpt, target=target, step=step,
+                    extra_sources=extra_sources)
+            if state is None or got != step:
+                ckpt.close()
+                mt.abort(order, f"migration found {got}, wanted {step}")
+                return None
+            part("migrate_s")
+            stats = merge_stats(stats)
+            data = state.get("data")
+            trainer.load_train_state(state)
+            del state, live, old
+            self._trainer = trainer
+            self._step_cache.clear()
+            self._global_step = step
+            self.set_world(order.world_size)
+            self.attach_checkpointer(
+                ckpt, self._ckpt_interval if save_interval is None
+                else save_interval)
+            if resize is not None:
+                resize(order.world_size, new_index, data)
+            part("load_s")
+            seconds = time.time() - t0
+            # "none": a master without a coordinator supervises nothing
+            carry_on = ("ok", "none", None)
+            if (mt.note_migrated(order, stats, duration_s=seconds)
+                    not in carry_on or mt.complete(order) not in carry_on):
+                return None
+        record("reshard.executed", order_id=order.id, step=step,
+               world_size=order.world_size, index=new_index,
+               seconds=round(seconds, 6), **parts)
+        return {"step": step, "stats": stats, "seconds": seconds,
+                "parts": parts, "world_size": order.world_size,
+                "index": new_index, "order": order.id}
 
     @property
     def sentinel(self) -> Optional[TrainingSentinel]:

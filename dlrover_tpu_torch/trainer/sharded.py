@@ -338,6 +338,11 @@ class ShardedTrainer:
         #: step (the elastic loop orders them after a checkpoint's
         #: device-to-host copies here)
         self.before_update: Optional[Callable[[], None]] = None
+        #: True from a step's first in-place write to its end: a step
+        #: that raised in between (a ZeRO step's gather after the
+        #: update, on a dead peer) left the state half-updated, which a
+        #: mesh transition must not serve as live (trainer/elastic.py)
+        self.updating = False
 
     @property
     def sharded(self) -> bool:
@@ -991,8 +996,10 @@ class ShardedTrainer:
                 p.grad = g
             if self.before_update is not None:
                 self.before_update()
+            self.updating = True
             self.optimizer.step()
             self.optimizer.zero_grad(set_to_none=True)
+            self.updating = False
             return loss
         sums = [torch.zeros_like(p, dtype=torch.float32) for p in params]
         loss = torch.zeros((), device=self.device)
@@ -1008,7 +1015,9 @@ class ShardedTrainer:
             loss = self._reduce(grads, loss)
         if self.before_update is not None:
             self.before_update()
+        self.updating = True
         self.optimizer.step(grads)
+        self.updating = False
         return loss
 
     def _sharded_step(self, batch) -> torch.Tensor:
@@ -1054,6 +1063,7 @@ class ShardedTrainer:
         self._release_params()
         if self.before_update is not None:
             self.before_update()
+        self.updating = True
         if fp32:
             self.optimizer.step(grads)
         else:
@@ -1062,6 +1072,7 @@ class ShardedTrainer:
             self.optimizer.step()
             self.optimizer.zero_grad(set_to_none=True)
         self._publish_params()
+        self.updating = False
         self.reduce_seconds = coll.collective_seconds()
         return loss
 

@@ -7,8 +7,8 @@ no dryrun error but out of memory or an indivisible split); one step at
 batch 1 x ``SINGLE_CHIP_MAX_SEQ`` under 0.9 x the card's memory; and the
 two-rank group (two gloo ranks on ``cuda:0``): the search over llama_1b
 at 4 layers with BO, both ranks on the same winner and seconds, a
-planned table, gpt2_xl at 4 layers under fsdp, gpt2_small under tp at
-its 50,257 vocab and the CNN under fsdp, each against its one-process
+planned table, gpt2_small under tp at its 50,257 vocab and the CNN
+under fsdp, each against its one-process
 step. Marked ``gpu``: it skips on a machine without one; run it on a GPU
 with ``python -m pytest --noconftest tests/test_torch_auto_gpu.py -m gpu
 -s``."""

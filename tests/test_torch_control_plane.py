@@ -251,9 +251,9 @@ def test_repointing_reaches_the_port():
     assert mod.TaskManager is TaskManager
     assert mod.LocalMasterClient is LocalMasterClient
     assert mod.MasterClient is port_master_client.MasterClient
-    # what the port does not have stays with the JAX package
+    # the state journal, ported since, is the port's too
     assert (mod.build_master_state_journal.__module__
-            == "dlrover_tpu.master.state_journal")
+            == "dlrover_tpu_torch.master.state_journal")
 
 
 # ------------------------------------------- same inputs, both packages

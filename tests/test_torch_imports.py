@@ -79,6 +79,16 @@ def test_the_strategy_search_is_under_the_rule():
             "auto/device_context.py", "examples/auto_train.py"} <= ported
 
 
+def test_the_reshard_and_state_modules_are_under_the_rule():
+    ported = {str(p.relative_to(PORT)) for p in FILES if p.is_relative_to(PORT)}
+    assert {"reshard/__init__.py", "reshard/order.py",
+            "reshard/coordinator.py", "reshard/transition.py",
+            "reshard/migrate.py", "reshard/spare.py",
+            "util/__init__.py", "util/state_store.py",
+            "util/event_queue.py", "master/state_journal.py",
+            "examples/stream_train.py"} <= ported
+
+
 def test_the_optimizers_are_under_the_rule():
     ported = {str(p.relative_to(PORT)) for p in FILES if p.is_relative_to(PORT)}
     assert {"optim/__init__.py", "optim/bf16.py", "optim/optimizers.py",
@@ -159,6 +169,11 @@ TORCH_FREE = (
     "dlrover_tpu_torch.agent.sharding.client",
     "dlrover_tpu_torch.trainer.sampler",
     "dlrover_tpu_torch.trainer.evaluator",
+    # the master's side of reshard-in-place and its durable state
+    "dlrover_tpu_torch.reshard.coordinator",
+    "dlrover_tpu_torch.master.state_journal",
+    "dlrover_tpu_torch.util",
+    "dlrover_tpu_torch.examples.stream_train",
 )
 
 

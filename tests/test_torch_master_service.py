@@ -242,7 +242,7 @@ def test_servicer_replies_match_jax():
 
 
 @pytest.mark.parametrize("method", [
-    "serve_submit", "report_relay_batch", "report_reshard",
+    "serve_submit", "report_relay_batch", "serve_lease",
     "no_such_rpc",
 ])
 def test_rpcs_left_out_are_unknown(method):

@@ -296,8 +296,7 @@ def test_corrupt_loss_gives_the_same_bits(seed):
 
 
 def test_only_four_kinds_still_wait_for_their_modules():
-    assert sorted(injection.WAITS_FOR) == [
-        "master_crash", "node_join", "node_lost", "serve_kill"]
+    assert sorted(injection.WAITS_FOR) == ["master_crash", "serve_kill"]
     assert injection.CORRUPTION_KINDS == jax_injection.CORRUPTION_KINDS
 
 
