@@ -254,35 +254,51 @@ Phases, each of which raises on failure:
     which phase 3 checks too;
 19. reshard: reshard-in-place (``reshard/``), the llama_1b of "mesh"
     (4 layers) under fsdp, 3 x 2048 a data-parallel rank,
-    AdamW(1e-4, 0.9, 0.95), two gloo ranks on ``cuda:0`` against a
-    master servicer built with a ``TransitionCoordinator`` (this process
-    plays the distributed master's part), a flash checkpoint every step
-    (durable on the RAM tier, persisted behind the next step, committed
-    before rank 1's death and before the survivor idles). Two steps, the
-    world sealed; ``node_lost@3:host=1`` SIGKILLs rank 1 after its
-    step-3 save is committed; rank 0's step 4 fails in a
-    gloo collective, it adopts the shrink order, re-forms a world of one
-    in process and migrates live (its half from its live tensors, rank
-    1's from the store), 2 steps at world 1 (two microbatches); a joiner
-    reports RUNNING, the grow order re-forms a world of two, rank 0
-    migrates live and the joiner assembles its half over rank 0's
-    ``/ckpt/shard``, 2 steps at world 2. Gates: each migrated
-    state bitwise a fresh one-process ``restore(step=pinned)``'s, the
-    steps after each transition against the one-process step from it
+    AdamW(1e-4, 0.9, 0.95), two gloo ranks on ``cuda:0`` under the
+    port's distributed master (``python -m dlrover_tpu_torch.master.main
+    --platform process``, ``DLROVER_TPU_RESHARD=1``, a job spec of no
+    replicas whose ``worker.command`` runs a rank), a flash checkpoint
+    every step (durable on the RAM tier, persisted behind the next step,
+    committed before rank 1's death and before the survivor idles). The
+    ranks report to the master, heartbeat it every 0.5 s from a daemon
+    thread and complete one training rendezvous, which seals its
+    reshard membership; ``node_lost@3:host=1`` SIGKILLs rank 1 after its
+    step-3 save is committed; rank 0's step 4 fails in a gloo collective;
+    the master's heartbeat watchdog (5 s) declares rank 1 lost and its
+    coordinator cuts the shrink order; rank 0 re-forms a world of one in
+    process and migrates live (its half from its live tensors, rank 1's
+    from the store), 2 steps at world 1 (two microbatches); this process
+    sends ``request_scale(2)``, the master's process scaler launches the
+    joiner, whose RUNNING report cuts the grow order; rank 0 migrates
+    live and the joiner assembles its half over rank 0's
+    ``/ckpt/shard``, 2 steps at world 2. The master dies
+    (``master_crash@6``) after the first world-2 step; a second master
+    on the same state dir and port restores the job from its journal
+    while the ranks ride the outage out. Gates: each migrated state
+    bitwise a fresh one-process ``restore(step=pinned)``'s, the steps
+    after each transition against the one-process step from it
     ("mesh"'s loss and parameter gates), "mesh"'s byte gates at every
     step (parameter bytes halved at world 2, optimizer bytes those of
     the domains the rank holds, the moments fp32 after world 1), the
     final world-2 save restored bitwise at world 2 from the store, the
-    survivor's pid, both orders
-    completed, the journal's replay with a reshard window and no
-    restart, ``live``, ``store`` and ``peer`` moves with no digest
-    mismatch, 4 (8 at world 1) launches of each kernel a step, a planted
-    stale-live migration caught by the bitwise gate. Printed: adopt to
-    completed ms per transition and rank, the kill to the end of the
-    first world-1 step (``recovery_s``, as "launch" reads it), the
+    survivor's pid, rank 1 ended by SIGKILL and ranks 0 and 2 by rc 0,
+    the masters by rc 28 and 0, both orders completed (the shrink on
+    the watchdog's "killed"), one scale plan of one launch and no
+    relaunch, ``master.restored`` with the KV keys, the training round
+    and the global step, the master's downtime one recovered fault of
+    the account, each rank's ``agent.master_lost`` and
+    ``agent.master_reconnected``, no survivor silent for the watchdog's
+    timeout, the journal's replay with a reshard window and no restart
+    but the victim's and the master's outage, ``live``, ``store`` and
+    ``peer`` moves with no digest mismatch, 4 (8 at world 1) launches of
+    each kernel a step, a planted stale-live migration caught by the
+    bitwise gate. Printed: adopt to completed ms per transition and
+    rank, the kill to the end of the first world-1 step (``recovery_s``,
+    as "launch" reads it) split at the watchdog's verdict, the
     survivor's reshard windows, migration seconds and bytes by source,
-    the joiner's start and its RUNNING to its first step, step and save
-    times, launches a step;
+    ``request_scale`` to the joiner's first step, the master's crash to
+    its restore and the restore to the next step, step and save times,
+    launches a step;
 20. the wall seconds of each phase, then the kernels line (one JSON
     object; each kernel at both train steps' shapes, at the tp shape of
     "mesh", with ``mesh_launches``, at the shapes of "sequence", at
@@ -5035,6 +5051,17 @@ RESHARD_GLOBAL_B = 2 * SLICE["b"]
 RESHARD_STALE = RESHARD_LOST - 1
 RESHARD_TIMEOUT_S = 300
 RESHARD_HEARTBEAT_S = 30
+#: the ranks heartbeat to the master from a daemon thread at this
+#: interval; the master's watchdog declares a rank lost after
+#: RESHARD_WATCHDOG_S of silence (JAX's reshard drill: 0.5 s and 5 s),
+#: which a survivor mid-step or mid-migration never reaches (the phase
+#: reads the longest gap each survivor left)
+RESHARD_HB_INTERVAL_S = 0.5
+RESHARD_WATCHDOG_S = 5.0
+#: the master's fault: it dies (``master_crash``, rc 28) once the ranks
+#: report this global step, the first at world 2, and a second master
+#: restores the job from its state journal while the ranks ride it out
+RESHARD_MASTER_CRASH = RESHARD_FINAL - RESHARD_WORLD2_STEPS + 1
 #: on the CPU (a dry run of the phase's logic): llama_tiny at this length
 RESHARD_S_CPU = 64
 #: the rc of a rank that took the restart-the-world fallback
@@ -5043,6 +5070,11 @@ RESHARD_FALLBACK_RC = 7
 #: (the survivor idles): the joiner starts ahead, as a scheduler would
 #: bring a node up, and announces itself then
 RESHARD_GO_KEY = "reshard/drill/join"
+#: the key the harness sets once the second master is up: the ranks hold
+#: after the master's crash step until it is set, so the outage falls
+#: between two steps on any host (a step shorter than the master's tick
+#: would otherwise end the run before the master dies)
+RESHARD_RESUME_KEY = "reshard/drill/resume"
 
 
 
@@ -5194,21 +5226,42 @@ def _state_bytes_expected(cfg, layers: int, world: int,
             "optimizer": 2 * (moment_bytes * matrices // world + norms)}
 
 
+def _heartbeats(client, beats: list) -> None:
+    """Heartbeat the master from a daemon thread every
+    RESHARD_HB_INTERVAL_S, as an agent does, appending the time of each
+    answered one to ``beats``."""
+    import threading
+
+    def loop():
+        while True:
+            try:
+                client.report_heartbeat()
+                beats.append(time.time())
+            except Exception:  # noqa: BLE001 - the master is away
+                pass
+            time.sleep(RESHARD_HB_INTERVAL_S)
+
+    threading.Thread(target=loop, daemon=True, name="heartbeat").start()
+
+
 def reshard_rank(work: str, layers: int, device=None) -> None:
     """One process of phase "reshard" (``python -c``): node 0 or 1 of the
-    first world (``DLROVER_TPU_NODE_RANK``), or the joiner
-    (``RESHARD_JOINER=1``). Steps the fsdp trainer under an
-    ElasticTrainer against the phase's master, saves every step durably
-    on both tiers, and carries the master's transition orders out in
-    process (``ElasticTrainer.execute_reshard``); one JSON line a step
-    (``STEP``) on stdout and ``node<n>.json`` at the end."""
+    first world (``DLROVER_TPU_NODE_RANK``), started by the phase, or the
+    joiner (``RESHARD_JOINER=1``), launched by the master's process
+    scaler. Heartbeats the master from a daemon thread; the first world's
+    ranks complete one training rendezvous (which seals the master's
+    reshard membership). Steps the fsdp trainer under an ElasticTrainer
+    that reports every step, saves every step durably on both tiers, and
+    carries the master's transition orders out in process
+    (``ElasticTrainer.execute_reshard``); one JSON line a step (``STEP``)
+    on stdout and ``node<n>.json`` at the end."""
     import numpy as np
     import torch
     import torch.distributed as dist
 
     from dlrover_tpu_torch.agent.master_client import build_master_client
     from dlrover_tpu_torch.checkpoint.peer import PeerRegistry
-    from dlrover_tpu_torch.common.constants import NodeEnv
+    from dlrover_tpu_torch.common.constants import NodeEnv, RendezvousName
     from dlrover_tpu_torch.ops.cuda import flash_attention as fa
     from dlrover_tpu_torch.reshard.migrate import migrate_live
     from dlrover_tpu_torch.telemetry.http import (
@@ -5230,6 +5283,7 @@ def reshard_rank(work: str, layers: int, device=None) -> None:
     elif cuda:
         torch.cuda.set_device(0)
     client = build_master_client()
+    print(f"START {os.getpid()} {os.getppid()}", flush=True)
     server = MetricsServer(port=0).start()
     url = f"http://127.0.0.1:{server.port}"
     cfg = _reshard_cfg(layers, device, plan.get("tiny"))
@@ -5240,7 +5294,7 @@ def reshard_rank(work: str, layers: int, device=None) -> None:
                        max_persist_keep=RESHARD_FINAL + 1,
                        commit_timeout=60.0)
     out = {"node": node, "pid": os.getpid(), "steps": [],
-           "transitions": [], "device": None}
+           "transitions": [], "device": None, "heartbeats": []}
 
     def build():
         return _reshard_trainer(cfg, device)
@@ -5256,7 +5310,7 @@ def reshard_rank(work: str, layers: int, device=None) -> None:
 
     if joiner:
         elastic = ElasticTrainer(None, max_nodes=2, cur_nodes=1,
-                                 master_client=client)
+                                 master_client=client, report_interval=1)
         world = 0
         # the joiner warms up before it announces itself (as a spare
         # pre-builds its model): one throwaway step at world 1 loads the
@@ -5275,7 +5329,7 @@ def reshard_rank(work: str, layers: int, device=None) -> None:
     else:
         rank, world = dist.get_rank(), dist.get_world_size()
         elastic = ElasticTrainer(build(), max_nodes=2, cur_nodes=world,
-                                 master_client=client)
+                                 master_client=client, report_interval=1)
         ckpt = FlashCheckpointer(
             store_dir, process_index=rank, n_processes=world,
             peer_registry=PeerRegistry(client, rank, url), **ckpt_kwargs)
@@ -5283,6 +5337,20 @@ def reshard_rank(work: str, layers: int, device=None) -> None:
         elastic.attach_checkpointer(ckpt, 1)
         sampler.set_world(world, rank)
     client.update_node_status("running")
+    if not joiner:
+        # the first world's training rendezvous: its completed round
+        # seals the master's reshard membership, so a later RUNNING
+        # report reads as a join
+        client.report_rdzv_params(2, 2, 0.5, 1)
+        client.join_rendezvous(node, 1)
+        while True:
+            rdzv_round, _, members = client.get_comm_world(
+                RendezvousName.TRAINING, node)
+            if node in members:
+                out["rdzv_round"] = rdzv_round
+                break
+            time.sleep(0.05)
+    _heartbeats(client, out["heartbeats"])
     stale = None
 
     def planted_sums(res):
@@ -5412,6 +5480,9 @@ def reshard_rank(work: str, layers: int, device=None) -> None:
                        os.path.join(work, f"params{node}_{step}.pt"))
         # the injector fires here, after the step's save is durable
         elastic.report_step(step, loss=loss)
+        if step == RESHARD_MASTER_CRASH:
+            while not client.kv_store_get(RESHARD_RESUME_KEY):
+                time.sleep(0.05)
     out["pid_end"] = os.getpid()
     # the last world-2 save restored bitwise at world 2: a fresh
     # checkpointer, its RAM tier empty and no peers, reads it from the
@@ -5432,6 +5503,7 @@ def reshard_rank(work: str, layers: int, device=None) -> None:
         == _box_sums(live)}
     del got, live
     elastic.checkpointer.close()
+    out["heartbeats"] = list(out["heartbeats"])
     with open(os.path.join(work, f"node{node}.json"), "w") as f:
         json.dump(out, f)
     server.stop()
@@ -5499,15 +5571,53 @@ class _Shards:
         return self._shards
 
 
+def _read(path: str) -> str:
+    with open(path) as f:
+        return f.read()
+
+
+def _has_line(path: str, prefix: str) -> bool:
+    with open(path) as f:
+        return any(line.startswith(prefix) for line in f)
+
+
+def _tail(path: str, on_line, stop) -> None:
+    """Feed each line of the file ``path`` to ``on_line`` as it is
+    written, from a daemon thread, until ``stop`` is set."""
+    import threading
+
+    def loop():
+        while not os.path.exists(path):
+            if stop.wait(0.05):
+                return
+        with open(path) as f:
+            while True:
+                line = f.readline()
+                if line:
+                    on_line(line)
+                elif stop.wait(0.05):
+                    return
+
+    threading.Thread(target=loop, daemon=True).start()
+
+
 def run_reshard(layers: int = RESHARD_LAYERS, device=None,
                 plant=None, tiny: bool = False) -> dict:
-    """Phase "reshard"'s body. This process is the master: a servicer
-    built with a ``TransitionCoordinator``, and the distributed master's
-    part played here (ROADMAP queue A.2.2): the world sealed after the
-    first steps, ``note_node_lost`` on a rank's exit, ``check_abort`` on
-    its tick, the joiner started once the survivor idles. Then the
-    gates, against fresh one-process restores of the pinned steps and
-    the one-process step from them. ``plant="no_resize"`` makes the
+    """Phase "reshard"'s body, under the port's distributed master: a
+    ``python -m dlrover_tpu_torch.master.main --platform process``
+    subprocess with ``DLROVER_TPU_RESHARD=1``, its job spec declaring no
+    replicas and a ``worker.command`` that runs a rank. This process
+    starts the first world's two ranks (as JAX's reshard drills do); the
+    master learns of them from their reports, detects rank 1's loss
+    through its heartbeat watchdog, and its coordinator cuts the shrink
+    order. Once the shrink is complete this process asks the master for
+    two nodes (``request_scale``), and the master's process scaler
+    launches the joiner, whose RUNNING report cuts the grow order. The
+    master dies (``master_crash`` at RESHARD_MASTER_CRASH) and a second
+    one, on the same state dir and port, restores the job from its
+    journal while the ranks ride the outage out. Then the gates, against
+    fresh one-process restores of the pinned steps and the one-process
+    step from them. ``plant="no_resize"`` makes the
     survivor skip its sampler's resize, which the gates must fail; the
     stale-live migration is planted beside every shrink (its state must
     differ from the restored step's). ``device="cpu"`` runs llama_tiny
@@ -5520,14 +5630,14 @@ def run_reshard(layers: int = RESHARD_LAYERS, device=None,
     import numpy as np
     import torch
 
-    from dlrover_tpu_torch import telemetry as T
-    from dlrover_tpu_torch.master.elastic_training.kv_store_service import (
-        KVStoreService)
+    from dlrover_tpu_torch.agent.master_client import MasterClient
+    from dlrover_tpu_torch.common.constants import RendezvousName
+    from dlrover_tpu_torch.fault_tolerance.injection import (
+        MASTER_CRASH_EXIT_CODE)
+    from dlrover_tpu_torch.master.state_journal import (
+        build_master_state_journal)
     from dlrover_tpu_torch.models import llama
-    from dlrover_tpu_torch.master.servicer import create_master_service
-    from dlrover_tpu_torch.reshard import TransitionCoordinator
     from dlrover_tpu_torch.telemetry import goodput, read_journal
-    from dlrover_tpu_torch.telemetry.journal import EventJournal
 
     cuda = device != "cpu"
     cfg = _reshard_cfg(layers, device, tiny)
@@ -5542,88 +5652,145 @@ def run_reshard(layers: int = RESHARD_LAYERS, device=None,
     ram = (tempfile.mkdtemp(prefix="dlrover_reshard_", dir="/dev/shm")
            if cuda and shm_free >= 3 * state_bytes else work)
     journal = os.path.join(work, "journal.jsonl")
+    state_dir = os.path.join(work, "state")
     np.save(os.path.join(work, "tokens.npy"), reshard_tokens(cfg, s))
     with open(os.path.join(work, "plan.json"), "w") as f:
         json.dump({"plant": plant, "stale": True, "tiny": tiny,
                    "ram": ram}, f)
-    kv = KVStoreService()
-    coord = TransitionCoordinator(kv, max_transitions=4,
-                                  abort_timeout=RESHARD_TIMEOUT_S)
-    saved_journal = T.default_journal()
-    T.set_default_journal(EventJournal(journal))
-    server, _ = create_master_service(0, kv_store=kv,
-                                      transition_coordinator=coord)
-    server.start()
     base = {k: v for k, v in os.environ.items()
             if not k.startswith(("DLROVER_TPU_", "DLROVER_FAULT"))}
-    base.update({
-        "DLROVER_TPU_MASTER_ADDR": f"localhost:{server.port}",
-        "DLROVER_TPU_JOURNAL": journal, "DLROVER_TPU_RESHARD": "1",
+    base.update({"DLROVER_TPU_JOURNAL": journal, "DLROVER_TPU_RESHARD": "1",
+                 "PYTHONUNBUFFERED": "1"})
+    rank_env = {
         "DLROVER_FAULT_INJECT": f"node_lost@{RESHARD_LOST}:host=1",
         "DLROVER_TPU_DIST_HEARTBEAT_TIMEOUT": str(RESHARD_HEARTBEAT_S),
-        "DLROVER_TPU_LOG_LEVEL": "WARNING", "PYTHONUNBUFFERED": "1",
-        "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1"})
+        "DLROVER_TPU_LOG_LEVEL": "WARNING",
+        "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1"}
     if not cuda:
-        base["OMP_NUM_THREADS"] = "1"
+        rank_env["OMP_NUM_THREADS"] = "1"
     code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
             f"import chip_smoke; chip_smoke.reshard_rank({work!r}, "
             f"{layers}, {device!r})")
-    procs, lines, marks = {}, {}, {}
+    # the job spec: no replicas (the phase starts the first world), and
+    # the joiner's command, which keeps its output and its exit code
+    joiner_out = os.path.join(work, "node2.out")
+    joiner_rc = os.path.join(work, "node2.rc")
+    wrapper = (
+        "import subprocess, sys; "
+        f"out = open({joiner_out!r}, 'w'); "
+        f"rc = subprocess.call([sys.executable, '-c', {code!r}], "
+        f"stdout=out, stderr=subprocess.STDOUT, cwd={str(ROOT)!r}); "
+        f"open({joiner_rc!r}, 'w').write(str(rc)); sys.exit(rc)")
+    spec = os.path.join(work, "job.json")
+    with open(spec, "w") as f:
+        json.dump({"apiVersion": "dlrover-tpu/v1", "kind": "ElasticTpuJob",
+                   "metadata": {"name": "reshard"},
+                   "spec": {"platform": "process", "worker": {
+                       "replicas": 0, "criticalWorkerIndex": "none",
+                       "command": [sys.executable, "-c", wrapper],
+                       "env": {**rank_env, "RESHARD_JOINER": "1"}}}}, f)
+    port = _free_port()
+    masters, procs, lines, marks = [], {}, {0: [], 1: [], 2: []}, {}
     lock = threading.Lock()
+    stop = threading.Event()
+
+    def on_line(node, line):
+        with lock:
+            lines[node].append(line)
+            if node == 0 and line.startswith("TRANSITION "):
+                marks.setdefault("shrunk", time.time())
+            if node == 0 and line.startswith("IDLE"):
+                marks["idle"] = True
+            if line.startswith("READY"):
+                marks[f"ready{node}"] = time.time()
+            if line.startswith("START "):
+                marks[f"pids{node}"] = [int(x) for x in line.split()[1:]]
+
+    def start_master(fault: str):
+        n = len(masters) + 1
+        env = {**base, "DLROVER_TPU_METRICS_PORT": "off",
+               "DLROVER_TPU_LOG_LEVEL": "INFO"}
+        if fault:
+            env["DLROVER_FAULT_INJECT"] = fault
+        t0 = time.time()
+        out = os.path.join(work, f"master{n}.out")
+        with open(out, "w") as so, open(
+                os.path.join(work, f"master{n}.err"), "w") as se:
+            m = subprocess.Popen(
+                [sys.executable, "-m", "dlrover_tpu_torch.master.main",
+                 "--platform", "process", "--job_spec", spec,
+                 "--state_dir", state_dir, "--port", str(port),
+                 "--heartbeat_timeout", str(RESHARD_WATCHDOG_S),
+                 "--check_interval", "0.2", "--autoscale_interval", "600"],
+                cwd=ROOT, env=env, start_new_session=True, stdout=so,
+                stderr=se)
+        masters.append(m)
+        while not _has_line(out, "DLROVER_TPU_MASTER_PORT="):
+            if m.poll() is not None or time.time() - t0 > 60:
+                raise AssertionError(f"master {n} did not start: " + _read(
+                    os.path.join(work, f"master{n}.err"))[-3000:])
+            time.sleep(0.05)
+        marks.setdefault("master_start_s", time.time() - t0)
+        return m
 
     def spawn(node, **env):
-        marks[f"spawn{node}"] = time.time()
         p = procs[node] = subprocess.Popen(
             [sys.executable, "-c", code], cwd=ROOT, env={
-                **base, "DLROVER_TPU_NODE_RANK": str(node),
+                **base, **rank_env,
+                "DLROVER_TPU_MASTER_ADDR": f"localhost:{port}",
+                "DLROVER_TPU_NODE_RANK": str(node),
                 "DLROVER_TPU_NODE_ID": str(node), **env},
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             start_new_session=True)
-        lines[node] = []
 
         def read():
             for line in p.stdout:
-                with lock:
-                    lines[node].append(line)
-                    if line.startswith("STEP {"):
-                        marks.setdefault(f"first{node}", time.time())
-                        if node == 0 and json.loads(line[5:])["step"] == 2:
-                            marks["seal"] = True
-                    if node == 0 and line.startswith("IDLE"):
-                        marks["idle"] = True
-                    if line.startswith("READY"):
-                        marks[f"ready{node}"] = time.time()
+                on_line(node, line)
 
         threading.Thread(target=read, daemon=True).start()
 
+    def joiner_rc_now():
+        try:
+            with open(joiner_rc) as f:
+                return int(f.read())
+        except (OSError, ValueError):
+            return None
+
     failed, readings = [], {}
+    client = None
     t_phase = time.time()
     try:
-        port = _free_port()
+        start_master(f"master_crash@{RESHARD_MASTER_CRASH}")
+        client = MasterClient(f"localhost:{port}", 0, "worker")
+        _tail(joiner_out, lambda line: on_line(2, line), stop)
+        gloo = _free_port()
         for r in range(2):
-            spawn(r, DLROVER_TPU_COORDINATOR_ADDR=f"localhost:{port}",
+            spawn(r, DLROVER_TPU_COORDINATOR_ADDR=f"localhost:{gloo}",
                   DLROVER_TPU_PROCESS_ID=str(r),
                   DLROVER_TPU_NUM_PROCESSES="2")
         deadline = time.time() + 2 * RESHARD_TIMEOUT_S
         while time.time() < deadline:
             with lock:
-                seal, idle = marks.get("seal"), marks.get("idle")
-            if seal and not coord.sealed:
-                coord.seal_world()
-            if "lost" not in marks and procs[1].poll() is not None:
-                # the distributed master's part: a worker's exit is a
-                # loss the coordinator takes online
-                marks["lost"] = time.time()
-                coord.note_node_lost(
-                    1, reason=f"exit {procs[1].returncode}")
-            if coord.transitions_done and 2 not in procs:
-                spawn(2, RESHARD_JOINER="1")  # a node comes up
-            if idle and not kv.get(RESHARD_GO_KEY):
-                kv.set(RESHARD_GO_KEY, b"1")
-            coord.check_abort()
+                shrunk, idle = marks.get("shrunk"), marks.get("idle")
+                ready = marks.get("ready2")
+            if shrunk and "request_scale" not in marks:
+                # a node comes up: the master's scaler launches it
+                marks["request_scale"] = time.time()
+                if not client.request_scale(2):
+                    raise AssertionError("request_scale refused")
+            if idle and ready and "go" not in marks:
+                marks["go"] = time.time()
+                client.kv_store_set(RESHARD_GO_KEY, b"1")
+            if len(masters) == 1 and masters[0].poll() is not None:
+                # the master died: a second one takes its state dir and
+                # port, without the fault
+                start_master("")
+                resume = MasterClient(f"localhost:{port}", 0, "worker")
+                resume.kv_store_set(RESHARD_RESUME_KEY, b"1")
+                resume.close()
             if procs[0].poll() not in (None, 0) or (
                     procs[0].poll() is not None
-                    and (2 not in procs or procs[2].poll() is not None)):
+                    and joiner_rc_now() is not None):
                 break  # the survivor failed, or every rank is done
             time.sleep(0.05)
         readings["ranks_s"] = time.time() - t_phase
@@ -5631,17 +5798,34 @@ def run_reshard(layers: int = RESHARD_LAYERS, device=None,
             if p.poll() is None:
                 os.killpg(p.pid, signal.SIGKILL)
             p.wait(timeout=30)
+        # the last master stops on SIGINT, journaling its account
+        if masters[-1].poll() is None:
+            masters[-1].send_signal(signal.SIGINT)
+        try:
+            masters[-1].wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            pass
+        master_rcs = [m.poll() for m in masters]
         rcs = {n: p.returncode for n, p in procs.items()}
-        if rcs != {0: 0, 1: -signal.SIGKILL, 2: 0}:
+        rcs[2] = joiner_rc_now()
+        if rcs != {0: 0, 1: -signal.SIGKILL, 2: 0} or master_rcs != [
+                MASTER_CRASH_EXIT_CODE, 0]:
             raise AssertionError(
-                f"reshard: exits {rcs}; node 0: "
-                + "".join(lines.get(0, []))[-3000:] + " node 2: "
-                + "".join(lines.get(2, []))[-2000:] + " node 1: "
-                + "".join(lines.get(1, []))[-1500:])
+                f"reshard: exits {rcs}, masters {master_rcs}; node 0: "
+                + "".join(lines[0])[-3000:] + " node 2: "
+                + "".join(lines[2])[-2000:] + " node 1: "
+                + "".join(lines[1])[-1500:] + " masters: " + " ".join(
+                    _read(os.path.join(work, f"master{n}.err"))[-2000:]
+                    for n in range(1, len(masters) + 1)))
         results = {}
         for n in (0, 2):
             with open(os.path.join(work, f"node{n}.json")) as f:
                 results[n] = json.load(f)
+        master_logs = "".join(_read(os.path.join(work, f"master{n}.err"))
+                              for n in range(1, len(masters) + 1))
+        state = build_master_state_journal("reshard", state_dir=state_dir)
+        goodput_state = state.load_goodput() or {}
+        state.close()
         t_ref = time.time()
         shrink, grow0 = results[0]["transitions"]
         grow2, = results[2]["transitions"]
@@ -5668,12 +5852,24 @@ def run_reshard(layers: int = RESHARD_LAYERS, device=None,
         readings["reference_s"] = time.time() - t_ref
         events = read_journal(journal) if os.path.exists(journal) else []
     finally:
-        server.stop(grace=0.5)
-        T.set_default_journal(saved_journal)
+        stop.set()
+        if client is not None:
+            client.close()
         for p in procs.values():
             if p.poll() is None:
                 os.killpg(p.pid, signal.SIGKILL)
                 p.wait(timeout=30)
+        for pid in marks.get("pids2", []):  # the joiner and its wrapper
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except OSError:
+                pass
+        for m in masters:
+            try:
+                os.killpg(m.pid, signal.SIGKILL)
+            except OSError:
+                pass
+            m.wait(timeout=30)
         shutil.rmtree(work, ignore_errors=True)
         shutil.rmtree(ram, ignore_errors=True)
         if cuda:
@@ -5697,12 +5893,59 @@ def run_reshard(layers: int = RESHARD_LAYERS, device=None,
                    RESHARD_LOST]:
         failed.append(f"rank 1 not lost after step {RESHARD_LOST}: "
                       f"{[r['step'] for r in steps1]}")
-    if coord.transitions_done != 2 or coord.active_order is not None:
-        failed.append(f"transitions_done {coord.transitions_done}, "
-                      f"active {coord.active_order}")
+    # the masters' part, from the journal both wrote: two orders, each
+    # completed, the shrink cut on the watchdog's verdict (a heartbeat
+    # loss reads as "killed"; an exit the scaler saw would read as OOM)
     kinds = [e["kind"] for e in events if e["kind"].startswith("reshard.")]
-    if kinds.count("reshard.completed") != 2 or "reshard.aborted" in kinds:
+    if (kinds.count("reshard.ordered") != 2
+            or kinds.count("reshard.completed") != 2
+            or "reshard.aborted" in kinds):
         failed.append(f"journal: {kinds}")
+    detected = [e["data"] for e in events if e["kind"] == "reshard.detected"]
+    if [(d["node_rank"], d["reason"]) for d in detected] != [
+            (1, "killed"), (2, "node_join")]:
+        failed.append(f"detections {detected}")
+    # one launch, by the scaler on request_scale, and no relaunch
+    plans = [e["data"] for e in events if e["kind"] == "scale.plan"]
+    if [(p["launch"], p["remove"]) for p in plans] != [(1, 0)] or (
+            master_logs.count("Launched worker-") != 1
+            or "Relaunch " in master_logs):
+        failed.append(f"scale plans {plans}")
+    # the second master restored the job from the journal
+    restored = [e for e in events if e["kind"] == "master.restored"]
+    rounds = [r["rdzv_round"] for r in results.values()
+              if "rdzv_round" in r]
+    if len(restored) != 1 or not (
+            restored[0]["data"]["kv_keys"] >= 1
+            and restored[0]["data"]["global_step"] >= 1
+            and restored[0]["data"]["rdzv_rounds"].get(
+                RendezvousName.TRAINING, 0) >= max(rounds, default=1)):
+        failed.append(f"master.restored {[e['data'] for e in restored]}, "
+                      f"rounds {rounds}")
+    # the account counts the master's downtime as one recovered fault
+    master_faults = [f for f in goodput_state.get("faults", [])
+                     if f.get("cause") == "master_restart"]
+    if len(master_faults) != 1 or not master_faults[0].get(
+            "recovered_ts"):
+        failed.append(f"goodput faults {goodput_state.get('faults')}")
+    # the ranks rode the outage out on their connection supervisors
+    t_crash = next((e["ts"] for e in events if e["kind"] == "fault.injected"
+                    and e["data"].get("fault") == "master_crash"), None)
+    for n, res in results.items():
+        got = [e["kind"] for e in events if e.get("pid") == res["pid"]]
+        if ("agent.master_lost" not in got
+                or "agent.master_reconnected" not in got):
+            failed.append(f"node {n} never lost and regained the master")
+    # the watchdog never took a survivor for lost: each one's longest
+    # silence while the first master lived
+    gaps = {}
+    for n, res in results.items():
+        beats = [t for t in res["heartbeats"] if t_crash is None
+                 or t < t_crash]
+        gaps[n] = max((b - a for a, b in zip(beats, beats[1:])),
+                      default=0.0)
+        if gaps[n] >= RESHARD_WATCHDOG_S:
+            failed.append(f"node {n}: heartbeat gap {gaps[n]}")
     if (shrink["step"], grow0["step"], grow2["step"]) != (
             RESHARD_LOST, world1[-1], world1[-1]):
         failed.append(f"pinned steps {shrink['step']}, {grow0['step']}, "
@@ -5771,15 +6014,29 @@ def run_reshard(layers: int = RESHARD_LAYERS, device=None,
               and e.get("pid") == results[0]["pid"]]
     windows = [b["ts"] - a["ts"] for a, b in zip(phases, phases[1:])
                if a["data"].get("phase") == "reshard"]
-    t_kill = next((e["ts"] for e in events
-                   if e["kind"] == "fault.injected"), None)
+    t_kill = next((e["ts"] for e in events if e["kind"] == "fault.injected"
+                   and e["data"].get("fault") == "node_lost"), None)
+    t_detect = next((e["ts"] for e in events
+                     if e["kind"] == "reshard.detected"), None)
+    t_restored = restored[0]["ts"] if restored else None
     restart_s = {k: p["phases"].get("restart", 0.0)
                  for k, p in report["procs"].items()}
+    # the master's outage books as restart on each rank that waited it
+    # out (agent.master_lost to agent.master_reconnected), and nothing
+    # else does
+    outage = {}
+    for e in events:
+        if e["kind"] in ("agent.master_lost", "agent.master_reconnected"):
+            outage.setdefault(e["pid"], []).append(e["ts"])
+    allowed = {k: max(t) - min(t) for k, t in
+               ((k, outage.get(int(k.rsplit(":", 1)[1]), [0.0]))
+                for k in restart_s)}
     if reshard_s <= 0 or len(survivor) != 1 or any(
-            v > 0 for k, v in restart_s.items()
+            v > allowed[k] + 0.05 for k, v in restart_s.items()
             if not k.endswith(f":{victim}")):
         failed.append(f"replay: reshard {reshard_s} s on the survivor "
-                      f"({len(survivor)} found), restart {restart_s}")
+                      f"({len(survivor)} found), restart {restart_s} "
+                      f"against the master's outage {allowed}")
     if cuda:
         for r in all_steps:
             if set(r["launches"].values()) != {layers * r["accum"]}:
@@ -5795,15 +6052,44 @@ def run_reshard(layers: int = RESHARD_LAYERS, device=None,
             "grow node 2": grow2["adopt_to_completed_ms"]},
         "coordinator_s": [e["data"].get("duration_s") for e in events
                           if e["kind"] == "reshard.completed"],
-        # the master's view: the loss noticed to the shrink completed
+        # the master's view: the loss detected to the shrink completed
         "lost_to_shrunk_s": next(
-            (e["ts"] - marks["lost"] for e in events
+            (e["ts"] - t_detect for e in events
              if e["kind"] == "reshard.completed"), None),
         # the kill (journaled just before it) to the end of the survivor's
         # first world-1 step: "launch"'s recovery_s, crash to the first
-        # step after the restore, read the same way
+        # step after the restore, read the same way; of it, the kill to
+        # the watchdog's verdict, and the rest
         "recovery_s": (by_step[0][RESHARD_LOST + 1]["t_end"] - t_kill
                        if t_kill is not None else None),
+        "detection_s": (t_detect - t_kill if None not in (t_kill, t_detect)
+                        else None),
+        "recovery_after_detection_s": (
+            by_step[0][RESHARD_LOST + 1]["t_end"] - t_detect
+            if t_detect is not None else None),
+        "watchdog_s": RESHARD_WATCHDOG_S,
+        "heartbeat_max_gap_s": gaps,
+        "master_start_s": marks.get("master_start_s"),
+        # the first master's crash to the second's restore, and the
+        # restore to the end of the next step of any rank
+        "crash_to_restored_s": (t_restored - t_crash
+                                if None not in (t_crash, t_restored)
+                                else None),
+        "restored_to_next_step_s": min(
+            (r["t_end"] - t_restored for r in all_steps
+             if t_restored is not None and r["t_end"] > t_restored),
+            default=None),
+        # each rank's outage: the restore to its reconnection, and the
+        # end of its last step before the crash was noticed to then
+        "restored_to_reconnected_s": {
+            n: [e["ts"] - t_restored for e in events
+                if e["kind"] == "agent.master_reconnected"
+                and e.get("pid") == res["pid"] and t_restored is not None]
+            for n, res in results.items()},
+        "master_restored": restored[0]["data"] if restored else None,
+        "goodput_faults": [f.get("cause") for f in
+                           goodput_state.get("faults", [])],
+        "scale_plans": plans,
         # of which the gate's box sums after the shrink
         "checks_s": shrink["checks_s"],
         # the final world-2 save restored at world 2 (rank: step, tier,
@@ -5821,15 +6107,16 @@ def run_reshard(layers: int = RESHARD_LAYERS, device=None,
                                "grow node 2": grow2["parts"]},
         "moves": moves, "planted_moves": shrink.get("planted_stats"),
         "planted_caught": planted_caught,
-        # the joiner's start (spawn to ready: the process on the card),
-        # and its RUNNING report to its first step; spawn to first step
-        # less the wait for the survivor between them
-        "joiner_spawn_to_ready_s": marks["ready2"] - marks["spawn2"],
+        # the joiner's start (request_scale to ready: the master's
+        # launch and the process on the card), its RUNNING report to its
+        # first step, and request_scale to its first step (the wait for
+        # the survivor's world-1 steps included)
+        "joiner_request_to_ready_s": (marks["ready2"]
+                                      - marks["request_scale"]),
         "joiner_running_to_first_step_s": (results[2]["first_step_ts"]
                                            - results[2]["running_ts"]),
-        "joiner_spawn_to_first_step_s": (
-            marks["ready2"] - marks["spawn2"] + results[2]["first_step_ts"]
-            - results[2]["running_ts"]),
+        "request_scale_to_first_step_s": (results[2]["first_step_ts"]
+                                          - marks["request_scale"]),
         "step_ms": [(r["step"], r["world"], r["ms"]) for r in all_steps],
         "save_s": [(r["step"], r["world"], r["save_s"])
                    for r in all_steps],
@@ -5843,6 +6130,7 @@ def run_reshard(layers: int = RESHARD_LAYERS, device=None,
         "params": params,
         "replay": {"survivor_reshard_s": reshard_s,
                    "restart_s": sorted(restart_s.values()),
+                   "master_outage_s": sorted(allowed.values()),
                    "faults": [f["cause"] for f in report["faults"]]},
         "launches": {k: sum(r["launches"][k] for r in all_steps)
                      for k in REPLACES},
@@ -5855,7 +6143,8 @@ def run_reshard(layers: int = RESHARD_LAYERS, device=None,
 def phase_reshard() -> dict:
     """Reshard-in-place on the card (the docstring's phase 19): a lost and
     a joined rank as in-process fsdp transitions of the llama_1b step
-    across two gloo ranks on ``cuda:0``."""
+    across two gloo ranks on ``cuda:0``, under the port's distributed
+    master, which crashes and is restored from its journal."""
     import torch
 
     gc.collect()
@@ -5865,6 +6154,7 @@ def phase_reshard() -> dict:
     emit({"phase": "reshard", "model": "llama_1b", "layers": RESHARD_LAYERS,
           "strategy": "fsdp", "batch_per_dp_rank": SLICE["b"],
           "seq": SLICE["s"], "lost_at": RESHARD_LOST,
+          "master": "process", "master_crash_at": RESHARD_MASTER_CRASH,
           "backend": "gloo", "phase_s": time.time() - t0,
           **got["readings"], "nvidia_smi": nvidia_smi_line()})
     if got["failed"]:

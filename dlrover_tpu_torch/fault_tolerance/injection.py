@@ -56,11 +56,24 @@ Two triggers:
                                     the node-running path and the
                                     coordinator cuts a grow order.
 
-  The JAX package's other kinds (``master_crash``, ``serve_kill``)
-  parse the same way, but a due one raises ``NotImplementedError``
-  naming the module that acts on it (:data:`WAITS_FOR`): the
-  distributed master and serving are not ported yet (ROADMAP.md,
-  queue A).
+  - ``master_crash@5`` / ``master_crash@5:2``  kill the JOB MASTER
+                                    (rc 28, :data:`MASTER_CRASH_EXIT_CODE`)
+                                    once the reported global step
+                                    reaches 5, after an optional 2 s
+                                    delay, with ``os._exit``: no atexit
+                                    hook and no flush, so the state
+                                    journal must already be durable.
+                                    Master-side only: the distributed
+                                    master's run loop arms its own
+                                    injector (``role="master"``), and
+                                    injectors of other roles drop the
+                                    kind, so one shared spec can name
+                                    master and worker faults.
+
+  The JAX package's ``serve_kill`` parses the same way, but a due one
+  raises ``NotImplementedError`` naming the module that acts on it
+  (:data:`WAITS_FOR`): serving is not ported yet (ROADMAP.md, queue
+  A.3).
 
   Where the JAX ``preempt`` sleeps after its SIGTERM until the drain or
   the reclaim ends the process, the port's returns: the drain inside a
@@ -107,9 +120,16 @@ CORRUPTION_KINDS = frozenset({"nan", "sdc"})
 #: spec loses (or joins) exactly one node rank of a multi-worker drill
 RESHARD_KINDS = frozenset({"node_lost", "node_join"})
 
+#: kinds executed by the MASTER's run loop, not a worker training loop
+MASTER_KINDS = frozenset({"master_crash"})
+
+#: distinct from a worker crash (17) and a deliberate job failure
+#: (master/main.py JOB_FAILED_EXIT_CODE=3): the operator should see a
+#: master CRASH and relaunch it against the same state dir
+MASTER_CRASH_EXIT_CODE = 28
+
 #: the JAX package's module that acts on each kind not acted on here
 WAITS_FOR = {
-    "master_crash": "master/dist_master.py",
     "serve_kill": "serving/worker.py",
 }
 
@@ -215,9 +235,11 @@ class FaultInjector:
         node_rank: int = 0,
         restart_count: int = 0,
         poll_every: int = 10,
+        role: str = "worker",
     ):
+        self._role = role
         self._node_rank = node_rank
-        self._faults = self._host_filter(parse_spec(spec) if spec else [])
+        self._faults = self._role_filter(parse_spec(spec) if spec else [])
         # first-incarnation gating for env faults
         if restart_count > 0:
             self._faults = [
@@ -226,11 +248,16 @@ class FaultInjector:
         self._client = master_client
         self._poll_every = max(1, poll_every)
 
-    def _host_filter(self, faults: List[Fault]) -> List[Fault]:
-        """Corruption kinds, ``crash`` and the reshard kinds honor
-        ``host=H``, so one shared spec hits exactly one node rank."""
+    def _role_filter(self, faults: List[Fault]) -> List[Fault]:
+        """One spec may target both sides: each injector keeps only the
+        kinds its role executes (a worker must not die on a
+        master_crash, nor the master on a worker crash). Corruption
+        kinds, ``crash`` and the reshard kinds honor ``host=H``, so one
+        shared spec hits exactly one node rank."""
         kept = []
         for f in faults:
+            if (f.kind in MASTER_KINDS) != (self._role == "master"):
+                continue
             if (f.kind in CORRUPTION_KINDS or f.kind == "crash"
                     or f.kind in RESHARD_KINDS):
                 host = _arg_kv(f.arg, "host")
@@ -240,7 +267,8 @@ class FaultInjector:
         return kept
 
     @classmethod
-    def from_env(cls, master_client=None) -> Optional["FaultInjector"]:
+    def from_env(cls, master_client=None,
+                 role: str = "worker") -> Optional["FaultInjector"]:
         """Build from the process env; None when nothing is configured
         and there is no master to poll."""
         spec = os.environ.get(ENV_SPEC, "")
@@ -253,6 +281,7 @@ class FaultInjector:
             restart_count=int(
                 os.environ.get(NodeEnv.RESTART_COUNT, "0")
             ),
+            role=role,
         )
 
     # -- trigger -----------------------------------------------------------
@@ -308,7 +337,7 @@ class FaultInjector:
             self._client.kv_store_set(
                 f"{KV_PREFIX}/{self._node_rank}", b""
             )
-            self._faults.extend(self._host_filter(parse_spec(raw.decode())))
+            self._faults.extend(self._role_filter(parse_spec(raw.decode())))
         except Exception as e:
             logger.warning("fault-inject poll failed: %s", e)
 
@@ -335,6 +364,20 @@ class FaultInjector:
                      else _arg_kv(fault.arg, "rc") or 17)
             print(f"INJECTED CRASH rc={rc} at step {step}", flush=True)
             os._exit(rc)
+        elif fault.kind == "master_crash":
+            # arg = optional delay in seconds: lets a drill kill the
+            # master mid-flight rather than exactly on a step boundary
+            delay = float(fault.arg) if fault.arg else 0.0
+            if delay > 0:
+                time.sleep(delay)
+            print(
+                f"INJECTED MASTER CRASH rc={MASTER_CRASH_EXIT_CODE} "
+                f"at step {step}", flush=True,
+            )
+            # os._exit, not sys.exit: a real eviction gives no chance
+            # to run atexit hooks or flush managers — the journal must
+            # already be durable from its write-through path
+            os._exit(MASTER_CRASH_EXIT_CODE)
         elif fault.kind == "hang":
             duration = float(fault.arg) if fault.arg else float("inf")
             print(f"INJECTED HANG at step {step}", flush=True)

@@ -17,8 +17,10 @@ goodput aggregator (telemetry/goodput.py) fed by ``report_global_step``,
 the status report's goodput section and ``report_goodput``, with the
 preemption and rollback windows noted and closed for MTTR, and the job
 metric collector (master/stats) fed by the dataset, task, step and
-``report_model_info`` / ``report_custom_data`` calls. Not ported yet
-(ROADMAP.md, queue A), each answered with the same "unknown RPC method"
+``report_model_info`` / ``report_custom_data`` calls; and the
+distributed master's ``request_scale``, through its auto-scaler's
+``manual_scale`` (refused without one, as on the local master). Not
+ported yet (ROADMAP.md, queue A), each answered with the same "unknown RPC method"
 error as an RPC that does not exist: serving (``serve_*``), the relay
 batch and fleet digests. ``report_reshard`` carries a mesh transition's
 progress to a ``TransitionCoordinator`` (reshard/) when the servicer
@@ -121,6 +123,7 @@ class MasterServicer:
         job_metric_collector=None,
         goodput_aggregator=None,
         transition_coordinator=None,
+        auto_scaler=None,
     ):
         self._task_manager = task_manager
         self._job_manager = job_manager
@@ -136,13 +139,12 @@ class MasterServicer:
         self._goodput = goodput_aggregator
         # reshard-in-place (reshard/coordinator.py); None falls back
         # to restart-the-world for every scale event. The local master
-        # builds none, as in JAX; the distributed master (not ported,
-        # ROADMAP.md queue A) is where JAX builds it, so until then a
-        # caller that wants online transitions builds the servicer with
-        # one and plays the distributed master's part: note_node_lost
-        # on a rank's exit, check_abort on its tick, seal_world after
-        # the first round
+        # builds none, as in JAX; the distributed master builds one
+        # when DLROVER_TPU_RESHARD=1
         self._transition_coordinator = transition_coordinator
+        # the distributed master's AllreduceTrainingAutoScaler (None on
+        # the local master): request_scale retargets the job through it
+        self._auto_scaler = auto_scaler
         self._start_training_time = 0.0
         self.run_configs = {}
         # ranks with an announced preemption in flight: their next
@@ -435,12 +437,17 @@ class MasterServicer:
 
     def rpc_request_scale(self, req: comm.ScaleRequest) -> comm.Response:
         """Operator-requested manual scaling (parity: the ScalePlan
-        CRD's manualScaling consumed by the reference master). The
-        port's master has no auto-scaler yet, so the request is refused
-        as the JAX package's local master refuses it."""
-        return comm.Response(
-            success=False, reason="no auto scaler (local master?)"
+        CRD's manualScaling consumed by the reference master)."""
+        if self._auto_scaler is None:
+            return comm.Response(
+                success=False, reason="no auto scaler (local master?)"
+            )
+        ok = self._auto_scaler.manual_scale(req.node_num)
+        record(
+            "scale.request", source="rpc", node_num=req.node_num,
+            accepted=bool(ok),
         )
+        return comm.Response(success=bool(ok))
 
     # ------------------------------------------------------------- kv store
 
@@ -907,6 +914,7 @@ def create_master_service(
     job_metric_collector=None,
     goodput_aggregator=None,
     transition_coordinator=None,
+    auto_scaler=None,
 ):
     """Build the RPC server around a MasterServicer
     (parity: servicer.py:478)."""
@@ -921,6 +929,7 @@ def create_master_service(
         job_metric_collector=job_metric_collector,
         goodput_aggregator=goodput_aggregator,
         transition_coordinator=transition_coordinator,
+        auto_scaler=auto_scaler,
     )
     server = GenericRpcServer(servicer.handle, port=port)
     return server, servicer

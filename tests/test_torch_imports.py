@@ -89,6 +89,18 @@ def test_the_reshard_and_state_modules_are_under_the_rule():
             "examples/stream_train.py"} <= ported
 
 
+def test_the_distributed_master_is_under_the_rule():
+    ported = {str(p.relative_to(PORT)) for p in FILES if p.is_relative_to(PORT)}
+    assert {"master/dist_master.py", "master/scaler/base_scaler.py",
+            "master/scaler/process_scaler.py",
+            "master/watcher/base_watcher.py", "master/resource/optimizer.py",
+            "master/resource/local_optimizer.py",
+            "master/node/status_flow.py", "master/node/training_node.py",
+            "master/node/dist_job_manager.py",
+            "master/node/job_auto_scaler.py", "scheduler/__init__.py",
+            "scheduler/job_spec.py", "scheduler/factory.py"} <= ported
+
+
 def test_the_optimizers_are_under_the_rule():
     ported = {str(p.relative_to(PORT)) for p in FILES if p.is_relative_to(PORT)}
     assert {"optim/__init__.py", "optim/bf16.py", "optim/optimizers.py",
@@ -155,6 +167,11 @@ TORCH_FREE = (
     "dlrover_tpu_torch.agent.monitor.resource",
     "dlrover_tpu_torch.master.main",
     "dlrover_tpu_torch.master.local_master",
+    # the distributed master and its platform
+    "dlrover_tpu_torch.master.dist_master",
+    "dlrover_tpu_torch.master.scaler.process_scaler",
+    "dlrover_tpu_torch.master.node.job_auto_scaler",
+    "dlrover_tpu_torch.scheduler.factory",
     "dlrover_tpu_torch.agent.elastic.training",
     "dlrover_tpu_torch.agent.elastic.network_check",
     "dlrover_tpu_torch.trainer.elastic_run",

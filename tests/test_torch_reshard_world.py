@@ -1,12 +1,15 @@
 """Reshard-in-place across gloo CPU ranks, held to the JAX trainer.
 
 ``chip_smoke.run_reshard(device="cpu")`` runs phase "reshard"'s logic on
-llama_tiny: two gloo ranks under fsdp with a local master whose servicer
-holds a ``TransitionCoordinator``; ``node_lost@3:host=1`` SIGKILLs rank 1
-after its step-3 save is durable, rank 0 takes the shrink (2 -> 1) in
-process (its half live, rank 1's from the store), trains two steps, and
-a joiner grows the world back (1 -> 2) over rank 0's RAM tier, two steps
-more. Its own gates: each migrated state bitwise a fresh
+llama_tiny: two gloo ranks under fsdp and the port's distributed master
+(``--platform process``, ``DLROVER_TPU_RESHARD=1``);
+``node_lost@3:host=1`` SIGKILLs rank 1 after its step-3 save is durable,
+the master's heartbeat watchdog declares it lost, rank 0 takes the
+shrink (2 -> 1) in process (its half live, rank 1's from the store),
+trains two steps, and a joiner the master's process scaler launches on
+``request_scale`` grows the world back (1 -> 2) over rank 0's RAM tier,
+two steps more, through the master's crash and its restore from the
+journal. Its own gates: each migrated state bitwise a fresh
 ``restore(step=pinned)``, the steps after it against the port's
 one-process step, the survivor's pid, the journal's reshard window, the
 move stats, a planted stale-live migration failing the bitwise gate.
@@ -14,8 +17,9 @@ move stats, a planted stale-live migration failing the bitwise gate.
 Here the steps after each transition are also held to the JAX fsdp
 trainer started from the same pinned state (numpy, in the JAX tree's
 coordinates) on the same global rows: losses within 1e-3 relative and
-phase "mesh"'s parameter rule. The JAX side runs in a spawned worker,
-started before the ranks, as ``test_torch_strategies.py`` does."""
+phase "mesh"'s parameter rule. The JAX side runs in two spawned
+workers, one a transition, started before the ranks, as
+``test_torch_strategies.py`` does."""
 
 import multiprocessing
 from concurrent.futures import ProcessPoolExecutor
@@ -57,9 +61,8 @@ def _jax_trainer(accum):
     return _JAX[accum]
 
 
-def _warm():
-    for accum in set(TRANSITIONS.values()):
-        _jax_trainer(accum)
+def _warm(accum):
+    _jax_trainer(accum)
 
 
 def _jax_steps(pinned, rows, accum):
@@ -116,19 +119,25 @@ def _jax_steps(pinned, rows, accum):
 
 @pytest.fixture(scope="module")
 def run():
-    pool = ProcessPoolExecutor(
+    # one spawned JAX worker a transition, each warmed while the ranks run
+    pools = {what: ProcessPoolExecutor(
         1, mp_context=multiprocessing.get_context("spawn"))
+        for what in TRANSITIONS}
     try:
-        warm = pool.submit(_warm)
+        warm = [pools[what].submit(_warm, accum)
+                for what, accum in TRANSITIONS.items()]
         got = chip_smoke.run_reshard(LAYERS, device="cpu")
-        warm.result()
+        for f in warm:
+            f.result()
         jax_runs = {
-            what: pool.submit(_jax_steps, got["pinned"][what]["numpy"],
-                              got["pinned"][what]["rows"], accum)
+            what: pools[what].submit(_jax_steps,
+                                     got["pinned"][what]["numpy"],
+                                     got["pinned"][what]["rows"], accum)
             for what, accum in TRANSITIONS.items()}
         got["jax"] = {what: f.result() for what, f in jax_runs.items()}
     finally:
-        pool.shutdown(wait=True)
+        for pool in pools.values():
+            pool.shutdown(wait=True)
     return got
 
 
@@ -141,6 +150,12 @@ def test_shrink_and_grow_pass_the_phase_gates(run):
     assert r["planted_caught"]
     assert r["failed_step"] == chip_smoke.RESHARD_LOST + 1
     assert run["results"][0]["pid"] == run["results"][0]["pid_end"]
+    # the master's part: the watchdog's verdict, one launch, the restore
+    assert r["detection_s"] >= (chip_smoke.RESHARD_WATCHDOG_S
+                                - chip_smoke.RESHARD_HB_INTERVAL_S)
+    assert [(p["launch"], p["remove"]) for p in r["scale_plans"]] == [(1, 0)]
+    assert r["master_restored"]["global_step"] >= 1
+    assert r["goodput_faults"].count("master_restart") == 1
 
 
 def test_migrated_states_are_the_restored_step_bitwise(run):

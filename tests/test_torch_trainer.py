@@ -243,13 +243,17 @@ def test_accum_bf16_model_matches_jax():
     value (3.4e-3 at most measured), and 98% of the elements within one
     bf16 step (98.7% measured). The optimizer's own arithmetic is held
     exactly by test_fp32_grad_adamw_matches_optax_on_bf16."""
+    from tests.test_torch_strategies import _cheap_codegen
+
     lr = 1e-3
     jcfg = jax_llama.llama_tiny(dtype=jnp.bfloat16, remat="off")
     mesh = create_mesh([("data", 1)], devices=[jax.devices()[0]])
-    jtrainer = jax_make_trainer(
-        jcfg, mesh, strategy="ddp", accum_steps=2,
-        optimizer=optax.adamw(lr, b1=0.9, b2=0.95))
-    params, opt_state = jtrainer.init(jax.random.key(0))
+    with _cheap_codegen():
+        jtrainer = jax_make_trainer(
+            jcfg, mesh, strategy="ddp", accum_steps=2,
+            optimizer=optax.adamw(lr, b1=0.9, b2=0.95))
+        params, opt_state = jtrainer.init(jax.random.key(0))
+        _ = jtrainer.train_step
     start = jax.tree.map(np.array, params)
     batches = _batches(llama.llama_tiny(), 2)
     jax_losses = []
